@@ -1,0 +1,64 @@
+"""Building and loading the port's hand-written GPU kernels.
+
+CUDA C++ sources are compiled by ``nvcc`` at first use into a shared
+library with a plain C interface, loaded with ``ctypes``.  Triton kernels
+compile at their first launch.  Both land in ``build/`` at the root of the
+checkout (gitignored): the library is named by a hash of its source and
+flags, so an edited source rebuilds and an unchanged one is reused.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_library(src: Path) -> ctypes.CDLL:
+    """Compile ``src`` (once per content hash) and load it."""
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if not out.exists():
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not Path(nvcc).exists():
+            raise RuntimeError(f"nvcc not found; cannot build {src.name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, out)      # atomic: no process loads a half-written file
+    return ctypes.CDLL(str(out))
+
+
+def import_triton():
+    """Import Triton at first launch (CPU-only installs lack it), with its
+    compile cache kept under ``build/`` unless the caller chose another."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+    return triton, tl
+
+
+def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """Raise on what the CUDA kernels do not take: tensors off the card,
+    mixed devices or dtypes, or a graph that would need a backward kernel."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on one CUDA device")
+        if t.dtype != dt:
+            raise ValueError(f"{name}: mixed dtypes {dt} and {t.dtype}")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise NotImplementedError(f"{name}: the kernel has no backward; "
+                                      "call it under torch.no_grad()")

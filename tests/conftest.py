@@ -13,3 +13,8 @@ import pytest
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on a machine without one")

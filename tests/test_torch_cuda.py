@@ -1,0 +1,110 @@
+"""The port's hand-written kernels against their plain PyTorch versions on
+a CUDA card, and the kernel path of the sampler against its plain path.
+
+Every test here is marked ``cuda`` and skips (deciding inside the test)
+where there is no card.  The file imports neither jax nor the JAX package,
+so it also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import copy
+
+import pytest
+import torch
+
+from repro_torch.configs.oscar import DiffusionConfig
+from repro_torch.diffusion.dit import DiT
+from repro_torch.diffusion.sampler import sample_cfg
+from repro_torch.diffusion.schedule import make_schedule
+from repro_torch.kernels.adaln_norm import ops as an_ops
+from repro_torch.kernels.adaln_norm import ref as an_ref
+from repro_torch.kernels.cfg_fuse import ops as cfg_ops
+from repro_torch.kernels.cfg_fuse import ref as cfg_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.utils import default_device
+    return default_device()
+
+
+def _randn(dev, seed, *shapes):
+    g = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev) for s in shapes]
+
+
+def _err(a, b):
+    return float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(128, 16, 16, 3), (3, 5, 7)])
+def test_cfg_update_kernel_matches_plain(dev, shape):
+    x, ec, eu, z = _randn(dev, 0, shape, shape, shape, shape)
+    before = cfg_ops.cfg_update.launches
+    for ab_t, ab_prev in [(2.4288882e-09, 0.24600048), (0.3, 0.6)]:
+        out = cfg_ops.cfg_update(x, ec, eu, 2.0, ab_t, ab_prev, z)
+        ref = cfg_ref.cfg_update(x, ec, eu, 2.0, ab_t, ab_prev, z)
+        assert _err(out, ref) <= 1e-6
+    assert cfg_ops.cfg_update.launches == before + 2
+
+
+@pytest.mark.parametrize("B,N,d", [(256, 17, 144), (256, 16, 144),
+                                   (256, 17, 128)])
+def test_adaln_norm_kernel_matches_plain(dev, B, N, d):
+    x, mod = _randn(dev, 1, (B, N + 1, d), (B, 6 * d))
+    x, sc, sh = x[:, 1:], mod[:, d:2 * d], mod[:, :d]   # strided, as in the DiT
+    assert _err(an_ops.adaln_norm(x, sc, sh), an_ref.adaln_norm(x, sc, sh)) \
+        < 1e-5
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(256, 17, 4, 36), (256, 17, 4, 32),
+                                      (4, 3137, 4, 32), (2, 40, 2, 128)])
+def test_attention_kernel_matches_plain(dev, B, S, H, hd):
+    (qkv,) = _randn(dev, 2, (B, S, 3, H, hd))
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = fa_ops.flash_attention(q, k, v, causal=False)
+    ref = fa_ref.attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=False).transpose(1, 2)
+    assert _err(out, ref) < 2e-5
+
+
+def test_attention_kernel_refuses_unported_modes(dev):
+    q, k, v = _randn(dev, 3, (1, 8, 2, 16), (1, 8, 2, 16), (1, 8, 2, 16))
+    for kw in (dict(causal=True), dict(causal=False, window=4),
+               dict(causal=False, softcap=30.0)):
+        with pytest.raises(NotImplementedError):
+            fa_ops.flash_attention(q, k, v, **kw)
+    with pytest.raises(NotImplementedError):
+        fa_ops.flash_attention(q, k[:, :, :1], v[:, :, :1], causal=False)
+
+
+def test_sample_cfg_kernel_path_matches_plain(dev):
+    """The kernel path against a copy of the model that runs the plain DiT,
+    on the same x_T and noise.  Both take the cfg_update kernel, which is
+    bit-equal to its plain version (``test_cfg_update_kernel_matches_plain``
+    at the first step of this trajectory)."""
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
+    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
+                device=dev)
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
+    plain = copy.deepcopy(model)
+    plain.plain = True
+    y, x_T, noise = _randn(dev, 4, (8, 512), (8, 16, 16, 3),
+                           (4, 8, 16, 16, 3))
+    sched = make_schedule(device=dev)
+    fns = (cfg_ops.cfg_update, an_ops.adaln_norm, fa_ops.flash_attention)
+    before = [f.launches for f in fns]
+    out = sample_cfg(model, sched, y, num_steps=4, x_T=x_T, noise=noise)
+    assert [f.launches - b for f, b in zip(fns, before)] == [4, 4 * 5, 4 * 2]
+    ref = sample_cfg(plain, sched, y, num_steps=4, x_T=x_T, noise=noise)
+    assert [f.launches - b for f, b in zip(fns, before)] == [8, 4 * 5, 4 * 2]
+    assert float(ref.abs().max()) > 1e-3
+    assert _err(out, ref) < 5e-4

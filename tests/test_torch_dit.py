@@ -1,0 +1,116 @@
+"""The port's DiT against the JAX package's ``dit_apply``.
+
+Parameters come from the reference ``init_dit``, perturbed 0.05·normal
+(adaLN-zero init makes the output exactly 0, which would make the parity
+vacuous), and cross over through ``repro_torch.convert``.  The gate is the
+reference's own fused-vs-naive gate: 2e-5 per call in fp32.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.oscar import DiffusionConfig as JDiffusionConfig
+from repro.diffusion import dit as jdit
+from repro_torch.configs.oscar import DiffusionConfig
+from repro_torch.convert import dit_state_from_jax
+from repro_torch.diffusion import dit as tdit
+
+TOL = 2e-5
+
+
+def perturbed_params(dc, image_size, channels=3, seed=0, scale=0.05):
+    params = jdit.init_dit(jax.random.PRNGKey(seed), dc, image_size, channels)
+    leaves, treedef = jax.tree.flatten(params)
+    keys = jax.random.split(jax.random.PRNGKey(seed + 1), len(leaves))
+    return jax.tree.unflatten(treedef, [
+        a + scale * jax.random.normal(k, a.shape, a.dtype)
+        for a, k in zip(leaves, keys)])
+
+
+def port_model(params, dc_kwargs, image_size, channels=3):
+    model = tdit.DiT(DiffusionConfig(**dc_kwargs), image_size, channels,
+                     device="cpu")
+    model.load_state_dict(dit_state_from_jax(jax.tree.map(np.asarray, params)))
+    return model
+
+
+def test_patchify_roundtrip_equals_reference():
+    (x,) = [np.random.default_rng(0).standard_normal((2, 16, 8, 3))
+            .astype(np.float32)]
+    for p in (2, 4):
+        ref = np.asarray(jdit.patchify(jnp.asarray(x), p))
+        tok = tdit.patchify(torch.from_numpy(x), p)
+        assert np.array_equal(tok.numpy(), ref)
+        back = tdit.unpatchify(tok, p, 16, 8, 3)
+        assert np.array_equal(back.numpy(),
+                              np.asarray(jdit.unpatchify(jnp.asarray(ref), p,
+                                                         16, 8, 3)))
+        assert np.array_equal(back.numpy(), x)
+
+
+def test_timestep_embedding_matches_reference():
+    t = np.arange(0, 1000, 7, dtype=np.int32)
+    for dim in (32, 48, 144):
+        ref = np.asarray(jdit.timestep_embedding(jnp.asarray(t), dim))
+        port = tdit.timestep_embedding(torch.from_numpy(t), dim).numpy()
+        # XLA's and torch's float32 exp differ by an ulp on a few
+        # frequencies; at t ≈ 1000 that moves the angle by ~6e-5.
+        assert np.max(np.abs(port - ref)) < 1e-4
+
+
+def test_state_dict_covers_every_reference_leaf():
+    dc = dict(d_model=32, num_layers=2, num_heads=2)
+    params = perturbed_params(JDiffusionConfig(**dc), 16)
+    state = dit_state_from_jax(jax.tree.map(np.asarray, params))
+    assert len(state) == len(jax.tree.leaves(params))
+    assert set(state) == set(port_model(params, dc, 16).state_dict())
+
+
+@pytest.mark.parametrize("d,layers,heads,patch,B,null_y", [
+    (48, 2, 4, 4, 3, False),    # S = 17, head dim 12
+    (48, 2, 4, 4, 3, True),     # y = None → the learned null embedding Ø
+    (36, 1, 1, 4, 2, False),    # head dim 36 (the paper preset's)
+    (32, 1, 2, 2, 2, True),     # S = 65
+])
+def test_dit_matches_both_reference_paths(d, layers, heads, patch, B, null_y):
+    dc = dict(d_model=d, num_layers=layers, num_heads=heads, patch=patch)
+    jdc = JDiffusionConfig(**dc)
+    params = perturbed_params(jdc, 16)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((B, 16, 16, 3)).astype(np.float32)
+    t = rng.integers(0, 1000, B).astype(np.int32)
+    y = None if null_y else rng.standard_normal((B, 512)).astype(np.float32)
+    jy = None if y is None else jnp.asarray(y)
+    naive = np.asarray(jdit.dit_apply(params, jdc, jnp.asarray(x),
+                                      jnp.asarray(t), jy))
+    fused = np.asarray(jdit.dit_apply(params, jdc, jnp.asarray(x),
+                                      jnp.asarray(t), jy, use_pallas=True))
+    assert np.max(np.abs(naive)) > 1e-3, "vacuous parity"
+    model = port_model(params, dc, 16)
+    with torch.no_grad():
+        ty = None if y is None else torch.from_numpy(y)
+        out = model(torch.from_numpy(x), torch.from_numpy(t), ty).numpy()
+        model.plain = True
+        plain = model(torch.from_numpy(x), torch.from_numpy(t), ty).numpy()
+    assert np.max(np.abs(out - naive)) < TOL
+    assert np.max(np.abs(out - fused)) < TOL
+    assert np.array_equal(out, plain)       # on the CPU both are plain
+
+
+def test_bf16_act_is_not_ported():
+    model = tdit.DiT(DiffusionConfig(d_model=32, num_layers=1, num_heads=2,
+                                     bf16_act=True), 16, 3, device="cpu")
+    with pytest.raises(NotImplementedError):
+        model(torch.zeros(1, 16, 16, 3), torch.zeros(1, dtype=torch.int64))
+
+
+def test_port_init_is_adaln_zero():
+    model = tdit.DiT(DiffusionConfig(d_model=32, num_layers=1, num_heads=2),
+                     16, 3, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    with torch.no_grad():
+        out = model(torch.randn(2, 16, 16, 3),
+                    torch.tensor([3, 900]), torch.randn(2, 512))
+    assert torch.count_nonzero(out) == 0
