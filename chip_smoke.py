@@ -16,11 +16,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      weights perturbed 0.05·normal: kernel path against plain path;
   4. the slice: federated data → client encodings → D_syn synthesis
      (6 clients × 10 categories × 30 samples, 50 steps, guidance 2.0,
-     waves of 128), three times, with launch counts checked against the
-     path each time, then a 4-step wave on the kernel path against the plain
-     DiT on the same draws;
+     waves of at most 128: 15 waves of 120), three times from one
+     threefry key, with launch counts checked against the path each time,
+     then a 4-step wave on the kernel path against the plain DiT on the
+     same draws;
   5. one 128-row wave through ``synthesize`` under the profiler: the
-     device's busy time in the trace against the wave's wall time.
+     device's busy time in the trace against the wave's wall time;
+  6. ragged synthesis at the same width: the same 60 uploads at mixed
+     (guidance, steps) — (1.5, 50), (4.0, 50), (7.5, 25), (1.5, 25) in
+     turn, 30 samples each — through the engine as one-shot ragged waves
+     and as fully compacted waves, three rounds each, with row-iteration
+     and launch counts checked; ragged against compacted D_syn; one wave
+     as two windows against the whole wave; a 4-step ragged wave on the
+     kernel path against the plain DiT; the cost of the threefry draws.
 The last line is the result; the line before it names the card.
 Imports nothing of JAX or of the JAX package.
 """
@@ -40,7 +48,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 TOL_CFG, TOL_ADALN, TOL_ATTN = 1e-6, 1e-5, 2e-5
-TOL_DIT, TOL_E2E = 2e-5, 5e-4
+TOL_DIT, TOL_E2E, TOL_E2E_DEEP = 2e-5, 5e-4, 2e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -101,12 +109,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import prng
     from repro_torch.configs.oscar import DataConfig, DiffusionConfig
-    from repro_torch.core import oscar as core_oscar
     from repro_torch.core.oscar import client_encodings, synthesize
     from repro_torch.data.federated import make_federated_data
+    from repro_torch.diffusion import guidance as guid
     from repro_torch.diffusion.dit import DiT
-    from repro_torch.diffusion.sampler import sample_cfg
+    from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
+                                               sample_cfg_window)
     from repro_torch.diffusion.schedule import make_schedule
     from repro_torch.encoders.foundation import FrozenFM
     from repro_torch.kernels.adaln_norm import ops as an_ops
@@ -117,6 +127,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.serve import synthesis as serve_synthesis
+    from repro_torch.serve.synthesis import SynthesisEngine
     from repro_torch.utils import default_device
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -138,10 +150,13 @@ def main() -> int:
     small = randn(2, 4, 8)
     an_ops.adaln_norm(small, randn(2, 8), randn(2, 8))
     cfg_ops.cfg_update(small, small, small, 2.0, 0.5, 0.7, small)
+    one = np.ones(2, np.float32)
+    cfg_ops.cfg_update_rowwise(small, small, small, one, 0.5 * one, 0.7 * one,
+                               small, one)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     say(f"[1] build: nvcc flash_attention {t_nvcc:.2f} s, triton adaln_norm "
-        f"+ cfg_update first launch {t_triton:.2f} s")
+        f"+ cfg_update + cfg_update_rowwise first launch {t_triton:.2f} s")
 
     # -- 2. kernels against their plain versions -----------------------------
     kernels = {}
@@ -185,6 +200,61 @@ def main() -> int:
            lambda: cfg_ops.cfg_update(x, ec, eu, 2.0, abt, abp, z),
            lambda: cfg_ref.cfg_update(x, ec, eu, 2.0, abt, abp, z), None,
            5 * 4 * n, 13 * n, [128, 16, 16, 3])
+
+    # cfg_update_rowwise: a 120-row ragged wave, (120, 16, 16, 3), rows in
+    # turn at the t = 999 first step of a 4-step trajectory, the first step
+    # of a 50-step one, a mid step and frozen; then windows at row_offset 0
+    # and > 0 of a wider (240-slot) table; then the refusal of a window
+    # that leaves the table
+    def rowwise_table(Bs):
+        rows = [(2.0, steps[0][0], steps[0][1], 1.0),
+                (7.5, steps[1][0], steps[1][1], 1.0),
+                (1.5, float(ab[500]), float(ab[480]), 1.0),
+                (4.0, float(ab[999]), float(ab[979]), 0.0)]
+        return [np.array(c, np.float32)
+                for c in zip(*(rows[i % 4] for i in range(Bs)))]
+
+    def plain_rowwise(x, ec, eu, dvecs, z, off):
+        s_, t_, p_, a_ = dvecs       # the same scalars, on the card
+        return cfg_ref.cfg_update_rowwise_windowed(x, ec, eu, s_, t_, p_, z,
+                                                   a_, row_offset=off)
+
+    def on_card(vecs):
+        return [torch.as_tensor(v, device=dev) for v in vecs]
+
+    checks = []
+    for B, Bs, off in [(120, 120, 0), (120, 240, 0), (120, 240, 120),
+                       (60, 240, 37)]:
+        vecs = rowwise_table(Bs)
+        x, ec, eu, z = (randn(B, 16, 16, 3) for _ in range(4))
+        out = cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], z, vecs[3],
+                                         row_offset=off)
+        ref = plain_rowwise(x, ec, eu, on_card(vecs), z, off)
+        frozen = torch.as_tensor(vecs[3][off:off + B] == 0, device=dev)
+        check(torch.equal(out[frozen], x[frozen]),
+              "cfg_update_rowwise changed a frozen row")
+        checks.append(dict(shape=[B, 16, 16, 3], slots=Bs, row_offset=off,
+                           max_abs_err=max_err(out, ref)))
+    for bad in (-1, len(vecs[0]) - x.shape[0] + 1):
+        try:
+            cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], z, vecs[3],
+                                       row_offset=bad)
+        except ValueError:
+            continue
+        check(False, f"cfg_update_rowwise took row_offset {bad} of "
+              f"{len(vecs[0])} slots for {x.shape[0]} rows")
+    vecs = rowwise_table(120)
+    x, ec, eu, z = (randn(120, 16, 16, 3) for _ in range(4))
+    table = torch.as_tensor(cfg_ops.rowwise_coeffs(*vecs, 1.0), device=dev)
+    dvecs = on_card(vecs)
+    n = x.numel()
+    record("cfg_update_rowwise", "triton",
+           "src/repro_torch/kernels/cfg_fuse/kernel.py",
+           "src/repro/kernels/cfg_fuse/kernel.py:120", TOL_CFG, checks,
+           lambda: cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], z,
+                                              vecs[3], coeffs=table),
+           lambda: plain_rowwise(x, ec, eu, dvecs, z, 0), None,
+           5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3])
 
     # adaln_norm: the block sites (B, S, d), the final site (the strided
     # tok[:, 1:] view), the default d_model; scale/shift are strided
@@ -291,27 +361,31 @@ def main() -> int:
     t_enc = time.perf_counter() - t0
     k_samples, wave, num_steps = 30, 128, dc.sample_timesteps
     fns = {"cfg_update": cfg_ops.cfg_update, "adaln_norm": an_ops.adaln_norm,
-           "flash_attention": fa_ops.flash_attention}
+           "flash_attention": fa_ops.flash_attention,
+           "cfg_update_rowwise": cfg_ops.cfg_update_rowwise}
     n_rows = int(present.sum()) * k_samples
-    wave_steps = math.ceil(n_rows / wave) * num_steps
+    n_waves = math.ceil(n_rows / wave)          # near-uniform: 15 of 120
+    wave_steps = n_waves * num_steps
     want = {"cfg_update": wave_steps,
             "flash_attention": wave_steps * dc.num_layers,
-            "adaln_norm": wave_steps * (2 * dc.num_layers + 1)}
-    # per-wave wall times: synthesize's calls of sample_cfg, each timed to
-    # its end on the device
+            "adaln_norm": wave_steps * (2 * dc.num_layers + 1),
+            "cfg_update_rowwise": 0}
+    # per-wave wall times: the engine's sampler calls, each timed to its
+    # end on the device
     wave_walls = []
 
-    def timed_sample_cfg(*args, **kwargs):
-        t = time.perf_counter()
-        out = sample_cfg(*args, **kwargs)
-        torch.cuda.synchronize()
-        wave_walls.append(time.perf_counter() - t)
-        return out
+    def timed(sampler):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = sampler(*args, **kwargs)
+            torch.cuda.synchronize()
+            wave_walls.append(time.perf_counter() - t)
+            return out
+        return call
 
-    core_oscar.sample_cfg = timed_sample_cfg
+    serve_synthesis.sample_cfg = timed(sample_cfg)
     rounds = []
-    # three rounds: the first includes Triton's compiles for the tail
-    # wave's shapes; the other two show the run-to-run spread
+    # three rounds from one key: the same D_syn, and the run-to-run spread
     for rnd in (1, 2, 3):
         for fn in fns.values():
             fn.launches = 0
@@ -320,8 +394,8 @@ def main() -> int:
         wave_walls.clear()
         t0 = time.perf_counter()
         images, labels = synthesize(
-            model, sched, enc, present, k_samples, image_size=16,
-            wave_size=wave, generator=torch.Generator(dev).manual_seed(2))
+            prng.PRNGKey(2), model, sched, enc, present, k_samples,
+            image_size=16, wave_size=wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in fns.items()}
@@ -329,6 +403,7 @@ def main() -> int:
         check(launches == want, f"round {rnd}: launches {launches} != "
               f"expected {want}")
         check(n_rows == 1800, f"{n_rows} D_syn rows, expected 1800")
+        check(len(wave_walls) == n_waves == 15, f"{len(wave_walls)} waves")
         check(tuple(images.shape) == (n_rows, 16, 16, 3),
               f"D_syn shape {tuple(images.shape)}")
         check(bool(torch.isfinite(images).all()), "non-finite D_syn")
@@ -339,15 +414,19 @@ def main() -> int:
                            wall_s=wall, peak_mib=peak / 2**20,
                            wave_walls_s=list(wave_walls)))
         if rnd == 1:
-            for name, count in launches.items():
-                kernels[name]["launches"] = count
+            first_images = images
+            for name in ("cfg_update", "adaln_norm", "flash_attention"):
+                kernels[name]["launches"] = launches[name]
+        else:
+            check(torch.equal(images, first_images),
+                  f"round {rnd}: D_syn differs from round 1's, same key")
             say(f"[4] D_syn: {n_rows} images {tuple(images.shape)} finite in "
                 f"[-1, 1]; encodings {t_enc:.3f} s; launches {launches} == "
                 f"expected")
         say(f"[4] synthesis round {rnd}: {n_rows / wall:.1f} images/s, wall "
             f"{wall:.3f} s, peak memory {peak / 2**20:.1f} MiB, {wave_steps} "
             f"wave-steps ({smi})")
-    core_oscar.sample_cfg = sample_cfg
+    serve_synthesis.sample_cfg = sample_cfg
     rates = [r["images_per_s"] for r in rounds[1:]]
     say(json.dumps({"synthesis": {
         "rounds": rounds, "images": n_rows, "wave_steps": wave_steps,
@@ -371,9 +450,9 @@ def main() -> int:
     # untraced, then under the profiler; the device's busy time is the
     # union of the kernel and copy intervals in the trace
     def one_wave():
-        return synthesize(model, sched, enc[:1], present[:1] & (
-            np.arange(enc.shape[1]) < 4), 32, image_size=16, wave_size=wave,
-            generator=torch.Generator(dev).manual_seed(4))
+        return synthesize(prng.PRNGKey(4), model, sched, enc[:1], present[:1]
+                          & (np.arange(enc.shape[1]) < 4), 32, image_size=16,
+                          wave_size=wave)
 
     check(one_wave()[0].shape[0] == wave, "the traced call is not one wave")
     torch.cuda.synchronize()
@@ -415,6 +494,181 @@ def main() -> int:
         "device_idle_share_of_untraced_wall": 1 - busy * 1e-6 / wave_wall,
         "top_device_us": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
         "dit_call_ms": dit_ms, "dit_device_ms": dit_dev_ms, "card": smi}}))
+
+    # -- 6. ragged synthesis: mixed (guidance, steps) ------------------------
+    # the reference benchmark's mixed workload (benchmarks/
+    # synthesis_throughput.py::_mixed_reqs): the 60 uploads, in (client,
+    # category) order, take these (guidance, steps) in turn, 30 samples each
+    combos = [(1.5, 50), (4.0, 50), (7.5, 25), (1.5, 25)]
+    uploads = [(r, c) for r in range(enc.shape[0])
+               for c in range(enc.shape[1]) if present[r, c]]
+    check(len(uploads) == 60, f"{len(uploads)} uploads, expected 60")
+    key6 = prng.PRNGKey(6)
+
+    def mixed_engine(compaction):
+        eng = SynthesisEngine(model, sched, image_size=16, wave_size=wave,
+                              ragged=True, compaction=compaction)
+        for i, (r, c) in enumerate(uploads):
+            g6, s6 = combos[i % len(combos)]
+            eng.submit(enc[r, c], c, k_samples, guidance=g6, num_steps=s6)
+        return eng
+
+    # the plan the engine must follow: 15 waves of 120 rows in request
+    # order, a running step ceiling, and for compaction each wave's epochs
+    row_steps = np.repeat([combos[i % 4][1] for i in range(60)], k_samples)
+    plan = {"ragged": dict(iters=0, scheduled=0, segments=0),
+            "compacted": dict(iters=0, scheduled=0, segments=0)}
+    smax = 0
+    for w in range(0, n_rows, 120):
+        st_w = row_steps[w:w + 120]
+        smax = max(smax, int(st_w.max()))
+        plan["ragged"]["iters"] += smax
+        plan["ragged"]["scheduled"] += 120 * smax
+        _, epochs = guid.plan_epochs(st_w, smax, compaction="full")
+        plan["compacted"]["iters"] += sum(e - b for _, b, e in epochs)
+        plan["compacted"]["scheduled"] += sum(r * (e - b)
+                                              for r, b, e in epochs)
+        plan["compacted"]["segments"] += len(epochs)
+    active_iters = int(row_steps.sum())
+    check(plan["ragged"]["scheduled"] == 90000 and active_iters == 67500
+          and plan["compacted"]["scheduled"] == 67500,
+          f"phase 6 plan {plan}, active {active_iters}")
+
+    samplers = (serve_synthesis.sample_cfg_ragged,
+                serve_synthesis.sample_cfg_compacted)
+    serve_synthesis.sample_cfg_ragged = timed(samplers[0])
+    serve_synthesis.sample_cfg_compacted = timed(samplers[1])
+    mixed_rounds, d_syn = [], {}
+    for mode, compaction in (("ragged", None), ("compacted", "full")):
+        for rnd in (1, 2, 3):
+            eng = mixed_engine(compaction)
+            for fn in fns.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            wave_walls.clear()
+            t0 = time.perf_counter()
+            out6 = eng.run(key6)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in fns.items()}
+            peak = torch.cuda.max_memory_allocated()
+            images = torch.cat([out6[rid] for rid in range(60)])
+            check(tuple(images.shape) == (n_rows, 16, 16, 3),
+                  f"{mode} D_syn shape {tuple(images.shape)}")
+            check(bool(torch.isfinite(images).all())
+                  and float(images.abs().max()) <= 1.0,
+                  f"{mode} D_syn not finite in [-1, 1]")
+            p6 = plan[mode]
+            want_stats = dict(waves=15, generated=n_rows,
+                              scheduled_rows=n_rows, padded=0,
+                              merged_waves=15, segments=p6["segments"],
+                              row_iters_scheduled=p6["scheduled"],
+                              row_iters_active=active_iters)
+            check(eng.stats == want_stats, f"{mode} round {rnd}: stats "
+                  f"{eng.stats} != {want_stats}")
+            want6 = {"cfg_update": 0, "cfg_update_rowwise": p6["iters"],
+                     "flash_attention": p6["iters"] * dc.num_layers,
+                     "adaln_norm": p6["iters"] * (2 * dc.num_layers + 1)}
+            check(launches == want6, f"{mode} round {rnd}: launches "
+                  f"{launches} != expected {want6}")
+            if rnd == 1:
+                d_syn[mode] = images
+                if mode == "ragged":
+                    kernels["cfg_update_rowwise"]["launches"] = \
+                        launches["cfg_update_rowwise"]
+            else:
+                check(torch.equal(images, d_syn[mode]),
+                      f"{mode} round {rnd}: D_syn differs from round 1's")
+            mixed_rounds.append(dict(
+                mode=mode, round=rnd, images_per_s=n_rows / wall,
+                wall_s=wall, peak_mib=peak / 2**20, stats=eng.stats,
+                launches=launches, wave_walls_s=list(wave_walls)))
+            say(f"[6] {mode} round {rnd}: {n_rows / wall:.1f} images/s, wall "
+                f"{wall:.3f} s, peak memory {peak / 2**20:.1f} MiB, "
+                f"row-iterations {eng.stats['row_iters_scheduled']} "
+                f"scheduled / {eng.stats['row_iters_active']} active, "
+                f"launches {launches} ({smi})")
+    (serve_synthesis.sample_cfg_ragged,
+     serve_synthesis.sample_cfg_compacted) = samplers
+    err_pack = max_err(d_syn["ragged"], d_syn["compacted"])
+    check(err_pack <= TOL_E2E_DEEP, f"ragged vs compacted D_syn {err_pack:.3g}")
+    say(f"[6] ragged vs compacted D_syn (1800 images, 50/25 steps): "
+        f"max_abs_err {err_pack:.3g} (tol {TOL_E2E_DEEP:g})")
+
+    # one 120-row 4-step wave: two 60-row windows against the wave-wide
+    # table (the second at row_offset 60) against the whole wave, and the
+    # whole wave on the kernel path against the plain DiT
+    combos4 = [(1.5, 4), (4.0, 4), (7.5, 2), (1.5, 2)]
+    y4 = torch.as_tensor(np.repeat(enc[present][:4], 30, axis=0), device=dev)
+    g4 = np.repeat([c[0] for c in combos4], 30).astype(np.float32)
+    s4 = np.repeat([c[1] for c in combos4], 30)
+    keys4 = prng.fold_in(prng.fold_in(key6[None], np.repeat(np.arange(4), 30)),
+                         np.tile(np.arange(30), 4))
+    cfg_ops.cfg_update_rowwise.launches = 0
+    whole = sample_cfg_ragged(model, sched, y4, keys4, g4, s4)
+    halves = [sample_cfg_window(model, sched, y4[o:o + 60], keys4[o:o + 60],
+                                g4, s4, row_offset=o) for o in (0, 60)]
+    check(cfg_ops.cfg_update_rowwise.launches == 12,
+          f"{cfg_ops.cfg_update_rowwise.launches} rowwise launches for one "
+          f"wave and two windows of 4 steps, expected 12")
+    err_win = max_err(torch.cat(halves), whole)
+    check(err_win <= TOL_E2E, f"windows vs whole wave {err_win:.3g}")
+    say(f"[6] 4-step ragged wave of 120 rows: two windows (row_offset 0, 60) "
+        f"vs whole max_abs_err {err_win:.3g} (tol {TOL_E2E:g})")
+    # kernel path against the plain DiT from the same row keys: 8 rows of
+    # all four (guidance, steps) at 4 steps, as phase 4 holds sample_cfg,
+    # and the whole 120-row wave at 50/25 steps.  A 4-step wave's first
+    # step divides by √ᾱ_999 ≈ 5e-5, so in a wave of 92160 values a few
+    # unclipped ones carry the DiT's ~2e-6 per-call difference times
+    # ~2e4·(1 + 2s); at 20+ steps the step-aware gate is 2e-2
+    pick = [0, 1, 30, 31, 60, 61, 90, 91]
+    err_plain = max_err(whole[pick], sample_cfg_ragged(
+        plain, sched, y4[pick], keys4[pick], g4[pick], s4[pick]))
+    check(err_plain <= TOL_E2E, f"4-step ragged rows kernel vs plain "
+          f"{err_plain:.3g}")
+    err_plain_120 = max_err(whole, sample_cfg_ragged(plain, sched, y4, keys4,
+                                                     g4, s4))
+    g50 = np.repeat([c[0] for c in combos], 30).astype(np.float32)
+    s50 = np.repeat([c[1] for c in combos], 30)
+    deep, deep_plain = (sample_cfg_ragged(m, sched, y4, keys4, g50, s50)
+                        for m in (model, plain))
+    err_plain_deep = max_err(deep, deep_plain)
+    check(float(deep_plain.abs().max()) > 1e-3, "vacuous ragged parity")
+    check(err_plain_deep <= TOL_E2E_DEEP, f"50/25-step ragged wave kernel "
+          f"vs plain {err_plain_deep:.3g}")
+    say(f"[6] ragged wave, kernel path vs plain DiT: 8 rows at 4/2 steps "
+        f"max_abs_err {err_plain:.3g} (tol {TOL_E2E:g}); 120 rows at 50/25 "
+        f"steps {err_plain_deep:.3g} (tol {TOL_E2E_DEEP:g}); 120 rows at "
+        f"4/2 steps {err_plain_120:.3g} (not gated, see above)")
+
+    # the threefry draws of one 120-row wave of 50 steps: the grouped
+    # wave's 51 keys (x_T and the steps) and the ragged wave's 50 x 120
+    # row-step keys, each drawn in one call
+    chain, k = [], key6
+    for _ in range(51):
+        k, sub = prng.split(k)
+        chain.append(sub)
+    chain = np.stack(chain)
+    t0 = time.perf_counter()
+    row_step_keys = prng.fold_in(keys4[None], np.arange(1, 51)[:, None])
+    t_keys = time.perf_counter() - t0
+    grouped_ms = cuda_ms(lambda: prng.normal(chain, (120, 16, 16, 3), dev), 10)
+    ragged_ms = cuda_ms(lambda: prng.normal(row_step_keys, (16, 16, 3), dev),
+                        10)
+    say(json.dumps({"threefry": {
+        "grouped_wave_draw_ms": grouped_ms, "ragged_wave_draw_ms": ragged_ms,
+        "ragged_host_key_derivation_ms": t_keys * 1e3,
+        "grouped_wave_noise_bytes": 4 * 51 * 120 * 768, "card": smi}}))
+    rates6 = {m: [r["images_per_s"] for r in mixed_rounds if r["mode"] == m]
+              for m in ("ragged", "compacted")}
+    say(json.dumps({"mixed_synthesis": {
+        "rounds": mixed_rounds, "plan": plan, "active_iters": active_iters,
+        "images_per_s": rates6, "ragged_vs_compacted_max_abs_err": err_pack,
+        "windows_vs_whole_max_abs_err": err_win,
+        "ragged_kernel_vs_plain_max_abs_err": {
+            "8_rows_4_steps": err_plain, "120_rows_50_steps": err_plain_deep,
+            "120_rows_4_steps": err_plain_120}, "card": smi}}))
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(smi)

@@ -17,9 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.diffusion.dit import DiT
-from repro_torch.diffusion.sampler import sample_cfg
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.encoders.foundation import FrozenFM, category_encodings
+from repro_torch.serve.synthesis import SynthesisEngine
 from repro_torch.utils import resolve_device
 
 
@@ -42,36 +42,39 @@ def client_encodings(fm: FrozenFM, data, *, device=None):
     return enc, present
 
 
-def synthesize(model: DiT, sched: NoiseSchedule, encodings, present,
+def synthesize(key, model: DiT, sched: NoiseSchedule, encodings, present,
                k_samples: int, *, image_size: int, channels: int = 3,
                guidance: float | None = None, num_steps: int | None = None,
-               wave_size: int = 128,
-               generator: torch.Generator | None = None):
-    """Step (3): server-side D_syn generation on the model's device.
+               wave_size: int = 128, ragged: bool = False,
+               compaction: int | str | None = None):
+    """Step (3): server-side D_syn generation on the model's device, from
+    the threefry ``key``.
 
-    Every present (client, category) encoding is repeated ``k_samples``
-    times, in (client, category) order, and the stacked rows are sampled
-    through ``sample_cfg`` in waves of at most ``wave_size`` rows.  Returns
-    (images (N, H, W, C) float32, labels (N,) int64), both on the model's
-    device; an all-absent ``present`` gives empty tensors."""
+    Every present (client, category) encoding becomes one request of
+    ``k_samples`` rows, in (client, category) order, and a
+    ``SynthesisEngine`` drains them: near-uniform waves of at most
+    ``wave_size`` rows, ragged waves with ``ragged=True``, and compacted
+    ragged waves with ``compaction`` (``"full"``, ``"auto"`` or an int K).
+    Returns (images (N, H, W, C) float32, labels (N,) int64), both on the
+    model's device; an all-absent ``present`` gives empty tensors."""
     device = model.null_y.device
+    eng = SynthesisEngine(model, sched, image_size=image_size,
+                          channels=channels, wave_size=wave_size,
+                          ragged=ragged, compaction=compaction)
     R, C, _ = encodings.shape
-    rows, labels = [], []
+    rids, cats = [], []
     for r in range(R):
         for c in range(C):
             if present[r, c]:
-                rows.append(np.repeat(encodings[r, c][None], k_samples, 0))
-                labels.append(np.full((k_samples,), c, np.int64))
-    if not rows:
+                rids.append(eng.submit(encodings[r, c], c, k_samples,
+                                       guidance=guidance,
+                                       num_steps=num_steps))
+                cats.append(c)
+    if not rids:
         return (torch.zeros((0, image_size, image_size, channels),
                             device=device),
                 torch.zeros((0,), dtype=torch.int64, device=device))
-    y = torch.as_tensor(np.concatenate(rows), dtype=torch.float32,
-                        device=device)
-    images = [sample_cfg(model, sched, y[i:i + wave_size],
-                         generator=generator, image_size=image_size,
-                         channels=channels, num_steps=num_steps,
-                         guidance=guidance)
-              for i in range(0, len(y), wave_size)]
-    return (torch.cat(images),
-            torch.as_tensor(np.concatenate(labels), device=device))
+    out = eng.run(key)
+    labels = np.repeat(np.asarray(cats, np.int64), k_samples)
+    return (torch.cat([out[rid] for rid in rids]),
+            torch.as_tensor(labels, device=device))

@@ -1,46 +1,63 @@
-"""Classifier-free guidance and the reverse-process core.
+"""Classifier-free guidance and the reverse-process cores.
 
 ``reverse_sample`` owns the respacing, the step loop, the per-step noise
 draw and the fused guidance-combine + ancestral update (the ``cfg_fuse``
-kernel on CUDA).  A strategy produces the score pair per step; this slice
-ports the classifier-free one.
+kernel on CUDA) of a uniform wave.  The ragged cores give every row its
+own (guidance, steps) inside one trajectory, right-aligned and frozen by
+an active mask until the row starts: ``reverse_sample_ragged`` runs the
+whole wave, ``reverse_sample_compacted`` runs it as nested activation
+epochs (``plan_epochs``) that skip frozen rows, and
+``reverse_sample_window`` runs one window of a wave against the
+wave-wide scalar table.  All of them update through ``cfg_update_rowwise``.
 
-Randomness comes from an explicit ``torch.Generator`` (x_T first, then one
-draw per step).  Tests that hold the port against the JAX package inject
-the reference's threefry draws through ``x_T`` and ``noise`` instead.
+Randomness comes from threefry keys (``repro_torch.prng``), drawn as the
+JAX package draws them: a uniform wave splits its key for x_T and then
+once per step; row b of a ragged wave draws x_T from
+``fold_in(row_keys[b], 0)`` and its step-j noise from
+``fold_in(row_keys[b], 1 + j)``, j the row's own step index.  All of a
+wave's noise is drawn in one vectorised call before its loop.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 
-# The reference's sampler traces its float32 linspace inside a jit, where
-# XLA's CPU backend fuses it with the rounding into one loop computing
-# (T-1) * (1 - i * fl(1/div)).  From this many elements on that loop
-# fuses ``1 - i * c`` into one rounding (FMA); below it, it rounds twice.
-_XLA_FMA_MIN = 17
+# The reference's float32 linspace computes (T-1) * (1 - i * fl(1/div)),
+# and XLA's CPU backend fuses ``1 - i * c`` into one rounding (FMA) only
+# inside a vectorised loop body; elements outside it round twice.  How
+# the loop vectorises depends on how the call was compiled.  Traced inside
+# the jitted ``sample_cfg``, every element fuses from 17 elements on.
+# Called eagerly, as the ragged engine's ``_respaced_ts_host`` calls it,
+# only whole 32-lane chunks fuse, and only from 353 elements on.  Each
+# mode is (the least length that fuses, the vector width).
+_JIT_FUSION = (17, 1)
+_EAGER_FUSION = (353, 32)
 
 
-def _reference_linspace(start: int, num: int) -> np.ndarray:
-    """``jnp.linspace(start, 0, num)`` in float32 as the reference's
-    ``sample_cfg`` evaluates it.  Only its rounding at exact half-integers
-    changes the rounded trajectory, and that depends on whether
-    ``1 - i/div`` was rounded once or twice."""
+def _reference_linspace(start: int, num: int,
+                        fusion: tuple[int, int] = _JIT_FUSION) -> np.ndarray:
+    """``jnp.linspace(start, 0, num)`` in float32 as the reference evaluates
+    it under ``fusion``.  Only its rounding at exact half-integers changes
+    the rounded trajectory, and that depends on whether ``1 - i/div`` was
+    rounded once or twice."""
     if num == 1:
         return np.array([start], np.float32)
     div = num - 1
     c = np.float32(1) / np.float32(div)
     i = np.arange(div)
-    if num >= _XLA_FMA_MIN:     # exact in float64, then one rounding
-        frac = (1.0 - i * np.float64(c)).astype(np.float32)
-    else:
-        frac = np.float32(1) - i.astype(np.float32) * c
+    once = (1.0 - i * np.float64(c)).astype(np.float32)  # exact, then round
+    twice = np.float32(1) - i.astype(np.float32) * c
+    min_num, lanes = fusion
+    fused = (div // lanes) * lanes if num >= min_num else 0
+    frac = np.where(i < fused, once, twice)
     out = (np.float64(np.float32(start)) * frac).astype(np.float32)
     return np.concatenate([out, np.zeros(1, np.float32)])
 
@@ -55,20 +72,27 @@ def _strictly_decreasing(ts: np.ndarray) -> np.ndarray:
     return np.maximum(ts, n - 1 - i)
 
 
-def respaced_ts(T: int, num_steps: int) -> torch.Tensor:
-    """The respaced integer trajectory (num_steps,) from T-1 down to 0: the
-    timesteps the reference's ``sample_cfg`` visits, for every
-    ``num_steps <= T``.  On the CPU.
-
-    The reference's ``respaced_ts`` called eagerly (as its ragged engine,
-    not ported yet, calls it) returns another trajectory at some step
-    counts, e.g. 19 and 27 at T = 1000; the port follows the sampler."""
+def respaced_ts(T: int, num_steps: int, *, eager: bool = False
+                ) -> torch.Tensor:
+    """The respaced integer trajectory (num_steps,) from T-1 down to 0, on
+    the CPU.  By default the timesteps the reference's jitted ``sample_cfg``
+    visits; ``eager=True`` gives the reference's ``respaced_ts`` called
+    eagerly, which its ragged tables use.  The two differ at some step
+    counts, e.g. 19 and 27 at T = 1000."""
     if num_steps > T:
         raise ValueError(
             f"num_steps={num_steps} > T={T}: a respaced trajectory cannot "
             f"visit more distinct timesteps than the schedule has")
-    ts = np.round(_reference_linspace(T - 1, num_steps)).astype(np.int64)
-    return torch.from_numpy(_strictly_decreasing(ts))
+    lin = _reference_linspace(T - 1, num_steps,
+                              _EAGER_FUSION if eager else _JIT_FUSION)
+    return torch.from_numpy(_strictly_decreasing(
+        np.round(lin).astype(np.int64)))
+
+
+@functools.lru_cache(maxsize=512)
+def _respaced_ts_host(T: int, k: int) -> np.ndarray:
+    """The eager trajectory as int32 numpy, memoised per (T, k)."""
+    return respaced_ts(T, k, eager=True).numpy().astype(np.int32)
 
 
 def ancestral_coeffs(sched: NoiseSchedule, ts: torch.Tensor):
@@ -91,9 +115,7 @@ class ClassifierFree:
         return self.y.shape[0]
 
     def prepare(self, model: DiT):
-        B = self.y.shape[0]
-        null = model.null_y.expand(B, model.dc.cond_dim)
-        return torch.cat([self.y.float(), null], dim=0)
+        return _with_null(model, self.y)
 
     def eps(self, model: DiT, x, t: int, y2):
         B = x.shape[0]
@@ -102,9 +124,14 @@ class ClassifierFree:
         return eps2[:B], eps2[B:], self.scale
 
 
+def _with_null(model: DiT, y: torch.Tensor) -> torch.Tensor:
+    """The stacked (2B, cond_dim) conditioning: y, then B null rows Ø."""
+    null = model.null_y.expand(y.shape[0], model.dc.cond_dim)
+    return torch.cat([y.float(), null], dim=0)
+
+
 def reverse_sample(model: DiT, sched: NoiseSchedule,
-                   strategy: ClassifierFree, *,
-                   generator: torch.Generator | None = None,
+                   strategy: ClassifierFree, key=None, *,
                    image_size: int | None = None, channels: int = 3,
                    num_steps: int | None = None, eta: float = 1.0,
                    x_T: torch.Tensor | None = None, noise=None):
@@ -112,8 +139,10 @@ def reverse_sample(model: DiT, sched: NoiseSchedule,
     respaced t the strategy gives the score pair and the fused update
     advances x_t → x_{t−1}.
 
-    ``x_T`` (B, H, W, C) and ``noise`` (num_steps, B, H, W, C) replace the
-    generator's draws when given."""
+    ``key`` (a threefry key) draws x_T from its first split and step i's
+    noise from the chain of splits after it.  ``x_T`` (B, H, W, C) and
+    ``noise`` (num_steps, B, H, W, C) replace those draws when given; with
+    both given ``key`` may be None."""
     B = strategy.batch()
     H = image_size or 16
     num_steps = num_steps or model.dc.sample_timesteps
@@ -123,14 +152,296 @@ def reverse_sample(model: DiT, sched: NoiseSchedule,
     device = strategy.y.device
     shape = (B, H, H, channels)
 
-    x = torch.randn(shape, generator=generator, device=device) \
-        if x_T is None else x_T.to(device, torch.float32)
+    if x_T is None or noise is None:
+        if key is None:
+            raise ValueError("reverse_sample needs a key unless both x_T "
+                             "and noise are given")
+        key, k0 = prng.split(key)
+        step_keys = []
+        for _ in range(num_steps):
+            key, kn = prng.split(key)
+            step_keys.append(kn)
+        draws = prng.normal(np.stack([k0, *step_keys]), shape, device)
+        x_T = draws[0] if x_T is None else x_T
+        noise = draws[1:] if noise is None else noise
+    x = x_T.to(device, torch.float32)
     aux = strategy.prepare(model)
     for i, (t, abt, abp) in enumerate(steps):
         eps_c, eps_u, s = strategy.eps(model, x, t, aux)
-        z = torch.randn(shape, generator=generator, device=device) \
-            if noise is None else noise[i].to(device, torch.float32)
+        z = noise[i].to(device, torch.float32)
         if t == 0:
             z = torch.zeros_like(z)
         x = cfg_ops.cfg_update(x, eps_c, eps_u, s, abt, abp, z, eta)
     return torch.clamp(x, -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# ragged mode: per-row (guidance, steps) inside one trajectory
+# ---------------------------------------------------------------------------
+
+def ragged_tables(sched: NoiseSchedule, steps, max_steps: int):
+    """Right-aligned per-row respacing tables for a ragged wave.
+
+    Row ``b`` with ``steps[b] = k`` runs its k-step trajectory (the eager
+    one, as the reference's tables use) over the last k of ``max_steps``
+    iterations, so every row ends on the same final iteration; before
+    that it is frozen.  Returns ``(ts, ab_t, ab_prev, jloc)`` as
+    (B, max_steps) numpy arrays; ``jloc[b, i] = i - (max_steps - k)`` is
+    the row-local step index, negative while the row is frozen
+    (``jloc >= 0`` is the active mask).  Frozen slots carry the row's first
+    real (t, ᾱ) values, so the masked-out updates stay finite."""
+    steps = np.asarray(steps, np.int32).reshape(-1)
+    B, S = len(steps), int(max_steps)
+    if steps.max(initial=1) > S:
+        raise ValueError(f"max_steps={S} < largest row step count "
+                         f"{int(steps.max())}")
+    alpha_bar = np.asarray(sched.alpha_bar.detach().cpu(), np.float32)
+    ts = np.zeros((B, S), np.int32)
+    ab_t = np.zeros((B, S), np.float32)
+    ab_prev = np.zeros((B, S), np.float32)
+    jloc = np.arange(S, dtype=np.int32)[None] - (S - steps)[:, None]
+    for k in np.unique(steps):
+        rows = steps == k
+        ts_k = _respaced_ts_host(sched.T, int(k))
+        ab_k = alpha_bar[ts_k]
+        abp_k = np.concatenate([ab_k[1:], np.ones((1,), np.float32)])
+        ts[rows] = np.concatenate([np.full(S - k, ts_k[0], np.int32), ts_k])
+        ab_t[rows] = np.concatenate([np.full(S - k, ab_k[0], np.float32),
+                                     ab_k])
+        ab_prev[rows] = np.concatenate([np.full(S - k, abp_k[0], np.float32),
+                                        abp_k])
+    return ts, ab_t, ab_prev, jloc
+
+
+def _row_x_T(row_keys, shape, device) -> torch.Tensor:
+    """x_T of each row, from ``fold_in(row_keys[b], 0)``: (B, *shape)."""
+    return prng.normal(prng.fold_in(row_keys, 0), shape, device)
+
+
+def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
+              ab_prev, active, *, row_offset: int, eta: float):
+    """The per-row reverse scan, one iteration per table column.
+
+    ``x`` holds wave rows ``[row_offset, row_offset + B)``; ``y2``,
+    ``row_keys`` and the ``ts``/``jloc`` tables (B, S) belong to those
+    rows, while ``guidance`` (Bs,) and ``ab_t``/``ab_prev``/``active``
+    (Bs, S) may span the whole wave: the fused update reads tensor row b's
+    scalars at wave slot ``row_offset + b``.  Row b's step-j noise is
+    ``fold_in(row_keys[b], max(j, 0) + 1)``, zero at t = 0, all drawn
+    before the loop; the update coefficients are formed on the host and
+    uploaded once.  Returns x unclipped."""
+    B, H, W, C = x.shape
+    S = ts.shape[1]
+    dev = x.device
+    ts_steps = np.ascontiguousarray(ts.T)                    # (S, B)
+    nk = prng.fold_in(np.asarray(row_keys)[None],
+                      np.maximum(jloc.T, 0) + 1)             # (S, B, 2)
+    live = torch.as_tensor(ts_steps > 0, device=dev).float()
+    noise = prng.normal(nk, (H, W, C), dev) * live[..., None, None, None]
+    guidance = np.asarray(guidance, np.float32)
+    coeffs = torch.as_tensor(cfg_ops.rowwise_coeffs(
+        guidance, ab_t.T, ab_prev.T, active.T, eta), device=dev)
+    t_all = torch.as_tensor(ts_steps, dtype=torch.int64, device=dev)
+    for i in range(S):
+        t2 = torch.cat([t_all[i], t_all[i]])
+        eps2 = model(torch.cat([x, x], dim=0), t2, y2)
+        x = cfg_ops.cfg_update_rowwise(
+            x, eps2[:B], eps2[B:], guidance, ab_t[:, i], ab_prev[:, i],
+            noise[i], active[:, i], eta, row_offset=row_offset,
+            coeffs=coeffs[i])
+    return x
+
+
+def reverse_sample_ragged(model: DiT, y, row_keys, guidance, ts, ab_t,
+                          ab_prev, jloc, *, image_size: int,
+                          channels: int = 3, eta: float = 1.0):
+    """Classifier-free reverse loop with per-row (guidance, steps):
+    ``guidance`` (B,) and the (B, S) tables of ``ragged_tables``.  Each row
+    draws its own noise from ``row_keys[b]``, so a row's result does not
+    depend on the wave it is packed in."""
+    x = _row_x_T(row_keys, (image_size, image_size, channels), y.device)
+    x = _row_scan(model, x, _with_null(model, y), row_keys, guidance, ts,
+                  jloc, ab_t, ab_prev, jloc >= 0, row_offset=0, eta=eta)
+    return torch.clamp(x, -1.0, 1.0)
+
+
+def reverse_sample_window(model: DiT, x, y, row_keys, guidance, ts, jloc,
+                          ab_t, ab_prev, active, *, row_offset: int,
+                          image_size: int, channels: int = 3,
+                          eta: float = 1.0):
+    """One segment of one window of a wave: advance the carried rows ``x``
+    and admit the rest.  ``y``, ``row_keys`` and ``ts``/``jloc`` belong to
+    the window; ``guidance``, ``ab_t``, ``ab_prev`` and ``active`` span the
+    whole wave and are read at slot ``row_offset + b``.  Admitted rows draw
+    x_T from ``fold_in(row_keys[b], 0)``, as every other schedule draws it.
+    Returns x unclipped."""
+    n_prev = x.shape[0]
+    x_new = _row_x_T(np.asarray(row_keys)[n_prev:],
+                     (image_size, image_size, channels), y.device)
+    x = torch.cat([x.to(y.device), x_new], dim=0)
+    return _row_scan(model, x, _with_null(model, y), row_keys, guidance,
+                     ts, jloc, ab_t, ab_prev, active, row_offset=row_offset,
+                     eta=eta)
+
+
+# ---------------------------------------------------------------------------
+# compacted mode: iteration-compacted nested waves
+# ---------------------------------------------------------------------------
+
+def plan_epochs(steps, max_steps: int, *, compaction="full",
+                granule: int = 1, geoms=None, compile_cost: int = 256):
+    """Partition a ragged wave into activation epochs.
+
+    Row b activates at iteration ``max_steps - steps[b]`` of the
+    right-aligned scan.  Returns ``(order, epochs)``: ``order`` (B,) sorts
+    rows by activation (stable, so the rows live in any epoch are a
+    prefix of the sorted order), and ``epochs`` is a tuple of
+    ``(rows, begin, end)``: iterations ``[begin, end)`` run over the first
+    ``rows`` sorted rows.  The first epoch begins at the earliest start.
+
+    ``compaction`` picks the boundaries: ``"full"`` one at every distinct
+    start (no row ever rides frozen); an int K at most K, dropping the
+    boundary whose removal adds the fewest frozen row-iterations; ``"auto"``
+    one where the frozen row-iterations it saves outweigh ``compile_cost``,
+    which is waived when the segment geometry ``(carried, rows, length)``
+    is already in ``geoms``.  ``granule`` rounds each epoch's row count up;
+    the extra rows are early arrivals, frozen until their start."""
+    steps = np.asarray(steps, np.int32).reshape(-1)
+    B, S = len(steps), int(max_steps)
+    if B == 0:
+        raise ValueError("plan_epochs: empty wave")
+    if steps.min() < 1:
+        raise ValueError(f"plan_epochs: step counts must be >= 1, got "
+                         f"{int(steps.min())}")
+    if steps.max() > S:
+        raise ValueError(f"plan_epochs: max_steps={S} < largest row step "
+                         f"count {int(steps.max())}")
+    starts = S - steps
+    order = np.argsort(starts, kind="stable")
+    ss = starts[order]
+    events = [(int(u), int(c)) for u, c in
+              zip(*np.unique(ss, return_counts=True))]   # ascending starts
+
+    def _rounded(rows):
+        return min(-(-rows // granule) * granule, B) if granule > 1 else rows
+
+    if compaction == "full":
+        bounds = [u for u, _ in events]
+    elif isinstance(compaction, int) and not isinstance(compaction, bool):
+        if compaction < 1:
+            raise ValueError(f"plan_epochs: K={compaction} < 1")
+        bounds = [u for u, _ in events]
+        while len(bounds) > compaction:
+            costs = []
+            for i in range(1, len(bounds)):
+                hi = bounds[i + 1] if i + 1 < len(bounds) else S
+                arriving = sum(c for u, c in events if bounds[i] <= u < hi)
+                costs.append((arriving * (bounds[i] - bounds[i - 1]), i))
+            bounds.pop(min(costs)[1])
+    elif compaction == "auto":
+        geoms = geoms or set()
+        bounds = [events[0][0]]
+        live = events[0][1]
+        carried = 0        # rows the would-be segment inherits
+        for u, c in events[1:]:
+            length = u - bounds[-1]
+            cut_cost = (0 if (carried, _rounded(live), length) in geoms
+                        else int(compile_cost))
+            if c * length >= cut_cost:
+                bounds.append(u)
+                carried = _rounded(live)
+            live += c
+    else:
+        raise ValueError(f"plan_epochs: unknown compaction={compaction!r} "
+                         f"(expected 'full', 'auto', or an int K)")
+
+    epochs = []
+    for i, b0 in enumerate(bounds):
+        b1 = bounds[i + 1] if i + 1 < len(bounds) else S
+        rows = _rounded(int(np.searchsorted(ss, b1, side="left")))
+        epochs.append((rows, b0, b1))
+    return order, tuple(epochs)
+
+
+def reverse_sample_segment(model: DiT, x, y, row_keys, guidance, ts, ab_t,
+                           ab_prev, jloc, *, image_size: int,
+                           channels: int = 3, eta: float = 1.0):
+    """One compaction epoch: advance the carried rows and admit the new
+    ones (x_T from ``fold_in(row_keys[b], 0)``, the draw the one-shot
+    ragged scan makes).  Tables are the ``[:rows, begin:end]`` slices of
+    the wave's ``ragged_tables``.  Returns x unclipped."""
+    return reverse_sample_window(model, x, y, row_keys, guidance, ts, jloc,
+                                 ab_t, ab_prev, jloc >= 0, row_offset=0,
+                                 image_size=image_size, channels=channels,
+                                 eta=eta)
+
+
+def _check_plan(epochs, n_total: int, S: int, jloc) -> None:
+    """Refuse a caller's plan that lacks the shape ``plan_epochs`` gives:
+    contiguous non-empty epochs with nondecreasing row counts that run the
+    tables to their end and compute every active (row, iteration)."""
+    if not epochs:
+        raise ValueError("reverse_sample_compacted: empty epoch plan")
+    if epochs[-1][0] != n_total:
+        raise ValueError(
+            f"epochs cover {epochs[-1][0]} rows; wave has {n_total}")
+    if epochs[0][1] < 0:
+        raise ValueError(f"reverse_sample_compacted: epoch begins at "
+                         f"iteration {epochs[0][1]} < 0")
+    prev_end, prev_rows = epochs[0][1], 1
+    for rows, begin, end in epochs:
+        if begin != prev_end or end <= begin or not (prev_rows <= rows
+                                                     <= n_total):
+            raise ValueError(
+                f"reverse_sample_compacted: malformed epoch "
+                f"({rows}, {begin}, {end}) — epochs must be contiguous, "
+                f"non-empty, with nondecreasing row counts")
+        prev_end, prev_rows = end, rows
+    if prev_end != S:
+        raise ValueError(
+            f"reverse_sample_compacted: epochs stop at iteration "
+            f"{prev_end}; tables span {S}")
+    b0 = epochs[0][1]
+    if b0 > 0 and not (jloc[:, b0 - 1] < 0).all():
+        raise ValueError(
+            f"reverse_sample_compacted: rows are active before the first "
+            f"epoch (begin {b0}) — their leading iterations would be "
+            f"skipped")
+    for rows, begin, end in epochs:
+        if rows < n_total and not (jloc[rows:, end - 1] < 0).all():
+            raise ValueError(
+                f"reverse_sample_compacted: epoch ({rows}, {begin}, {end}) "
+                f"excludes rows that are active within it")
+
+
+def reverse_sample_compacted(model: DiT, y, row_keys, guidance, ts, ab_t,
+                             ab_prev, jloc, *, epochs, order=None,
+                             image_size: int, channels: int = 3,
+                             eta: float = 1.0):
+    """Compute-skipping ragged reverse process: one scan segment per epoch
+    of ``plan_epochs``, each over only the rows live by its end, stitched
+    back into request order (``order`` from ``plan_epochs``; ``None`` if
+    the inputs are already activation-sorted).  Same per-row arithmetic
+    and noise as ``reverse_sample_ragged``; only the batches change."""
+    row_keys = np.asarray(row_keys)
+    guidance = np.asarray(guidance, np.float32)
+    if order is not None:
+        idx = np.asarray(order)
+        y = y[torch.as_tensor(idx, device=y.device)]
+        row_keys, guidance = row_keys[idx], guidance[idx]
+        ts, ab_t, ab_prev, jloc = ts[idx], ab_t[idx], ab_prev[idx], jloc[idx]
+    _check_plan(epochs, y.shape[0], ts.shape[1], np.asarray(jloc))
+    H = image_size
+    x = torch.zeros((0, H, H, channels), device=y.device)
+    for rows, begin, end in epochs:
+        x = reverse_sample_segment(
+            model, x, y[:rows], row_keys[:rows], guidance[:rows],
+            ts[:rows, begin:end], ab_t[:rows, begin:end],
+            ab_prev[:rows, begin:end], jloc[:rows, begin:end],
+            image_size=H, channels=channels, eta=eta)
+    x = torch.clamp(x, -1.0, 1.0)
+    if order is not None:
+        inv = np.empty_like(idx)
+        inv[idx] = np.arange(len(idx))
+        x = x[torch.as_tensor(inv, device=x.device)]
+    return x

@@ -9,7 +9,7 @@ The numerical contract the Triton kernel must match (the JAX package's
     x_{t-1} = √ᾱ_prev·x̂₀ + √(1−ᾱ_prev−σ²)·ε̂ + σ·z     (paper Eq. 9 / DDIM η)
 
 ``ab_t``/``ab_prev`` are scalars (numbers or 0-d tensors), taken as fp32
-like the reference's traced scalars.
+like the reference's traced scalars; the rowwise forms take one per row.
 """
 from __future__ import annotations
 
@@ -33,3 +33,30 @@ def ancestral_step(x, eps, ab_t, ab_prev, noise, eta: float = 1.0):
 def cfg_update(x, eps_c, eps_u, s, ab_t, ab_prev, noise, eta: float = 1.0):
     eps = (1.0 + s) * eps_c - s * eps_u
     return ancestral_step(x, eps, ab_t, ab_prev, noise, eta)
+
+
+def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,
+                       eta: float = 1.0):
+    """Per-row (ragged-wave) variant: ``s``, ``ab_t``, ``ab_prev`` and
+    ``active`` are (B,) vectors, one (guidance, schedule position) per batch
+    row.  A row whose ``active`` is not > 0 (its right-aligned trajectory
+    has not started) passes through bit-unchanged."""
+    def r(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=x.device) \
+            .reshape((-1,) + (1,) * (x.ndim - 1))
+
+    s, ab_t, ab_prev = r(s), r(ab_t), r(ab_prev)
+    out = cfg_update(x, eps_c, eps_u, s, ab_t, ab_prev, noise, eta)
+    return torch.where(r(active) > 0, out, x)
+
+
+def cfg_update_rowwise_windowed(x, eps_c, eps_u, s, ab_t, ab_prev, noise,
+                                active, row_offset: int = 0,
+                                eta: float = 1.0):
+    """The window form: the per-row vectors span a whole wave and ``x``
+    holds the rows from ``row_offset`` on, so tensor row b reads slot
+    ``row_offset + b``."""
+    w = slice(row_offset, row_offset + x.shape[0])
+    return cfg_update_rowwise(x, eps_c, eps_u, *(
+        torch.as_tensor(v)[w] for v in (s, ab_t, ab_prev)), noise,
+        torch.as_tensor(active)[w], eta)

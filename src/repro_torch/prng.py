@@ -1,0 +1,143 @@
+"""Threefry-2x32 keys, random bits and normals, bit-compatible with
+``jax.random`` under ``jax_default_prng_impl=threefry2x32`` and
+``jax_threefry_partitionable=True``.
+
+A key is a uint32 pair; a batch of keys is a (..., 2) uint32 numpy array.
+Keys are derived on the host in numpy: one hash per key, cheap, and no
+launch on the card.  Random bits and normals for the big tensors are
+computed with torch on the tensor's device, one vectorised call for a
+whole batch of keys.
+
+Both paths do the uint32 arithmetic in int64 with ``& 0xFFFFFFFF`` after
+every add and shift (torch has no CPU shift on uint32).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+# nextafter(-1, 0) in float32: jax's lower bound for the uniform under erfinv
+_UNIFORM_LO = float(np.nextafter(np.float32(-1), np.float32(0)))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _rotl(v, r: int):
+    return ((v << r) & MASK) | (v >> (32 - r))
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of the count pair (x1, x2) under
+    the key pair (k1, k2); every operand an int64 array or tensor holding
+    uint32 values, broadcast together."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & MASK
+    return x1, x2
+
+
+def _halves(keys):
+    keys = np.asarray(keys)
+    if keys.shape[-1:] != (2,) or keys.dtype != np.uint32:
+        raise TypeError(f"keys must be a (..., 2) uint32 array, got "
+                        f"{keys.dtype} {keys.shape}")
+    k = keys.astype(np.int64)
+    # contiguous halves: torch lays out a result like its operands
+    return k[..., 0].copy(), k[..., 1].copy()
+
+
+def _pack(x1, x2) -> np.ndarray:
+    return np.stack([x1, x2], axis=-1).astype(np.uint32)
+
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` as jax builds it with 64-bit mode off
+    (its default): the seed wraps to 32 bits, which become the low word."""
+    return np.array([0, int(seed) & MASK], np.uint32)
+
+
+def fold_in(keys, data) -> np.ndarray:
+    """``jax.random.fold_in`` over a batch: the hash of the count pair
+    (0, data) under each key.  ``data`` (integers, taken mod 2**32)
+    broadcasts against the batch shape ``keys.shape[:-1]``."""
+    k1, k2 = _halves(keys)
+    d = np.asarray(data, np.int64) & MASK
+    return _pack(*_threefry2x32(k1, k2, np.zeros_like(d), d))
+
+
+def split(keys, num: int = 2) -> np.ndarray:
+    """``jax.random.split``: (..., num, 2); key i is ``fold_in(key, i)``
+    (jax's partitionable "foldlike" split)."""
+    k1, k2 = _halves(keys)
+    i = np.arange(num, dtype=np.int64)
+    return _pack(*_threefry2x32(k1[..., None], k2[..., None],
+                                np.zeros_like(i), i))
+
+
+def random_bits(keys, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32) for every key of the batch
+    ``keys`` (..., 2): an int64 tensor (..., *shape) on ``device`` holding
+    the uint32 values.  Element n of a key's draw hashes the count pair
+    (n >> 32, n & 0xFFFFFFFF) and xors the two output words."""
+    shape = tuple(int(s) for s in shape)
+    size = math.prod(shape)
+    if size >= 2 ** 32:
+        raise NotImplementedError("more than 2**32 draws from one key")
+    k1, k2 = _halves(keys)
+    batch = k1.shape
+    k1, k2 = (torch.as_tensor(k, device=device).reshape(*batch, 1)
+              for k in (k1, k2))
+    lo = torch.arange(size, dtype=torch.int64, device=device)
+    b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return (b1 ^ b2).reshape(*batch, *shape)
+
+
+def uniform_bits_to_float(bits: torch.Tensor, lo: float, hi: float):
+    """jax's ``_uniform`` map of uint32 bits to float32 in [lo, hi): the top
+    23 bits become the mantissa of a float in [1, 2), shifted and scaled."""
+    one = (bits >> 9) | 0x3F800000
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    span = float(np.float32(hi) - np.float32(lo))     # rounded as in float32
+    return torch.clamp(floats * span + lo, min=lo)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's single-precision erfinv (Giles' degree-9 polynomials in
+    w = −log1p(−x²), split at w = 5), as jax lowers ``lax.erf_inv``.
+    ``torch.erfinv`` is more accurate but differs from XLA's by up to ~90
+    ulps; this matches it to 3 ulps (XLA's ``log1p`` and its fused
+    multiply-adds account for the rest)."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, c_lt, c_ge) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(keys, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 for every key of the
+    batch ``keys`` (..., 2): a tensor (..., *shape) on ``device``.
+
+    √2·erfinv(u) with u uniform on [nextafter(-1, 0), 1), built from the
+    bits exactly as jax builds it; within 3 ulps of jax (see ``erfinv``)."""
+    u = uniform_bits_to_float(random_bits(keys, shape, device),
+                              _UNIFORM_LO, 1.0)
+    return _SQRT2 * erfinv(u)

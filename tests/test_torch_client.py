@@ -13,6 +13,7 @@ from repro.core import oscar as joscar
 from repro.data.federated import make_federated_data as j_make_data
 from repro.encoders.foundation import FrozenFM as JFrozenFM
 from repro.encoders.foundation import category_encodings as j_cat_enc
+from repro_torch import prng
 from repro_torch.configs.oscar import DataConfig
 from repro_torch.core import oscar as toscar
 from repro_torch.data.federated import make_federated_data
@@ -73,34 +74,38 @@ def _server():
 
 def test_synthesize_waves_equal_one_sample_cfg_call():
     """Rows are the present (client, category) encodings repeated
-    k_samples times in (client, category) order; waves split them without
-    changing what each row gets (one generator drives the waves in turn)."""
+    k_samples times in (client, category) order; one group's rows fill
+    near-uniform waves, and wave i is one ``sample_cfg`` call on the
+    wave key ``fold_in(key, i)``."""
     model, sched = _server()
     rng = np.random.default_rng(0)
     enc = rng.standard_normal((2, 3, 512)).astype(np.float32)
     present = np.array([[True, False, True], [True, True, False]])
+    key = prng.PRNGKey(4)
     images, labels = toscar.synthesize(
-        model, sched, enc, present, 2, image_size=16, num_steps=2,
-        wave_size=8, generator=torch.Generator().manual_seed(4))
+        key, model, sched, enc, present, 2, image_size=16, num_steps=2,
+        wave_size=8)
     assert images.shape == (8, 16, 16, 3)
     assert labels.tolist() == [0, 0, 2, 2, 0, 0, 1, 1]
     rows = torch.from_numpy(np.repeat(enc[present], 2, axis=0))
-    whole = tsampler.sample_cfg(model, sched, rows, num_steps=2,
-                                generator=torch.Generator().manual_seed(4))
+    whole = tsampler.sample_cfg(model, sched, rows, prng.fold_in(key, 0),
+                                num_steps=2)
     assert torch.equal(images, whole)
-    # waves of 3 rows: the generator runs wave by wave, so compare the
-    # first wave only, which sees the same draws as a 3-row call
+    # 24 rows in waves of at most 8: three waves of 8, each on its own key
     waves, _ = toscar.synthesize(
-        model, sched, enc, present, 2, image_size=16, num_steps=2,
-        wave_size=3, generator=torch.Generator().manual_seed(4))
-    first = tsampler.sample_cfg(model, sched, rows[:3], num_steps=2,
-                                generator=torch.Generator().manual_seed(4))
-    assert waves.shape == (8, 16, 16, 3) and torch.equal(waves[:3], first)
+        key, model, sched, enc, present, 6, image_size=16, num_steps=2,
+        wave_size=8)
+    rows = torch.from_numpy(np.repeat(enc[present], 6, axis=0))
+    assert waves.shape == (24, 16, 16, 3)
+    for i in range(3):
+        wave = tsampler.sample_cfg(model, sched, rows[8 * i:8 * i + 8],
+                                   prng.fold_in(key, i), num_steps=2)
+        assert torch.equal(waves[8 * i:8 * i + 8], wave)
 
 
 def test_synthesize_with_nothing_present_is_empty():
     model, sched = _server()
     images, labels = toscar.synthesize(
-        model, sched, np.zeros((2, 3, 512), np.float32),
+        prng.PRNGKey(0), model, sched, np.zeros((2, 3, 512), np.float32),
         np.zeros((2, 3), bool), 4, image_size=16)
     assert images.shape == (0, 16, 16, 3) and labels.shape == (0,)

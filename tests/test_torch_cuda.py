@@ -9,12 +9,14 @@ so it also runs on a machine that has only PyTorch:
 """
 import copy
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.oscar import DiffusionConfig
 from repro_torch.diffusion.dit import DiT
-from repro_torch.diffusion.sampler import sample_cfg
+from repro_torch.diffusion.sampler import sample_cfg, sample_cfg_ragged
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.kernels.adaln_norm import ops as an_ops
 from repro_torch.kernels.adaln_norm import ref as an_ref
@@ -52,6 +54,38 @@ def test_cfg_update_kernel_matches_plain(dev, shape):
         ref = cfg_ref.cfg_update(x, ec, eu, 2.0, ab_t, ab_prev, z)
         assert _err(out, ref) <= 1e-6
     assert cfg_ops.cfg_update.launches == before + 2
+
+
+def _rowwise_table(Bs):
+    """(s, ᾱ_t, ᾱ_prev, active) rows: a t = 999 first step of a 4-step
+    trajectory, a mid step, a last step and an inactive row, in turn."""
+    table = [(2.0, 2.4288882e-09, 0.24600048, 1), (7.5, 0.3, 0.6, 1),
+             (1.5, 0.9, 1.0, 1), (4.0, 0.05, 0.2, 0)]
+    rows = [table[i % 4] for i in range(Bs)]
+    return [np.array(c, np.float32) for c in zip(*rows)]
+
+
+@pytest.mark.parametrize("B,Bs,off", [(120, 120, 0), (60, 120, 0),
+                                      (60, 120, 60), (5, 9, 3)])
+def test_cfg_update_rowwise_kernel_is_bit_equal_to_plain(dev, B, Bs, off):
+    s, ab_t, ab_prev, act = _rowwise_table(Bs)
+    x, ec, eu, z = _randn(dev, 5, *[(B, 16, 16, 3)] * 4)
+    before = cfg_ops.cfg_update_rowwise.launches
+    out = cfg_ops.cfg_update_rowwise(x, ec, eu, s, ab_t, ab_prev, z, act,
+                                     row_offset=off)
+    assert cfg_ops.cfg_update_rowwise.launches == before + 1
+    dev_vecs = [torch.as_tensor(v, device=dev) for v in (s, ab_t, ab_prev,
+                                                         act)]
+    ref = cfg_ref.cfg_update_rowwise_windowed(
+        x, ec, eu, *dev_vecs[:3], z, dev_vecs[3], row_offset=off)
+    assert torch.equal(out, ref)
+    frozen = act[off:off + B] == 0
+    assert torch.equal(out[torch.as_tensor(frozen, device=dev)],
+                       x[torch.as_tensor(frozen, device=dev)])
+    for bad in (-1, Bs - B + 1):
+        with pytest.raises(ValueError):
+            cfg_ops.cfg_update_rowwise(x, ec, eu, s, ab_t, ab_prev, z, act,
+                                       row_offset=bad)
 
 
 @pytest.mark.parametrize("B,N,d", [(256, 17, 144), (256, 16, 144),
@@ -106,5 +140,30 @@ def test_sample_cfg_kernel_path_matches_plain(dev):
     assert [f.launches - b for f, b in zip(fns, before)] == [4, 4 * 5, 4 * 2]
     ref = sample_cfg(plain, sched, y, num_steps=4, x_T=x_T, noise=noise)
     assert [f.launches - b for f, b in zip(fns, before)] == [8, 4 * 5, 4 * 2]
+    assert float(ref.abs().max()) > 1e-3
+    assert _err(out, ref) < 5e-4
+
+
+def test_ragged_wave_kernel_path_matches_plain(dev):
+    """A 4-step ragged wave at mixed (guidance, steps) on the kernel path
+    against a copy of the model that runs the plain DiT, from the same row
+    keys; the rowwise update kernel runs once per iteration."""
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
+    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
+                device=dev)
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
+    plain = copy.deepcopy(model)
+    plain.plain = True
+    (y,) = _randn(dev, 6, (8, 512))
+    g = np.array([1.5, 4.0, 7.5, 1.5] * 2, np.float32)
+    steps = np.array([4, 4, 2, 2] * 2)
+    keys = prng.split(prng.PRNGKey(3), 8)
+    sched = make_schedule(device=dev)
+    before = cfg_ops.cfg_update_rowwise.launches
+    out = sample_cfg_ragged(model, sched, y, keys, g, steps)
+    assert cfg_ops.cfg_update_rowwise.launches == before + 4
+    ref = sample_cfg_ragged(plain, sched, y, keys, g, steps)
     assert float(ref.abs().max()) > 1e-3
     assert _err(out, ref) < 5e-4

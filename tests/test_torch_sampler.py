@@ -1,6 +1,8 @@
 """The port's classifier-free sampler against the JAX package's
-``sample_cfg``, with the reference's threefry draws of x_T and the step
-noise injected (``jax.random`` is not ported yet).
+``sample_cfg``.  Here the reference's threefry draws of x_T and the step
+noise are injected, so only the sampler's arithmetic is compared; the
+port's own draws from the same key are held in ``test_torch_prng`` and,
+end to end, in ``test_torch_engine``.
 
 The first step of a short trajectory at T = 1000 is ill-conditioned in
 fp32: √(1−ᾱ_prev−σ²) takes the root of a cancellation whose true value
@@ -18,6 +20,7 @@ import torch
 from repro.configs.oscar import DiffusionConfig as JDiffusionConfig
 from repro.diffusion import sampler as jsampler
 from repro.diffusion import schedule as jsched
+from repro_torch import prng
 from repro_torch.diffusion import sampler as tsampler
 from repro_torch.diffusion import schedule as tsched
 from test_torch_dit import perturbed_params, port_model
@@ -91,11 +94,19 @@ def test_sample_cfg_with_port_schedule_matches_reference():
 
 
 def test_sample_cfg_generator_is_deterministic():
+    """The threefry key is the sampler's only source of randomness: one key
+    gives one sample, another key another, and a key drives x_T and the
+    step noise exactly as the reference draws them."""
     model = port_model(perturbed_params(JDiffusionConfig(**DC), 16), DC, 16)
     sched = tsched.make_schedule(device="cpu")
-    y = torch.randn(2, 512, generator=torch.Generator().manual_seed(0))
-    a, b = (tsampler.sample_cfg(model, sched, y, num_steps=3,
-                                generator=torch.Generator().manual_seed(5))
-            for _ in range(2))
-    assert torch.equal(a, b)
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 512))
+                         .astype(np.float32))
+    a, b, c = (tsampler.sample_cfg(model, sched, y, prng.PRNGKey(seed),
+                                   num_steps=3) for seed in (5, 5, 6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
     assert float(a.abs().max()) <= 1.0 and torch.isfinite(a).all()
+    x_T, noise = reference_draws(jax.random.PRNGKey(5), (2, 16, 16, 3), 3)
+    d = prng.normal(prng.split(prng.PRNGKey(5))[1], (2, 16, 16, 3))
+    assert float((d - x_T).abs().max()) < 2e-6
+    with pytest.raises(ValueError):
+        tsampler.sample_cfg(model, sched, y, num_steps=3)
