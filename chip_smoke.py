@@ -14,9 +14,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   3. the DiT at the paper preset's full width (d_model 144, 4 layers,
      4 heads, patch 4, 512-d conditioning, 16 px, batch 256) on seeded
      weights perturbed 0.05·normal: kernel path against plain path;
+     3b. a ResNet-18 classifier's forward pass and input gradient at
+     B = 120 on the card against the CPU run of the same weights;
   4. the slice: federated data → client encodings → D_syn synthesis
      (6 clients × 10 categories × 30 samples, 50 steps, guidance 2.0,
-     waves of at most 128: 15 waves of 120), three times from one
+     waves of at most 128: 15 waves of 120), twice from one
      threefry key, with launch counts checked against the path each time,
      then a 4-step wave on the kernel path against the plain DiT on the
      same draws;
@@ -25,10 +27,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   6. ragged synthesis at the same width: the same 60 uploads at mixed
      (guidance, steps) — (1.5, 50), (4.0, 50), (7.5, 25), (1.5, 25) in
      turn, 30 samples each — through the engine as one-shot ragged waves
-     and as fully compacted waves, three rounds each, with row-iteration
+     and as fully compacted waves, two rounds each, with row-iteration
      and launch counts checked; ragged against compacted D_syn; one wave
      as two windows against the whole wave; a 4-step ragged wave on the
-     kernel path against the plain DiT; the cost of the threefry draws.
+     kernel path against the plain DiT; the cost of the threefry draws;
+  7. mixed guidance modes (the reference benchmark's
+     ``_bench_mixed_guidance`` request set): the 60 uploads of phase 6,
+     one classifier-guided request per category (guidance 1.0, 25 or 50
+     steps by category parity, two seeded ResNet-18 classifiers chosen
+     by parity) and four unconditional requests, 30 samples each, served
+     as merged ragged and merged compacted waves, with stats and launch
+     counts checked against a plan computed here, merged against
+     isolated-mode D_syn, ragged against compacted, a 4-step mixed wave on
+     the kernel path against the plain DiT, and one traced mixed wave.
+Phases 4 and 6 run two rounds each, phase 7 two per schedule.
 The last line is the result; the line before it names the card.
 Imports nothing of JAX or of the JAX package.
 """
@@ -49,6 +61,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 TOL_CFG, TOL_ADALN, TOL_ATTN = 1e-6, 1e-5, 2e-5
 TOL_DIT, TOL_E2E, TOL_E2E_DEEP = 2e-5, 5e-4, 2e-2
+TOL_CLF = 1e-4                   # classifier, card against CPU
 
 
 def check(ok: bool, what: str) -> None:
@@ -104,6 +117,41 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def device_busy(fn, trace_path: Path) -> dict:
+    """Run ``fn`` once under the profiler; the device's busy time is the
+    union of the kernel and copy intervals inside the call's span."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("wave"):
+            fn()
+            torch.cuda.synchronize()
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    span = [e for e in events if e.get("ph") == "X" and e.get("name") ==
+            "wave" and e.get("cat") == "user_annotation"]
+    check(len(span) == 1, f"{len(span)} 'wave' spans in the trace")
+    lo, hi = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    work = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["name"])
+                  for e in events if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end, by_name = 0.0, lo, {}
+    for a, b, name in work:
+        if b > a:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+            by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a)
+    check(busy > 0, "the profiler trace holds no device work")
+    traced_wall = (hi - lo) * 1e-6
+    return {"kernels": len(work), "traced_wall_s": traced_wall,
+            "device_busy_s": busy * 1e-6,
+            "device_idle_share": 1 - busy * 1e-6 / traced_wall,
+            "top_device_us": sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:10]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -116,7 +164,7 @@ def main() -> int:
     from repro_torch.diffusion import guidance as guid
     from repro_torch.diffusion.dit import DiT
     from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
-                                               sample_cfg_window)
+                                               sample_cfg_window, sample_mixed)
     from repro_torch.diffusion.schedule import make_schedule
     from repro_torch.encoders.foundation import FrozenFM
     from repro_torch.kernels.adaln_norm import ops as an_ops
@@ -127,6 +175,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models.classifiers import (classifier_logprob,
+                                                init_classifier)
     from repro_torch.serve import synthesis as serve_synthesis
     from repro_torch.serve.synthesis import SynthesisEngine
     from repro_torch.utils import default_device
@@ -153,10 +203,13 @@ def main() -> int:
     one = np.ones(2, np.float32)
     cfg_ops.cfg_update_rowwise(small, small, small, one, 0.5 * one, 0.7 * one,
                                small, one)
+    cfg_ops.cfg_update_mixed(small, small, small, one, one, 0.5 * one,
+                             0.7 * one, small, one)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     say(f"[1] build: nvcc flash_attention {t_nvcc:.2f} s, triton adaln_norm "
-        f"+ cfg_update + cfg_update_rowwise first launch {t_triton:.2f} s")
+        f"+ cfg_update + cfg_update_rowwise + cfg_update_mixed first launch "
+        f"{t_triton:.2f} s")
 
     # -- 2. kernels against their plain versions -----------------------------
     kernels = {}
@@ -256,6 +309,60 @@ def main() -> int:
            lambda: plain_rowwise(x, ec, eu, dvecs, z, 0), None,
            5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3])
 
+    # cfg_update_mixed: the same tables with a mode row, all 0 (bit-equal
+    # to cfg_update_rowwise), all 1, and mixed over the inactive rows
+    def mode_row(kind, Bs):
+        i = np.arange(Bs)
+        return {"cfg": 0 * i, "clf": 0 * i + 1,
+                "mixed": (i % 3 == 1) * 1}[kind].astype(np.float32)
+
+    checks = []
+    for B, Bs, off in [(120, 120, 0), (120, 240, 0), (120, 240, 120),
+                       (60, 240, 37)]:
+        vecs = rowwise_table(Bs)
+        x, ec, eu, z = (randn(B, 16, 16, 3) for _ in range(4))
+        s_, t_, p_, a_ = on_card(vecs)
+        for kind in ("cfg", "clf", "mixed"):
+            mode = mode_row(kind, Bs)
+            out = cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], z,
+                                           vecs[3], row_offset=off)
+            ref = cfg_ref.cfg_update_mixed_windowed(
+                x, ec, eu, on_card([mode])[0], s_, t_, p_, z, a_,
+                row_offset=off)
+            frozen = torch.as_tensor(vecs[3][off:off + B] == 0, device=dev)
+            check(torch.equal(out[frozen], x[frozen]),
+                  "cfg_update_mixed changed a frozen row")
+            if kind == "cfg":
+                check(torch.equal(out, cfg_ops.cfg_update_rowwise(
+                    x, ec, eu, *vecs[:3], z, vecs[3], row_offset=off)),
+                    "all-mode-0 cfg_update_mixed is not bit-equal to "
+                    "cfg_update_rowwise")
+            checks.append(dict(shape=[B, 16, 16, 3], slots=Bs, row_offset=off,
+                               modes=kind, max_abs_err=max_err(out, ref)))
+    for bad in (-1, len(vecs[0]) - x.shape[0] + 1):
+        try:
+            cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], z, vecs[3],
+                                     row_offset=bad)
+        except ValueError:
+            continue
+        check(False, f"cfg_update_mixed took row_offset {bad} of "
+              f"{len(vecs[0])} slots for {x.shape[0]} rows")
+    vecs = rowwise_table(120)
+    mode = mode_row("mixed", 120)
+    x, ec, eu, z = (randn(120, 16, 16, 3) for _ in range(4))
+    table = torch.as_tensor(cfg_ops.mixed_coeffs(mode, *vecs, 1.0),
+                            device=dev)
+    dvecs, dmode = on_card(vecs), on_card([mode])[0]
+    n = x.numel()
+    record("cfg_update_mixed", "triton",
+           "src/repro_torch/kernels/cfg_fuse/kernel.py",
+           "src/repro/kernels/cfg_fuse/kernel.py:94", TOL_CFG, checks,
+           lambda: cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], z,
+                                            vecs[3], coeffs=table),
+           lambda: cfg_ref.cfg_update_mixed(x, ec, eu, dmode, *dvecs[:3], z,
+                                            dvecs[3]), None,
+           5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3])
+
     # adaln_norm: the block sites (B, S, d), the final site (the strided
     # tok[:, 1:] view), the default d_model; scale/shift are strided
     # chunks of a (B, 6d) modulation, as in the DiT
@@ -350,6 +457,66 @@ def main() -> int:
         f"({dit_dev_ms:.3f} ms on the device), plain path "
         f"{dit_plain_ms:.3f} ms ({smi})")
 
+    # -- 3b. the classifier on the card --------------------------------------
+    # ResNet-18 at a mixed wave's width: logits and the guidance gradient
+    # ∇ log p(y|x) against the CPU run of the same weights, and whether
+    # cuDNN's own choice of backward algorithms repeats bit for bit.  The
+    # gradient of a ReLU net jumps where a ReLU input crosses 0, and the
+    # card and the CPU round those inputs differently by ~1e-7, so the
+    # gradient is gated on the samples whose ReLU inputs (CPU run) all lie
+    # at least 1e-6 from 0; the error over every sample is printed
+    clf = init_classifier(torch.Generator(dev).manual_seed(7), "resnet18", 10,
+                          device=dev)
+    logprob = classifier_logprob(clf)
+    xc = torch.rand((120, 16, 16, 3), generator=g, device=dev) * 2 - 1
+    yc = torch.randint(0, 10, (120,), generator=g, device=dev)
+    clf_cpu = copy.deepcopy(clf).cpu()
+
+    def unit(v):
+        return v / v.flatten(1).norm(dim=1).clamp(min=1e-6)[:, None, None,
+                                                           None]
+
+    relu, margins = torch.nn.functional.relu, []
+
+    def recorded_relu(v, *args, **kwargs):
+        margins.append(v.detach().abs().flatten(1).amin(1))
+        return relu(v, *args, **kwargs)
+
+    with torch.no_grad():
+        torch.nn.functional.relu = recorded_relu
+        try:
+            logits_cpu = clf_cpu(xc.cpu())
+        finally:
+            torch.nn.functional.relu = relu
+        margin = torch.stack(margins).amin(0)
+        smooth = margin > 1e-6
+        err_logits = max_err(clf(xc).cpu(), logits_cpu)
+        grad = guid._logprob_grad(logprob, xc, yc)
+        grad_err = (unit(grad).cpu() - unit(guid._logprob_grad(
+            classifier_logprob(clf_cpu), xc.cpu(), yc.cpu()))).abs() \
+            .flatten(1).amax(1)
+        err_grad = float(grad_err[smooth].max())
+        with torch.enable_grad():
+            free = []
+            for _ in range(2):
+                z_ = xc.clone().requires_grad_(True)
+                free.append(torch.autograd.grad(logprob(z_, yc).sum(), z_)[0])
+        clf_ms = cuda_ms(lambda: guid._logprob_grad(logprob, xc, yc), 20)
+    check(int(smooth.sum()) >= 100, f"only {int(smooth.sum())} of 120 "
+          f"classifier samples clear of ReLU kinks")
+    check(err_logits <= TOL_CLF and err_grad <= TOL_CLF,
+          f"resnet18 card vs CPU: logits {err_logits:.3g}, normalised "
+          f"gradient {err_grad:.3g} (tol {TOL_CLF:g})")
+    say(json.dumps({"classifier": {
+        "name": "resnet18", "batch": 120, "logits_max_abs_err_vs_cpu":
+        err_logits, "unit_grad_max_abs_err_vs_cpu": err_grad,
+        "samples_gated": int(smooth.sum()),
+        "unit_grad_max_abs_err_all_samples": float(grad_err.max()),
+        "relu_margin_of_worst_sample": float(margin[grad_err.argmax()]),
+        "tol": TOL_CLF, "forward_plus_input_grad_ms": clf_ms,
+        "default_cudnn_grads_repeat_bitwise": bool(torch.equal(*free)),
+        "card": smi}}))
+
     # -- 4. the slice: client encodings → D_syn ------------------------------
     # benchmarks/common.py's paper preset; its DM pre-training pool is drawn
     # after the client shards, so leaving it out changes no client image
@@ -362,14 +529,15 @@ def main() -> int:
     k_samples, wave, num_steps = 30, 128, dc.sample_timesteps
     fns = {"cfg_update": cfg_ops.cfg_update, "adaln_norm": an_ops.adaln_norm,
            "flash_attention": fa_ops.flash_attention,
-           "cfg_update_rowwise": cfg_ops.cfg_update_rowwise}
+           "cfg_update_rowwise": cfg_ops.cfg_update_rowwise,
+           "cfg_update_mixed": cfg_ops.cfg_update_mixed}
     n_rows = int(present.sum()) * k_samples
     n_waves = math.ceil(n_rows / wave)          # near-uniform: 15 of 120
     wave_steps = n_waves * num_steps
     want = {"cfg_update": wave_steps,
             "flash_attention": wave_steps * dc.num_layers,
             "adaln_norm": wave_steps * (2 * dc.num_layers + 1),
-            "cfg_update_rowwise": 0}
+            "cfg_update_rowwise": 0, "cfg_update_mixed": 0}
     # per-wave wall times: the engine's sampler calls, each timed to its
     # end on the device
     wave_walls = []
@@ -385,8 +553,8 @@ def main() -> int:
 
     serve_synthesis.sample_cfg = timed(sample_cfg)
     rounds = []
-    # three rounds from one key: the same D_syn, and the run-to-run spread
-    for rnd in (1, 2, 3):
+    # two rounds from one key: the same D_syn, and the run-to-run spread
+    for rnd in (1, 2):
         for fn in fns.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -427,10 +595,10 @@ def main() -> int:
             f"{wall:.3f} s, peak memory {peak / 2**20:.1f} MiB, {wave_steps} "
             f"wave-steps ({smi})")
     serve_synthesis.sample_cfg = sample_cfg
-    rates = [r["images_per_s"] for r in rounds[1:]]
+    rates = [r["images_per_s"] for r in rounds]
     say(json.dumps({"synthesis": {
         "rounds": rounds, "images": n_rows, "wave_steps": wave_steps,
-        "warm_spread": (max(rates) - min(rates)) / min(rates), "card": smi}}))
+        "spread": (max(rates) - min(rates)) / min(rates), "card": smi}}))
 
     # a 4-step wave, kernel path against the plain DiT on the same draws
     # (both take cfg_update's kernel, bit-equal to its plain version at
@@ -460,39 +628,11 @@ def main() -> int:
     one_wave()
     torch.cuda.synchronize()
     wave_wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("wave"):
-            one_wave()
-            torch.cuda.synchronize()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    trace_path = BUILD_DIR / "wave_trace.json"
-    prof.export_chrome_trace(str(trace_path))
-    events = json.loads(trace_path.read_text())
-    events = events["traceEvents"] if isinstance(events, dict) else events
-    span = [e for e in events if e.get("ph") == "X" and e.get("name") ==
-            "wave" and e.get("cat") == "user_annotation"]
-    check(len(span) == 1, f"{len(span)} 'wave' spans in the trace")
-    lo, hi = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
-    work = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["name"])
-                  for e in events if e.get("ph") == "X" and e.get("cat") in
-                  ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end, by_name = 0.0, lo, {}
-    for a, b, name in work:
-        if b > a:
-            busy += max(0.0, b - max(a, end))
-            end = max(end, b)
-            by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a)
-    check(busy > 0, "the profiler trace holds no device work")
-    traced_wall = (hi - lo) * 1e-6
+    trace = device_busy(one_wave, BUILD_DIR / "wave_trace.json")
     say(json.dumps({"wave_trace": {
-        "rows": wave, "steps": num_steps, "kernels": len(work),
-        "traced_wall_s": traced_wall, "untraced_wall_s": wave_wall,
-        "device_busy_s": busy * 1e-6,
-        "device_idle_share": 1 - busy * 1e-6 / traced_wall,
-        "device_idle_share_of_untraced_wall": 1 - busy * 1e-6 / wave_wall,
-        "top_device_us": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
+        "rows": wave, "steps": num_steps, **trace,
+        "untraced_wall_s": wave_wall, "device_idle_share_of_untraced_wall":
+        1 - trace["device_busy_s"] / wave_wall,
         "dit_call_ms": dit_ms, "dit_device_ms": dit_dev_ms, "card": smi}}))
 
     # -- 6. ragged synthesis: mixed (guidance, steps) ------------------------
@@ -540,7 +680,7 @@ def main() -> int:
     serve_synthesis.sample_cfg_compacted = timed(samplers[1])
     mixed_rounds, d_syn = [], {}
     for mode, compaction in (("ragged", None), ("compacted", "full")):
-        for rnd in (1, 2, 3):
+        for rnd in (1, 2):
             eng = mixed_engine(compaction)
             for fn in fns.values():
                 fn.launches = 0
@@ -567,7 +707,8 @@ def main() -> int:
                               row_iters_active=active_iters)
             check(eng.stats == want_stats, f"{mode} round {rnd}: stats "
                   f"{eng.stats} != {want_stats}")
-            want6 = {"cfg_update": 0, "cfg_update_rowwise": p6["iters"],
+            want6 = {"cfg_update": 0, "cfg_update_mixed": 0,
+                     "cfg_update_rowwise": p6["iters"],
                      "flash_attention": p6["iters"] * dc.num_layers,
                      "adaln_norm": p6["iters"] * (2 * dc.num_layers + 1)}
             check(launches == want6, f"{mode} round {rnd}: launches "
@@ -669,6 +810,195 @@ def main() -> int:
         "ragged_kernel_vs_plain_max_abs_err": {
             "8_rows_4_steps": err_plain, "120_rows_50_steps": err_plain_deep,
             "120_rows_4_steps": err_plain_120}, "card": smi}}))
+
+    # -- 7. mixed guidance modes ---------------------------------------------
+    # the reference benchmark's _bench_mixed_guidance request set at the
+    # paper preset: the 60 uploads of phase 6 (rids 0-59), one
+    # classifier-guided request per category (rids 60-69: guidance 1.0, 25
+    # steps and the first classifier for an even category, 50 steps and
+    # the second for an odd one) and four unconditional requests (rids
+    # 70-73: 50 steps for an even category, 25 for an odd one), 30 samples
+    # each.  The classifiers are two seeded ResNet-18s, as two clients
+    # would upload them: the repository has no trained one yet.
+    clfs = [classifier_logprob(init_classifier(
+        torch.Generator(dev).manual_seed(70 + i), "resnet18", 10,
+        device=dev)) for i in range(2)]
+    clf_reqs = [(c, 50 if c % 2 else 25) for c in range(10)]
+    unc_reqs = [(c, 25 if c % 2 else 50) for c in range(4)]
+    key7 = prng.PRNGKey(7)
+
+    def engine7(compaction=None, modes=("cfg", "clf", "uncond")):
+        eng = SynthesisEngine(model, sched, image_size=16, wave_size=wave,
+                              ragged=True, compaction=compaction)
+        if "cfg" in modes:
+            for i, (r, c) in enumerate(uploads):
+                g7, s7 = combos[i % len(combos)]
+                eng.submit(enc[r, c], c, k_samples, guidance=g7,
+                           num_steps=s7)
+        eng._next_rid = 60          # the rids of the whole request set
+        if "clf" in modes:
+            for c, s7 in clf_reqs:
+                eng.submit_classifier_guided(clfs[c % 2], c, k_samples,
+                                             guidance=1.0, num_steps=s7,
+                                             group=("clf", c))
+        eng._next_rid = 70
+        if "uncond" in modes:
+            for c, s7 in unc_reqs:
+                eng.submit_unconditional(k_samples, category=c, num_steps=s7)
+        return eng
+
+    # the plan: near-uniform FIFO waves of the 2220 rows, padding repeating
+    # the last row, a running step ceiling; a wave holding a classifier row
+    # updates through cfg_update_mixed, any other through
+    # cfg_update_rowwise
+    rows7 = ([(combos[i % 4][1], 0) for i in range(60) for _ in range(30)]
+             + [(s7, 1) for _, s7 in clf_reqs for _ in range(30)]
+             + [(s7, 0) for _, s7 in unc_reqs for _ in range(30)])
+    n7 = len(rows7)
+    nw = -(-n7 // wave)
+    w7 = -(-(-(-n7 // nw)) // 8) * 8
+    plan7 = {m: dict(mixed=0, rowwise=0, scheduled=0, segments=0)
+             for m in ("ragged", "compacted")}
+    smax = 0
+    for w in range(nw):
+        part = rows7[w * w7:(w + 1) * w7]
+        part = part + [part[-1]] * (w7 - len(part))
+        st_w = np.array([r[0] for r in part])
+        smax = max(smax, int(st_w.max()))
+        kind = "mixed" if any(r[1] for r in part) else "rowwise"
+        plan7["ragged"][kind] += smax
+        plan7["ragged"]["scheduled"] += w7 * smax
+        _, epochs = guid.plan_epochs(st_w, smax, compaction="full")
+        plan7["compacted"][kind] += sum(e - b for _, b, e in epochs)
+        plan7["compacted"]["scheduled"] += sum(r * (e - b)
+                                               for r, b, e in epochs)
+        plan7["compacted"]["segments"] += len(epochs)
+    active7 = sum(r[0] for r in rows7)
+    check(n7 == 2220 and nw == 18 and w7 == 128 and active7 == 83250
+          and plan7["ragged"]["mixed"] == 150, f"phase 7 plan {plan7}")
+
+    rounds7, d_syn7 = [], {}
+    for mode, compaction in (("ragged", None), ("compacted", "full")):
+        for rnd in (1, 2):
+            eng = engine7(compaction)
+            for fn in fns.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out7 = eng.run(key7)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in fns.items()}
+            peak = torch.cuda.max_memory_allocated()
+            check(sorted(out7) == list(range(74)), f"{mode}: rids "
+                  f"{sorted(out7)}")
+            images = torch.cat([out7[rid] for rid in range(74)])
+            check(tuple(images.shape) == (n7, 16, 16, 3),
+                  f"{mode} mixed-mode D_syn shape {tuple(images.shape)}")
+            check(bool(torch.isfinite(images).all())
+                  and float(images.abs().max()) <= 1.0,
+                  f"{mode} mixed-mode D_syn not finite in [-1, 1]")
+            p7 = plan7[mode]
+            want_stats = dict(waves=nw, generated=n7,
+                              scheduled_rows=nw * w7, padded=nw * w7 - n7,
+                              merged_waves=nw, segments=p7["segments"],
+                              row_iters_scheduled=p7["scheduled"],
+                              row_iters_active=active7)
+            check(eng.stats == want_stats, f"{mode} round {rnd}: stats "
+                  f"{eng.stats} != {want_stats}")
+            iters = p7["mixed"] + p7["rowwise"]
+            want7 = {"cfg_update": 0, "cfg_update_mixed": p7["mixed"],
+                     "cfg_update_rowwise": p7["rowwise"],
+                     "flash_attention": iters * dc.num_layers,
+                     "adaln_norm": iters * (2 * dc.num_layers + 1)}
+            check(launches == want7, f"{mode} round {rnd}: launches "
+                  f"{launches} != expected {want7}")
+            if rnd == 1:
+                d_syn7[mode] = out7
+                if mode == "ragged":
+                    kernels["cfg_update_mixed"]["launches"] = \
+                        launches["cfg_update_mixed"]
+            else:
+                check(all(torch.equal(out7[r], d_syn7[mode][r])
+                          for r in out7),
+                      f"{mode} round {rnd}: mixed-mode D_syn differs from "
+                      f"round 1's, same key")
+            rounds7.append(dict(
+                mode=mode, round=rnd, images_per_s=n7 / wall, wall_s=wall,
+                peak_mib=peak / 2**20, stats=eng.stats, launches=launches))
+            say(f"[7] {mode} round {rnd}: {n7} images, {n7 / wall:.1f} "
+                f"images/s, wall {wall:.3f} s, peak memory "
+                f"{peak / 2**20:.1f} MiB, row-iterations "
+                f"{eng.stats['row_iters_scheduled']} scheduled / "
+                f"{eng.stats['row_iters_active']} active, launches "
+                f"{launches} ({smi})")
+
+    def rid_err(a, b):          # over the rids of a
+        return max(max_err(a[r], b[r]) for r in a)
+
+    err7_pack = rid_err(d_syn7["ragged"], d_syn7["compacted"])
+    check(err7_pack <= TOL_E2E_DEEP, f"mixed ragged vs compacted D_syn "
+          f"{err7_pack:.3g}")
+    # each mode alone, in an engine of its own with the same rids
+    err7_iso = {}
+    for modes in (("cfg",), ("clf",), ("uncond",)):
+        alone = engine7(None, modes).run(key7)
+        err7_iso[modes[0]] = rid_err(alone, d_syn7["ragged"])
+    check(max(err7_iso.values()) <= TOL_E2E_DEEP,
+          f"merged vs isolated-mode D_syn {err7_iso}")
+    say(f"[7] merged vs isolated-mode D_syn max_abs_err {err7_iso}, ragged "
+        f"vs compacted {err7_pack:.3g} (tol {TOL_E2E_DEEP:g})")
+
+    # one 120-row mixed wave, 40 rows of each mode, the classifier rows on
+    # both classifiers: at 4/2 steps on the kernel path against the plain
+    # DiT (printed: the t = 999 first step amplifies the DiT's per-call
+    # difference, as in phase 6), then at 50/25 steps traced
+    null = model.null_y.detach()
+    y7 = torch.cat([torch.as_tensor(np.repeat(enc[present][:4], 10, axis=0),
+                                    device=dev), null.expand(80, -1)])
+    g7 = np.r_[np.repeat([1.5, 4.0, 7.5, 1.5], 10), np.ones(40),
+               np.zeros(40)].astype(np.float32)
+    m7 = np.r_[np.zeros(40), np.ones(40), np.zeros(40)].astype(np.float32)
+    ids7 = np.r_[np.zeros(40), np.arange(40) % 2, np.zeros(40)]
+    lab7 = np.arange(120) % 10
+    keys7 = prng.split(prng.PRNGKey(8), 120)
+
+    def wave7(m, steps):
+        return sample_mixed(m, sched, y7, keys7, g7, m7, ids7, lab7,
+                            np.tile(steps, 60), clf_fns=tuple(clfs))
+
+    cfg_ops.cfg_update_mixed.launches = 0
+    out4 = wave7(model, [4, 2])
+    check(cfg_ops.cfg_update_mixed.launches == 4,
+          f"{cfg_ops.cfg_update_mixed.launches} mixed launches for a 4-step "
+          f"wave")
+    ref4 = wave7(plain, [4, 2])
+    check(float(ref4.abs().max()) > 1e-3, "vacuous mixed parity")
+    err4 = {name: max_err(out4[sl], ref4[sl]) for name, sl in
+            (("cfg", slice(0, 40)), ("clf", slice(40, 80)),
+             ("uncond", slice(80, 120)))}
+    say(f"[7] 4-step mixed wave of 120 rows, kernel path vs plain DiT "
+        f"max_abs_err by mode {err4} (printed, not gated)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wave7(model, [50, 25])
+    torch.cuda.synchronize()
+    wall7 = time.perf_counter() - t0
+    trace7 = device_busy(lambda: wave7(model, [50, 25]),
+                         BUILD_DIR / "mixed_wave_trace.json")
+    rates7 = {m: [r["images_per_s"] for r in rounds7 if r["mode"] == m]
+              for m in ("ragged", "compacted")}
+    say(json.dumps({"mixed_guidance": {
+        "rounds": rounds7, "plan": plan7, "active_iters": active7,
+        "images_per_s": rates7, "ragged_vs_compacted_max_abs_err": err7_pack,
+        "merged_vs_isolated_max_abs_err": err7_iso,
+        "mixed_4_step_kernel_vs_plain_max_abs_err": err4,
+        "mixed_wave_trace": {"rows": 120, "steps": [50, 25], **trace7,
+                             "untraced_wall_s": wall7,
+                             "device_idle_share_of_untraced_wall":
+                             1 - trace7["device_busy_s"] / wall7},
+        "card": smi}}))
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(smi)

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's DiT, as the port's ``state_dict``.
+"""Parameters of the JAX package's DiT and classifiers, as the port's
+``state_dict``s.
 
 The reference ``init_dit`` pytree is nested dicts of arrays plus a
 ``blocks`` list; Dense weights there are (in, out), ``nn.Linear`` stores
@@ -29,4 +30,40 @@ def dit_state_from_jax(tree) -> dict:
     for i, blk in enumerate(tree["blocks"]):
         for name in _BLOCK_DENSE:
             _dense(state, f"blocks.{i}.{name}", blk[name])
+    return state
+
+
+def classifier_state_from_jax(tree, name: str) -> dict:
+    """``init_classifier(key, name, ...)`` tree → the port's module of the
+    same ``name`` (``load_state_dict`` input).  Convolutions are HWIO there
+    and OIHW here; norms carry (scale, bias) there and (weight, bias) here;
+    ``pos`` and ``cls`` cross as they are."""
+    from repro_torch.models.classifiers import CLASSIFIERS
+    if name not in CLASSIFIERS:
+        raise ValueError(name)
+    state = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict) and "w" in node:
+            w = np.asarray(node["w"], np.float32)
+            state[f"{prefix}weight"] = torch.tensor(
+                w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T)
+            if "b" in node:
+                state[f"{prefix}bias"] = torch.tensor(
+                    np.asarray(node["b"], np.float32))
+        elif isinstance(node, dict) and "scale" in node:
+            state[f"{prefix}weight"] = torch.tensor(
+                np.asarray(node["scale"], np.float32))
+            state[f"{prefix}bias"] = torch.tensor(
+                np.asarray(node["bias"], np.float32))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}{i}.", v)
+        else:
+            state[prefix[:-1]] = torch.tensor(np.asarray(node, np.float32))
+
+    walk("", tree)
     return state

@@ -1,14 +1,22 @@
-"""Classifier-free guidance and the reverse-process cores.
+"""Guidance strategies and the reverse-process cores.
 
-``reverse_sample`` owns the respacing, the step loop, the per-step noise
-draw and the fused guidance-combine + ancestral update (the ``cfg_fuse``
-kernel on CUDA) of a uniform wave.  The ragged cores give every row its
-own (guidance, steps) inside one trajectory, right-aligned and frozen by
-an active mask until the row starts: ``reverse_sample_ragged`` runs the
-whole wave, ``reverse_sample_compacted`` runs it as nested activation
-epochs (``plan_epochs``) that skip frozen rows, and
-``reverse_sample_window`` runs one window of a wave against the
-wave-wide scalar table.  All of them update through ``cfg_update_rowwise``.
+Every sampler is one ancestral/DDIM loop that differs only in how a step's
+score ε̂ is formed: classifier-free (paper Eq. 8), classifier-guided (Eq. 4,
+FedCADO's server side) or unconditional.  ``reverse_sample`` owns the
+respacing, the step loop, the per-step noise draw and the update of a
+uniform wave: the fused guidance-combine + ancestral update (the
+``cfg_fuse`` kernel on CUDA) for classifier-free guidance, the plain
+ancestral step for a strategy that forms ε̂ itself, as the JAX package
+does.  The ragged cores give every row its own (guidance, steps) inside
+one trajectory, right-aligned and frozen by an active mask until the row
+starts: ``reverse_sample_ragged`` runs the whole wave,
+``reverse_sample_compacted`` runs it as nested activation epochs
+(``plan_epochs``) that skip frozen rows, and ``reverse_sample_window`` runs
+one window of a wave against the wave-wide scalar table.  They update
+through ``cfg_update_rowwise``.  The mixed cores (``reverse_sample_mixed``
+and its window and segment forms) also give every row a guidance mode:
+classifier-guided rows take the classifier correction of ``_clf_correct``
+and the wave updates through ``cfg_update_mixed``.
 
 Randomness comes from threefry keys (``repro_torch.prng``), drawn as the
 JAX package draws them: a uniform wave splits its key for x_T and then
@@ -16,11 +24,20 @@ once per step; row b of a ragged wave draws x_T from
 ``fold_in(row_keys[b], 0)`` and its step-j noise from
 ``fold_in(row_keys[b], 1 + j)``, j the row's own step index.  All of a
 wave's noise is drawn in one vectorised call before its loop.
+
+Classifier gradients come from ``torch.autograd``.  Samplers that may take
+one run under ``torch.no_grad()`` (no graph can be recorded on inference
+tensors); the gradient is taken inside ``torch.enable_grad()`` on a
+detached copy of x̂₀, in calls of one shape and with cuDNN held to
+deterministic algorithms, so that the same key gives the same images
+whatever wave a row rides in; the denoiser stays outside it.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -29,6 +46,7 @@ from repro_torch import prng
 from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
+from repro_torch.kernels.cfg_fuse import ref as cfg_ref
 
 # The reference's float32 linspace computes (T-1) * (1 - i * fl(1/div)),
 # and XLA's CPU backend fuses ``1 - i * c`` into one rounding (FMA) only
@@ -117,11 +135,56 @@ class ClassifierFree:
     def prepare(self, model: DiT):
         return _with_null(model, self.y)
 
-    def eps(self, model: DiT, x, t: int, y2):
+    def eps(self, model: DiT, x, t: int, ab_t: float, y2):
         B = x.shape[0]
         t2 = torch.full((2 * B,), t, dtype=torch.int64, device=x.device)
         eps2 = model(torch.cat([x, x], dim=0), t2, y2)
         return eps2[:B], eps2[B:], self.scale
+
+
+@dataclass(frozen=True)
+class ClassifierGuided:
+    """Paper Eq. 4 (FedCADO): the unconditional score steered by the
+    gradient of a client classifier's log p(y|x), taken at the clipped x̂₀
+    and normalised per sample (``_guided_eps``)."""
+    logprob_fn: Callable        # (x, labels) -> (B,) log p(y|x)
+    labels: torch.Tensor        # (B,) integer labels
+    scale: float
+
+    def batch(self) -> int:
+        return self.labels.shape[0]
+
+    def prepare(self, model: DiT):
+        return None
+
+    def eps(self, model: DiT, x, t: int, ab_t: float, aux):
+        B = x.shape[0]
+        eps_u = model(x, torch.full((B,), t, dtype=torch.int64,
+                                    device=x.device), None)
+        # float32 per-row vectors, filled on the device (no host copy)
+        ab = torch.full((B,), ab_t, dtype=torch.float32, device=x.device)
+        scale = torch.full((B,), self.scale, dtype=torch.float32,
+                           device=x.device)
+        return _guided_eps(self.logprob_fn, x, eps_u, torch.sqrt(1.0 - ab),
+                           torch.sqrt(ab), scale, self.labels), None, 0.0
+
+
+@dataclass(frozen=True)
+class Unconditional:
+    """Plain p(x) sampling through the null embedding Ø (FedDISC-style
+    draws without a steering signal)."""
+    num: int
+
+    def batch(self) -> int:
+        return self.num
+
+    def prepare(self, model: DiT):
+        return None
+
+    def eps(self, model: DiT, x, t: int, ab_t: float, aux):
+        B = x.shape[0]
+        return model(x, torch.full((B,), t, dtype=torch.int64,
+                                   device=x.device), None), None, 0.0
 
 
 def _with_null(model: DiT, y: torch.Tensor) -> torch.Tensor:
@@ -130,26 +193,86 @@ def _with_null(model: DiT, y: torch.Tensor) -> torch.Tensor:
     return torch.cat([y.float(), null], dim=0)
 
 
-def reverse_sample(model: DiT, sched: NoiseSchedule,
-                   strategy: ClassifierFree, key=None, *,
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = prev
+
+
+# rows per classifier call: see _logprob_grad
+CLF_CHUNK = 128
+
+
+def _logprob_grad(logprob_fn, x0, labels) -> torch.Tensor:
+    """∇ Σ_b log p(labels_b | x̂₀_b) with respect to x̂₀ alone.
+
+    The classifier runs on chunks of exactly ``CLF_CHUNK`` rows, the last
+    one zero-padded.  cuDNN chooses its algorithms by batch size, so on the
+    card a row's gradient would otherwise round differently with the number
+    of rows that share the call; near a ReLU kink that flips a unit, and
+    the early steps of a trajectory amplify the jump (on an H100 the
+    classifier rows of a merged wave moved by up to 0.14 against the same
+    rows served alone).  With one call shape a row's gradient does not
+    depend on its wave."""
+    n = x0.shape[0]
+    grads = []
+    for lo in range(0, n, CLF_CHUNK):
+        z, lab = x0[lo:lo + CLF_CHUNK], labels[lo:lo + CLF_CHUNK]
+        real = z.shape[0]
+        if real < CLF_CHUNK:
+            z = torch.cat([z, z.new_zeros((CLF_CHUNK - real, *z.shape[1:]))])
+            lab = torch.cat([lab, lab.new_zeros(CLF_CHUNK - real)])
+        with torch.enable_grad(), _deterministic_cudnn():
+            z = z.detach().clone().requires_grad_(True)
+            (grad,) = torch.autograd.grad(logprob_fn(z, lab).sum(), z)
+        grads.append(grad[:real])
+    return grads[0] if len(grads) == 1 else torch.cat(grads)
+
+
+def _guided_eps(logprob_fn, x, eps_u, sqrt_1mab, sqrt_ab, scale, labels):
+    """The stabilised Eq. 4 of the reference, per row: the classifier
+    gradient at the clipped x̂₀, normalised per sample (norm floored at
+    1e-6), scaled by s·√(1−ᾱ_t)·rms(ε_u) and taken from ε_u.  The scalars
+    are per-row float32 tensors (n,)."""
+    def r(v):
+        return v.reshape((-1, 1, 1, 1))
+
+    x0 = torch.clamp((x - r(sqrt_1mab) * eps_u) / r(sqrt_ab), -1.0, 1.0)
+    grad = _logprob_grad(logprob_fn, x0, labels)
+    gnorm = torch.sqrt(torch.sum(grad ** 2, dim=(1, 2, 3), keepdim=True))
+    grad = grad / torch.clamp(gnorm, min=1e-6)
+    enorm = torch.sqrt(torch.mean(eps_u ** 2, dim=(1, 2, 3), keepdim=True))
+    return eps_u - r(scale) * r(sqrt_1mab) * grad * enorm
+
+
+def reverse_sample(model: DiT, sched: NoiseSchedule, strategy, key=None, *,
                    image_size: int | None = None, channels: int = 3,
                    num_steps: int | None = None, eta: float = 1.0,
-                   x_T: torch.Tensor | None = None, noise=None):
+                   eager: bool = False, x_T: torch.Tensor | None = None,
+                   noise=None):
     """The ancestral/DDIM loop (paper Eq. 9): x_T ~ N(0, I); at each
-    respaced t the strategy gives the score pair and the fused update
-    advances x_t → x_{t−1}.
+    respaced t the strategy gives (ε_c, ε_u, s) and the update advances
+    x_t → x_{t−1}: the fused guidance update, or the plain ancestral step
+    on ε_c when the strategy gives no ε_u.
 
-    ``key`` (a threefry key) draws x_T from its first split and step i's
-    noise from the chain of splits after it.  ``x_T`` (B, H, W, C) and
-    ``noise`` (num_steps, B, H, W, C) replace those draws when given; with
-    both given ``key`` may be None."""
+    ``eager`` selects the respacing of the reference's eagerly called
+    loop (its classifier-guided sampler is not jitted); the default is
+    its jitted samplers' trajectory.  ``key`` (a threefry key) draws x_T
+    from its first split and step i's noise from the chain of splits
+    after it.  ``x_T`` (B, H, W, C) and ``noise`` (num_steps, B, H, W, C)
+    replace those draws when given; with both given ``key`` may be None."""
     B = strategy.batch()
     H = image_size or 16
     num_steps = num_steps or model.dc.sample_timesteps
-    ts = respaced_ts(sched.T, num_steps)
+    ts = respaced_ts(sched.T, num_steps, eager=eager)
     ab_t, ab_prev = ancestral_coeffs(sched, ts)
     steps = list(zip(ts.tolist(), ab_t.tolist(), ab_prev.tolist()))
-    device = strategy.y.device
+    device = model.null_y.device
     shape = (B, H, H, channels)
 
     if x_T is None or noise is None:
@@ -167,11 +290,14 @@ def reverse_sample(model: DiT, sched: NoiseSchedule,
     x = x_T.to(device, torch.float32)
     aux = strategy.prepare(model)
     for i, (t, abt, abp) in enumerate(steps):
-        eps_c, eps_u, s = strategy.eps(model, x, t, aux)
+        eps_c, eps_u, s = strategy.eps(model, x, t, abt, aux)
         z = noise[i].to(device, torch.float32)
         if t == 0:
             z = torch.zeros_like(z)
-        x = cfg_ops.cfg_update(x, eps_c, eps_u, s, abt, abp, z, eta)
+        if eps_u is None:
+            x = cfg_ref.ancestral_step(x, eps_c, abt, abp, z, eta)
+        else:
+            x = cfg_ops.cfg_update(x, eps_c, eps_u, s, abt, abp, z, eta)
     return torch.clamp(x, -1.0, 1.0)
 
 
@@ -218,8 +344,55 @@ def _row_x_T(row_keys, shape, device) -> torch.Tensor:
     return prng.normal(prng.fold_in(row_keys, 0), shape, device)
 
 
+@dataclass(frozen=True)
+class Mixed:
+    """The per-row operands of a wave that mixes guidance modes: ``mode``
+    (Bs,) spans the wave like the scalar table (0 classifier-free, with
+    unconditional rows as its s = 0 point on a null condition; 1
+    classifier-guided), ``clf_ids`` and ``labels`` (B,) belong to the rows
+    the scan carries, and row b's classifier is ``clf_fns[clf_ids[b]]``."""
+    mode: np.ndarray
+    clf_ids: np.ndarray
+    labels: np.ndarray
+    clf_fns: tuple = ()
+
+    @classmethod
+    def of(cls, mode, clf_ids, labels, clf_fns=()) -> "Mixed":
+        mode = np.asarray(mode, np.float32).reshape(-1)
+        zeros = np.zeros(len(mode), np.int64)
+        return cls(mode,
+                   zeros if clf_ids is None else
+                   np.asarray(clf_ids, np.int64).reshape(-1),
+                   zeros if labels is None else
+                   np.asarray(labels, np.int64).reshape(-1),
+                   tuple(clf_fns))
+
+    def rows(self, idx) -> "Mixed":
+        """The operands of carried rows ``idx`` of a wave whose table is
+        the wave's own (a compaction epoch)."""
+        return Mixed(self.mode[idx], self.clf_ids[idx], self.labels[idx],
+                     self.clf_fns)
+
+
+def _clf_correct(eps_c, eps_u, x, coeffs, labels, groups):
+    """Row-wise classifier correction (Eq. 4) of a mixed wave: the rows of
+    each ``(fn, rows)`` in ``groups`` take ``_guided_eps`` of their own
+    classifier, every other row keeps ε_c for the classifier-free combine.
+    ``coeffs`` is the step's (9, B) table of these rows: √(1−ᾱ_t), √ᾱ_t and
+    s per row.  The reference evaluates every classifier over the whole
+    wave and selects per row; a classifier's value on a row depends only
+    on that row, so evaluating it on its own rows gives the same values."""
+    for fn, rows in groups:
+        c = coeffs[:, rows]
+        hat = _guided_eps(fn, x[rows], eps_u[rows], c[2], c[3], c[1],
+                          labels[rows])
+        eps_c = eps_c.index_copy(0, rows, hat)
+    return eps_c
+
+
 def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
-              ab_prev, active, *, row_offset: int, eta: float):
+              ab_prev, active, *, row_offset: int, eta: float,
+              mixed: Mixed | None = None):
     """The per-row reverse scan, one iteration per table column.
 
     ``x`` holds wave rows ``[row_offset, row_offset + B)``; ``y2``,
@@ -229,7 +402,9 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     scalars at wave slot ``row_offset + b``.  Row b's step-j noise is
     ``fold_in(row_keys[b], max(j, 0) + 1)``, zero at t = 0, all drawn
     before the loop; the update coefficients are formed on the host and
-    uploaded once.  Returns x unclipped."""
+    uploaded once.  With ``mixed`` the update is ``cfg_update_mixed`` and
+    each iteration first corrects the active classifier-guided rows.
+    Returns x unclipped."""
     B, H, W, C = x.shape
     S = ts.shape[1]
     dev = x.device
@@ -239,14 +414,43 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     live = torch.as_tensor(ts_steps > 0, device=dev).float()
     noise = prng.normal(nk, (H, W, C), dev) * live[..., None, None, None]
     guidance = np.asarray(guidance, np.float32)
-    coeffs = torch.as_tensor(cfg_ops.rowwise_coeffs(
-        guidance, ab_t.T, ab_prev.T, active.T, eta), device=dev)
+    if mixed is None:
+        table = cfg_ops.rowwise_coeffs(guidance, ab_t.T, ab_prev.T, active.T,
+                                       eta)
+    else:
+        table = cfg_ops.mixed_coeffs(mixed.mode, guidance, ab_t.T, ab_prev.T,
+                                     active.T, eta)
+        w = slice(row_offset, row_offset + B)
+        is_clf = mixed.mode[w] >= 0.5
+        labels = torch.as_tensor(mixed.labels, device=dev)
+        row_sets: dict[bytes, torch.Tensor] = {}   # one upload per row set
+    coeffs = torch.as_tensor(table, device=dev)
     t_all = torch.as_tensor(ts_steps, dtype=torch.int64, device=dev)
     for i in range(S):
         t2 = torch.cat([t_all[i], t_all[i]])
         eps2 = model(torch.cat([x, x], dim=0), t2, y2)
-        x = cfg_ops.cfg_update_rowwise(
-            x, eps2[:B], eps2[B:], guidance, ab_t[:, i], ab_prev[:, i],
+        eps_c, eps_u = eps2[:B], eps2[B:]
+        if mixed is None:
+            x = cfg_ops.cfg_update_rowwise(
+                x, eps_c, eps_u, guidance, ab_t[:, i], ab_prev[:, i],
+                noise[i], active[:, i], eta, row_offset=row_offset,
+                coeffs=coeffs[i])
+            continue
+        # frozen rows pass the update unchanged: only active classifier
+        # rows need the gradient
+        groups = []
+        for k, fn in enumerate(mixed.clf_fns):
+            rows = np.flatnonzero(is_clf & (active[w, i] > 0)
+                                  & (mixed.clf_ids == k))
+            if len(rows):
+                rk = rows.tobytes()
+                if rk not in row_sets:
+                    row_sets[rk] = torch.as_tensor(rows, device=dev)
+                groups.append((fn, row_sets[rk]))
+        eps_c = _clf_correct(eps_c, eps_u, x, coeffs[i][:, w], labels,
+                             groups)
+        x = cfg_ops.cfg_update_mixed(
+            x, eps_c, eps_u, mixed.mode, guidance, ab_t[:, i], ab_prev[:, i],
             noise[i], active[:, i], eta, row_offset=row_offset,
             coeffs=coeffs[i])
     return x
@@ -259,16 +463,16 @@ def reverse_sample_ragged(model: DiT, y, row_keys, guidance, ts, ab_t,
     ``guidance`` (B,) and the (B, S) tables of ``ragged_tables``.  Each row
     draws its own noise from ``row_keys[b]``, so a row's result does not
     depend on the wave it is packed in."""
-    x = _row_x_T(row_keys, (image_size, image_size, channels), y.device)
-    x = _row_scan(model, x, _with_null(model, y), row_keys, guidance, ts,
-                  jloc, ab_t, ab_prev, jloc >= 0, row_offset=0, eta=eta)
-    return torch.clamp(x, -1.0, 1.0)
+    return reverse_sample_mixed(model, y, row_keys, guidance, None, None,
+                                None, ts, ab_t, ab_prev, jloc,
+                                image_size=image_size, channels=channels,
+                                eta=eta)
 
 
 def reverse_sample_window(model: DiT, x, y, row_keys, guidance, ts, jloc,
                           ab_t, ab_prev, active, *, row_offset: int,
                           image_size: int, channels: int = 3,
-                          eta: float = 1.0):
+                          eta: float = 1.0, mixed: Mixed | None = None):
     """One segment of one window of a wave: advance the carried rows ``x``
     and admit the rest.  ``y``, ``row_keys`` and ``ts``/``jloc`` belong to
     the window; ``guidance``, ``ab_t``, ``ab_prev`` and ``active`` span the
@@ -281,7 +485,47 @@ def reverse_sample_window(model: DiT, x, y, row_keys, guidance, ts, jloc,
     x = torch.cat([x.to(y.device), x_new], dim=0)
     return _row_scan(model, x, _with_null(model, y), row_keys, guidance,
                      ts, jloc, ab_t, ab_prev, active, row_offset=row_offset,
-                     eta=eta)
+                     eta=eta, mixed=mixed)
+
+
+# ---------------------------------------------------------------------------
+# mixed mode: classifier-free, classifier-guided and unconditional rows in
+# one wave
+# ---------------------------------------------------------------------------
+
+def reverse_sample_mixed(model: DiT, y, row_keys, guidance, mode, clf_ids,
+                         labels, ts, ab_t, ab_prev, jloc, *, clf_fns=(),
+                         image_size: int, channels: int = 3,
+                         eta: float = 1.0):
+    """Reverse loop with per-row (mode, guidance, steps, classifier).
+    ``y`` carries each row's condition: its encoding for a classifier-free
+    row, the null embedding Ø for classifier-guided and unconditional
+    rows.  Row noise is keyed as in ``reverse_sample_ragged``, so a row's
+    value does not depend on which modes share its wave.  With ``mode``
+    None the wave is classifier-free and updates through
+    ``cfg_update_rowwise``."""
+    mixed = None if mode is None else Mixed.of(mode, clf_ids, labels,
+                                               clf_fns)
+    x = _row_x_T(row_keys, (image_size, image_size, channels), y.device)
+    x = _row_scan(model, x, _with_null(model, y), row_keys, guidance, ts,
+                  jloc, ab_t, ab_prev, jloc >= 0, row_offset=0, eta=eta,
+                  mixed=mixed)
+    return torch.clamp(x, -1.0, 1.0)
+
+
+def reverse_sample_mixed_window(model: DiT, x, y, row_keys, guidance, mode,
+                                clf_ids, labels, ts, jloc, ab_t, ab_prev,
+                                active, *, clf_fns=(), row_offset: int,
+                                image_size: int, channels: int = 3,
+                                eta: float = 1.0):
+    """``reverse_sample_window`` for a mixed wave: ``mode`` spans the whole
+    wave like ``guidance``; ``clf_ids`` and ``labels`` belong to the
+    window.  Returns x unclipped."""
+    mixed = Mixed.of(mode, clf_ids, labels, clf_fns)
+    return reverse_sample_window(model, x, y, row_keys, guidance, ts, jloc,
+                                 ab_t, ab_prev, active, row_offset=row_offset,
+                                 image_size=image_size, channels=channels,
+                                 eta=eta, mixed=mixed)
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +609,8 @@ def plan_epochs(steps, max_steps: int, *, compaction="full",
 
 def reverse_sample_segment(model: DiT, x, y, row_keys, guidance, ts, ab_t,
                            ab_prev, jloc, *, image_size: int,
-                           channels: int = 3, eta: float = 1.0):
+                           channels: int = 3, eta: float = 1.0,
+                           mixed: Mixed | None = None):
     """One compaction epoch: advance the carried rows and admit the new
     ones (x_T from ``fold_in(row_keys[b], 0)``, the draw the one-shot
     ragged scan makes).  Tables are the ``[:rows, begin:end]`` slices of
@@ -373,7 +618,20 @@ def reverse_sample_segment(model: DiT, x, y, row_keys, guidance, ts, ab_t,
     return reverse_sample_window(model, x, y, row_keys, guidance, ts, jloc,
                                  ab_t, ab_prev, jloc >= 0, row_offset=0,
                                  image_size=image_size, channels=channels,
-                                 eta=eta)
+                                 eta=eta, mixed=mixed)
+
+
+def reverse_sample_mixed_segment(model: DiT, x, y, row_keys, guidance, ts,
+                                 ab_t, ab_prev, jloc, *, mode, clf_ids,
+                                 labels, clf_fns=(), image_size: int,
+                                 channels: int = 3, eta: float = 1.0):
+    """One compaction epoch of a mixed wave: ``reverse_sample_segment`` with
+    the epoch's rows' (mode, classifier, label) alongside.  Returns x
+    unclipped."""
+    return reverse_sample_segment(
+        model, x, y, row_keys, guidance, ts, ab_t, ab_prev, jloc,
+        image_size=image_size, channels=channels, eta=eta,
+        mixed=Mixed.of(mode, clf_ids, labels, clf_fns))
 
 
 def _check_plan(epochs, n_total: int, S: int, jloc) -> None:
@@ -417,19 +675,28 @@ def _check_plan(epochs, n_total: int, S: int, jloc) -> None:
 def reverse_sample_compacted(model: DiT, y, row_keys, guidance, ts, ab_t,
                              ab_prev, jloc, *, epochs, order=None,
                              image_size: int, channels: int = 3,
-                             eta: float = 1.0):
+                             eta: float = 1.0, mode=None, clf_ids=None,
+                             labels=None, clf_fns=()):
     """Compute-skipping ragged reverse process: one scan segment per epoch
     of ``plan_epochs``, each over only the rows live by its end, stitched
     back into request order (``order`` from ``plan_epochs``; ``None`` if
     the inputs are already activation-sorted).  Same per-row arithmetic
-    and noise as ``reverse_sample_ragged``; only the batches change."""
+    and noise as ``reverse_sample_ragged``; only the batches change.
+
+    With ``mode`` (and ``clf_ids``, ``labels``, ``clf_fns``) the wave is a
+    mixed one: its per-row operands are permuted by ``order`` and sliced
+    per epoch with every other row vector."""
     row_keys = np.asarray(row_keys)
     guidance = np.asarray(guidance, np.float32)
+    mixed = None if mode is None else Mixed.of(mode, clf_ids, labels,
+                                               clf_fns)
     if order is not None:
         idx = np.asarray(order)
         y = y[torch.as_tensor(idx, device=y.device)]
         row_keys, guidance = row_keys[idx], guidance[idx]
         ts, ab_t, ab_prev, jloc = ts[idx], ab_t[idx], ab_prev[idx], jloc[idx]
+        if mixed is not None:
+            mixed = mixed.rows(idx)
     _check_plan(epochs, y.shape[0], ts.shape[1], np.asarray(jloc))
     H = image_size
     x = torch.zeros((0, H, H, channels), device=y.device)
@@ -438,7 +705,8 @@ def reverse_sample_compacted(model: DiT, y, row_keys, guidance, ts, ab_t,
             model, x, y[:rows], row_keys[:rows], guidance[:rows],
             ts[:rows, begin:end], ab_t[:rows, begin:end],
             ab_prev[:rows, begin:end], jloc[:rows, begin:end],
-            image_size=H, channels=channels, eta=eta)
+            image_size=H, channels=channels, eta=eta,
+            mixed=None if mixed is None else mixed.rows(slice(0, rows)))
     x = torch.clamp(x, -1.0, 1.0)
     if order is not None:
         inv = np.empty_like(idx)

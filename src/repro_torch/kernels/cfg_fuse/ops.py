@@ -29,6 +29,16 @@ def rowwise_coeffs(s, ab_t, ab_prev, active, eta: float) -> np.ndarray:
                     axis=max(s.ndim - 1, 0))
 
 
+def mixed_coeffs(mode, s, ab_t, ab_prev, active, eta: float) -> np.ndarray:
+    """(..., 9, Bs) float32: the ``rowwise_coeffs`` rows of these vectors,
+    then each row's ``mode`` (0 classifier-free or unconditional, 1
+    classifier-guided)."""
+    rows = rowwise_coeffs(s, ab_t, ab_prev, active, eta)
+    m = np.broadcast_to(np.asarray(mode, np.float32),
+                        rows.shape[:-2] + rows.shape[-1:])
+    return np.concatenate([rows, m[..., None, :]], axis=-2)
+
+
 def step_scalars(s: float, ab_t, ab_prev, eta: float):
     """(1+s, s, √(1−ᾱ_t), √ᾱ_t, √ᾱ_prev, dir_coef, σ) of one reverse step:
     ``rowwise_coeffs`` of a single row, except that 1+s is rounded once
@@ -100,3 +110,35 @@ def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,
 
 
 cfg_update_rowwise.launches = 0
+
+
+def cfg_update_mixed(x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,
+                     eta: float = 1.0, *, row_offset: int = 0,
+                     coeffs: torch.Tensor | None = None):
+    """Per-row fused update for waves that mix guidance modes:
+    ``cfg_update_rowwise`` plus a host vector ``mode`` (Bs,).  A row whose
+    mode is < 0.5 combines (1+s)·ε_c − s·ε_u; any other row takes ``eps_c``
+    as its guided ε̂.  The window contract is ``cfg_update_rowwise``'s, and
+    ``coeffs`` is the (9, Bs) device table of ``mixed_coeffs``."""
+    B, Bs = x.shape[0], len(s)
+    if row_offset < 0 or row_offset + B > Bs:
+        raise ValueError(f"mixed scalars span {Bs} rows; window "
+                         f"[{row_offset}, {row_offset + B}) is out of range")
+    if x.device.type == "cpu":
+        return ref.cfg_update_mixed_windowed(
+            x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,
+            row_offset, eta)
+    _check_update_inputs("cfg_update_mixed", x, eps_c, eps_u, noise)
+    if coeffs is None:
+        coeffs = torch.as_tensor(mixed_coeffs(mode, s, ab_t, ab_prev, active,
+                                              eta), device=x.device)
+    if coeffs.shape != (9, Bs) or coeffs.dtype != torch.float32 \
+            or coeffs.device != x.device or not coeffs.is_contiguous():
+        raise ValueError(f"cfg_update_mixed: coeffs must be a contiguous "
+                         f"float32 (9, {Bs}) table on {x.device}")
+    out = K.cfg_update_mixed_flat(x, eps_c, eps_u, noise, coeffs, row_offset)
+    cfg_update_mixed.launches += 1
+    return out
+
+
+cfg_update_mixed.launches = 0

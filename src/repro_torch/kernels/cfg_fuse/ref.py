@@ -60,3 +60,32 @@ def cfg_update_rowwise_windowed(x, eps_c, eps_u, s, ab_t, ab_prev, noise,
     return cfg_update_rowwise(x, eps_c, eps_u, *(
         torch.as_tensor(v)[w] for v in (s, ab_t, ab_prev)), noise,
         torch.as_tensor(active)[w], eta)
+
+
+def cfg_update_mixed(x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,
+                     eta: float = 1.0):
+    """Per-row mixed-guidance variant: ``mode`` (B,) picks each row's
+    combine.  A row with mode < 0.5 takes (1+s)·ε_c − s·ε_u (classifier-free,
+    and unconditional as its s = 0 point on a null condition); any other row
+    takes ``eps_c`` as its already corrected ε̂ (classifier guidance forms
+    it upstream).  Every other line is ``cfg_update_rowwise``'s arithmetic,
+    so an all-mode-0 call equals it bit for bit."""
+    def r(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=x.device) \
+            .reshape((-1,) + (1,) * (x.ndim - 1))
+
+    mode, s, ab_t, ab_prev = r(mode), r(s), r(ab_t), r(ab_prev)
+    eps = torch.where(mode < 0.5, (1.0 + s) * eps_c - s * eps_u, eps_c)
+    out = ancestral_step(x, eps, ab_t, ab_prev, noise, eta)
+    return torch.where(r(active) > 0, out, x)
+
+
+def cfg_update_mixed_windowed(x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise,
+                              active, row_offset: int = 0, eta: float = 1.0):
+    """The window form of ``cfg_update_mixed``: the per-row vectors, ``mode``
+    included, span a whole wave and tensor row b reads slot
+    ``row_offset + b``."""
+    w = slice(row_offset, row_offset + x.shape[0])
+    return cfg_update_mixed(x, eps_c, eps_u, *(
+        torch.as_tensor(v)[w] for v in (mode, s, ab_t, ab_prev)), noise,
+        torch.as_tensor(active)[w], eta)

@@ -16,7 +16,8 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.oscar import DiffusionConfig
 from repro_torch.diffusion.dit import DiT
-from repro_torch.diffusion.sampler import sample_cfg, sample_cfg_ragged
+from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
+                                           sample_classifier_guided)
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.kernels.adaln_norm import ops as an_ops
 from repro_torch.kernels.adaln_norm import ref as an_ref
@@ -24,6 +25,7 @@ from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models.classifiers import classifier_logprob, init_classifier
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +88,39 @@ def test_cfg_update_rowwise_kernel_is_bit_equal_to_plain(dev, B, Bs, off):
         with pytest.raises(ValueError):
             cfg_ops.cfg_update_rowwise(x, ec, eu, s, ab_t, ab_prev, z, act,
                                        row_offset=bad)
+
+
+@pytest.mark.parametrize("B,Bs,off", [(120, 120, 0), (60, 120, 60),
+                                      (5, 9, 3)])
+def test_cfg_update_mixed_kernel_is_bit_equal_to_plain(dev, B, Bs, off):
+    """All classifier-free, all classifier-guided and mixed rows, against
+    the plain version at error 0; the all-mode-0 call is also bit-equal to
+    the rowwise kernel."""
+    s, ab_t, ab_prev, act = _rowwise_table(Bs)
+    x, ec, eu, z = _randn(dev, 7, *[(B, 16, 16, 3)] * 4)
+    dev_vecs = [torch.as_tensor(v, device=dev) for v in (s, ab_t, ab_prev,
+                                                         act)]
+    frozen = torch.as_tensor(act[off:off + B] == 0, device=dev)
+    i = np.arange(Bs)
+    for mode in (0 * i, 0 * i + 1, (i % 3 == 1) * 1):
+        mode = mode.astype(np.float32)
+        before = cfg_ops.cfg_update_mixed.launches
+        out = cfg_ops.cfg_update_mixed(x, ec, eu, mode, s, ab_t, ab_prev, z,
+                                       act, row_offset=off)
+        assert cfg_ops.cfg_update_mixed.launches == before + 1
+        ref = cfg_ref.cfg_update_mixed_windowed(
+            x, ec, eu, torch.as_tensor(mode, device=dev), *dev_vecs[:3], z,
+            dev_vecs[3], row_offset=off)
+        assert torch.equal(out, ref)
+        assert torch.equal(out[frozen], x[frozen])
+    out = cfg_ops.cfg_update_mixed(x, ec, eu, 0 * s, s, ab_t, ab_prev, z, act,
+                                   row_offset=off)
+    assert torch.equal(out, cfg_ops.cfg_update_rowwise(
+        x, ec, eu, s, ab_t, ab_prev, z, act, row_offset=off))
+    for bad in (-1, Bs - B + 1):
+        with pytest.raises(ValueError):
+            cfg_ops.cfg_update_mixed(x, ec, eu, 0 * s, s, ab_t, ab_prev, z,
+                                     act, row_offset=bad)
 
 
 @pytest.mark.parametrize("B,N,d", [(256, 17, 144), (256, 16, 144),
@@ -167,3 +202,48 @@ def test_ragged_wave_kernel_path_matches_plain(dev):
     ref = sample_cfg_ragged(plain, sched, y, keys, g, steps)
     assert float(ref.abs().max()) > 1e-3
     assert _err(out, ref) < 5e-4
+
+
+def test_classifier_gradient_of_a_row_does_not_depend_on_its_batch(dev):
+    """cuDNN picks its algorithms by batch size; the guidance gradient runs
+    the classifier on fixed-size chunks, so a row's gradient is the same
+    bits in a call of 5 rows, of 120, or across a chunk boundary."""
+    from repro_torch.diffusion.guidance import _logprob_grad
+    clf = init_classifier(torch.Generator(dev).manual_seed(3), "resnet18", 10,
+                          device=dev)
+    fn = classifier_logprob(clf)
+    (x,) = _randn(dev, 8, (200, 16, 16, 3))
+    labels = torch.arange(200, device=dev) % 10
+    full = _logprob_grad(fn, x, labels)
+    for rows in (slice(0, 5), slice(0, 120), slice(100, 200)):
+        assert torch.equal(_logprob_grad(fn, x[rows], labels[rows]),
+                           full[rows])
+
+
+def test_classifier_guided_on_the_card_matches_the_cpu_run(dev):
+    """Four classifier-guided steps (a ResNet-18's gradient at each) on the
+    card against the same model, classifier, x_T and noise on the CPU, at
+    T = 16, the CPU tests' smoke depth and gate."""
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4,
+                         train_timesteps=16)
+    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
+                device=dev)
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
+    clf = init_classifier(torch.Generator(dev).manual_seed(1), "resnet18", 10,
+                          device=dev)
+    cpu_model, cpu_clf = copy.deepcopy(model).cpu(), copy.deepcopy(clf).cpu()
+    gen = torch.Generator().manual_seed(2)
+    x_T = torch.randn((8, 16, 16, 3), generator=gen)
+    noise = torch.randn((4, 8, 16, 16, 3), generator=gen)
+    labels = np.arange(8) % 10
+    out = sample_classifier_guided(
+        model, make_schedule(16, device=dev), classifier_logprob(clf), labels,
+        num_steps=4, guidance=1.0, x_T=x_T.to(dev), noise=noise.to(dev))
+    ref = sample_classifier_guided(
+        cpu_model, make_schedule(16, device="cpu"), classifier_logprob(cpu_clf),
+        labels, num_steps=4, guidance=1.0, x_T=x_T, noise=noise)
+    assert out.device.type == "cuda" and out.shape == (8, 16, 16, 3)
+    assert float(ref.abs().max()) > 1e-3
+    assert _err(out.cpu(), ref) < 5e-4
