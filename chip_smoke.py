@@ -39,8 +39,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      as merged ragged and merged compacted waves, with stats and launch
      counts checked against a plan computed here, merged against
      isolated-mode D_syn, ragged against compacted, a 4-step mixed wave on
-     the kernel path against the plain DiT, and one traced mixed wave.
-Phases 4 and 6 run two rounds each, phase 7 two per schedule.
+     the kernel path against the plain DiT, and one traced mixed wave;
+  8. LM serving, gemma2-2b at full width and depth (26 layers, d 2304,
+     8/4 heads of 256, vocab 256000) on seeded random weights:
+     8a. flash attention's mode grid (causal, window, softcap, GQA with
+         and without window, MQA, non-causal; head dims 64/128/256;
+         S = 100 and 4608; fp32 and bf16, bf16 also gated row by row
+         relative to the row's size) and rmsnorm against their plain
+         versions, and both timed at the serving shapes;
+     8b. ``ServeEngine`` in bf16, two rounds of a wave of 4 × 4608-token
+         prompts (32 new tokens each) and a wave of 16 × 512 (64 each),
+         with stats and flash launches checked (26 per prefill, none in
+         decode), the same tokens in both rounds, and one traced prefill
+         and decode step;
+     8c. one 4608-token request in fp32 through the kernel route and the
+         plain route on the same weights: last-position logits gated,
+         greedy tokens compared.
+Phases 4 and 6 run two rounds each, phase 7 two per schedule, phase 8b
+two.
 The last line is the result; the line before it names the card.
 Imports nothing of JAX or of the JAX package.
 """
@@ -59,7 +75,21 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 TOL_CFG, TOL_ADALN, TOL_ATTN = 1e-6, 1e-5, 2e-5
+TOL_ATTN_BF16, TOL_RMS, TOL_RMS_BF16 = 2e-2, 1e-5, 5e-2
+# bf16 attention, besides the absolute gate: kernel and plain version both
+# round an fp32 result once, so each element differs by at most one bf16
+# ulp (at most 2^-7 of its size); gate each output row at two ulps of its
+# largest value.  At S = 4608 a row averages ~4096 values of v and is ~0.02
+# in size, below the absolute gate; a window edge off by one moves it by
+# far more than 2^-6 of its largest value
+TOL_ATTN_BF16_ROW = 2.0 ** -6
+# 8c: last-position logits of a 26-layer fp32 prefill, kernel route against
+# plain route.  Each attention layer differs by ~1e-6 relative (fp32 sums
+# in another order); 26 layers of a random-weight residual stream carry
+# that to the logits (|logit| < 30 after the final soft cap)
+TOL_LM_LOGITS = 1e-3
 TOL_DIT, TOL_E2E, TOL_E2E_DEEP = 2e-5, 5e-4, 2e-2
 TOL_CLF = 1e-4                   # classifier, card against CPU
 
@@ -107,14 +137,28 @@ def graph_ms(fn, iters: int = 20) -> float:
     return cuda_ms(graph.replay, 10, 2) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def row_rel_err(out, ref) -> float:
+    """Largest over rows (last axis) of max|out - ref| / max|ref|."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    return float((d / ref.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, per (batch, head)."""
+    q = np.arange(Sq)
+    hi = np.minimum(q + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def device_busy(fn, trace_path: Path) -> dict:
@@ -158,6 +202,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import prng
+    from repro_torch.configs import get_config
     from repro_torch.configs.oscar import DataConfig, DiffusionConfig
     from repro_torch.core.oscar import client_encodings, synthesize
     from repro_torch.data.federated import make_federated_data
@@ -169,14 +214,20 @@ def main() -> int:
     from repro_torch.encoders.foundation import FrozenFM
     from repro_torch.kernels.adaln_norm import ops as an_ops
     from repro_torch.kernels.adaln_norm import ref as an_ref
-    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.kernels.build import BUILD_DIR, build_log
     from repro_torch.kernels.cfg_fuse import ops as cfg_ops
     from repro_torch.kernels.cfg_fuse import ref as cfg_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.models.classifiers import (classifier_logprob,
                                                 init_classifier)
+    from repro_torch.models.moe import Parallel
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.steps import make_serve_step
     from repro_torch.serve import synthesis as serve_synthesis
     from repro_torch.serve.synthesis import SynthesisEngine
     from repro_torch.utils import default_device
@@ -196,6 +247,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fa_kernel.build()
     t_nvcc = time.perf_counter() - t0
+    for line in build_log(fa_kernel.SOURCE).splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            say(f"[1] ptxas: {line.strip()}")
     t0 = time.perf_counter()
     small = randn(2, 4, 8)
     an_ops.adaln_norm(small, randn(2, 8), randn(2, 8))
@@ -205,28 +259,32 @@ def main() -> int:
                                small, one)
     cfg_ops.cfg_update_mixed(small, small, small, one, one, 0.5 * one,
                              0.7 * one, small, one)
+    rn_ops.rmsnorm(small, randn(8))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     say(f"[1] build: nvcc flash_attention {t_nvcc:.2f} s, triton adaln_norm "
-        f"+ cfg_update + cfg_update_rowwise + cfg_update_mixed first launch "
-        f"{t_triton:.2f} s")
+        f"+ cfg_update + cfg_update_rowwise + cfg_update_mixed + rmsnorm "
+        f"first launch {t_triton:.2f} s")
 
     # -- 2. kernels against their plain versions -----------------------------
     kernels = {}
 
     def record(name, route, source, replaces, tol, checks, launch,
-               plain, library, nbytes, flops, shape):
+               plain, library, nbytes, flops, shape, peak=FP32_FLOPS,
+               iters=100, phase=2, **extra):
         err = max(c["max_abs_err"] for c in checks)
         check(err <= tol, f"{name}: max abs error {err:.3g} > {tol:g}")
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, peak)
         kernels[name] = dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=None, max_abs_err=err, tol=tol, ms=cuda_ms(launch),
-            plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
-            library_ms=None if library is None else cuda_ms(library),
-            device_ms=graph_ms(launch), shape=shape, checks=checks)
+            launches=None, max_abs_err=err, tol=tol,
+            ms=cuda_ms(launch, iters), plain_ms=cuda_ms(plain, iters),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if library is None else cuda_ms(library, iters),
+            device_ms=graph_ms(launch, max(2, iters // 5)), shape=shape,
+            checks=checks, **extra)
         k = kernels[name]
-        say(f"[2] {name}: max_abs_err {err:.3g} (tol {tol:g}) over "
+        say(f"[{phase}] {name}: max_abs_err {err:.3g} (tol {tol:g}) over "
             f"{[c['shape'] for c in checks]}; at {shape}: {k['ms']:.4f} ms "
             f"per call, {k['device_ms']:.4f} ms on the device, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
@@ -530,14 +588,15 @@ def main() -> int:
     fns = {"cfg_update": cfg_ops.cfg_update, "adaln_norm": an_ops.adaln_norm,
            "flash_attention": fa_ops.flash_attention,
            "cfg_update_rowwise": cfg_ops.cfg_update_rowwise,
-           "cfg_update_mixed": cfg_ops.cfg_update_mixed}
+           "cfg_update_mixed": cfg_ops.cfg_update_mixed,
+           "rmsnorm": rn_ops.rmsnorm}
     n_rows = int(present.sum()) * k_samples
     n_waves = math.ceil(n_rows / wave)          # near-uniform: 15 of 120
     wave_steps = n_waves * num_steps
     want = {"cfg_update": wave_steps,
             "flash_attention": wave_steps * dc.num_layers,
             "adaln_norm": wave_steps * (2 * dc.num_layers + 1),
-            "cfg_update_rowwise": 0, "cfg_update_mixed": 0}
+            "cfg_update_rowwise": 0, "cfg_update_mixed": 0, "rmsnorm": 0}
     # per-wave wall times: the engine's sampler calls, each timed to its
     # end on the device
     wave_walls = []
@@ -707,7 +766,7 @@ def main() -> int:
                               row_iters_active=active_iters)
             check(eng.stats == want_stats, f"{mode} round {rnd}: stats "
                   f"{eng.stats} != {want_stats}")
-            want6 = {"cfg_update": 0, "cfg_update_mixed": 0,
+            want6 = {"cfg_update": 0, "cfg_update_mixed": 0, "rmsnorm": 0,
                      "cfg_update_rowwise": p6["iters"],
                      "flash_attention": p6["iters"] * dc.num_layers,
                      "adaln_norm": p6["iters"] * (2 * dc.num_layers + 1)}
@@ -909,6 +968,7 @@ def main() -> int:
                   f"{eng.stats} != {want_stats}")
             iters = p7["mixed"] + p7["rowwise"]
             want7 = {"cfg_update": 0, "cfg_update_mixed": p7["mixed"],
+                     "rmsnorm": 0,
                      "cfg_update_rowwise": p7["rowwise"],
                      "flash_attention": iters * dc.num_layers,
                      "adaln_norm": iters * (2 * dc.num_layers + 1)}
@@ -999,6 +1059,305 @@ def main() -> int:
                              "device_idle_share_of_untraced_wall":
                              1 - trace7["device_busy_s"] / wall7},
         "card": smi}}))
+
+    # -- 8. LM serving: gemma2-2b ---------------------------------------------
+    # 8a. flash attention's modes and rmsnorm against their plain versions.
+    # The grid: causal; causal + window; causal + window + softcap 50; GQA
+    # 8/4 (gemma2's local mode) and the same without window (its global
+    # mode); MQA 8/1; non-causal.  S = 100 (ragged
+    # against the 32-row tiles) with window 40, and S = 4608 with gemma2's
+    # window 4096; head dims 64, 128, 256; fp32 and bf16
+    def plain_lm_attn(q, k, v, **kw):
+        return fa_ref.attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), **kw).transpose(1, 2)
+
+    # (mode, kv heads of 8 query heads, causal, windowed, softcap 50)
+    grid = [("causal", 8, True, False, False),
+            ("causal_window", 8, True, True, False),
+            ("causal_window_softcap", 8, True, True, True),
+            ("gqa_rep2", 4, True, True, True),
+            ("gqa_rep2_global", 4, True, False, True),
+            ("mqa_rep8", 1, True, False, False),
+            ("noncausal", 8, False, False, False)]
+    attn_checks = {"float32": [], "bfloat16": []}
+    for S, W, B in ((100, 40, 2), (4608, 4096, 1)):
+        for hd in (64, 128, 256):
+            base = [randn(B, S, 8, hd), randn(B, S, 8, hd), randn(B, S, 8, hd)]
+            for dtype, tol in (("float32", TOL_ATTN),
+                               ("bfloat16", TOL_ATTN_BF16)):
+                dt = getattr(torch, dtype)
+                for mode, hkv, causal, windowed, capped in grid:
+                    q, k, v = (base[0].to(dt), base[1][:, :, :hkv].to(dt),
+                               base[2][:, :, :hkv].to(dt))
+                    kw = dict(causal=causal, window=W if windowed else 0,
+                              softcap=50.0 if capped else 0.0)
+                    out = fa_ops.flash_attention(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    ref = plain_lm_attn(q, k, v, **kw)
+                    err, rel = max_err(out, ref), row_rel_err(out, ref)
+                    check(out.dtype == dt and err <= tol,
+                          f"flash_attention {mode} S={S} hd={hd} {dtype}: "
+                          f"max abs error {err:.3g} > {tol:g}")
+                    check(dt == torch.float32 or rel <= TOL_ATTN_BF16_ROW,
+                          f"flash_attention {mode} S={S} hd={hd} bf16: "
+                          f"row-relative error {rel:.3g} > "
+                          f"{TOL_ATTN_BF16_ROW:g}")
+                    attn_checks[dtype].append(dict(
+                        mode=mode, shape=[B, S, 8, hkv, hd],
+                        window=kw["window"], softcap=kw["softcap"],
+                        max_abs_err=err, max_row_rel_err=rel))
+            del base, q, k, v, out, ref
+    say(f"[8] flash_attention mode grid: {len(attn_checks['float32'])} fp32 "
+        f"checks, max_abs_err "
+        f"{max(c['max_abs_err'] for c in attn_checks['float32']):.3g} (tol "
+        f"{TOL_ATTN:g}); {len(attn_checks['bfloat16'])} bf16 checks, "
+        f"max_abs_err "
+        f"{max(c['max_abs_err'] for c in attn_checks['bfloat16']):.3g} (tol "
+        f"{TOL_ATTN_BF16:g}), row-relative "
+        f"{max(c['max_row_rel_err'] for c in attn_checks['bfloat16']):.3g} "
+        f"(tol {TOL_ATTN_BF16_ROW:g})")
+
+    # timed at the serving shape: one prefill layer of wave A (B 4, S 4608,
+    # 8 query heads over 4 kv heads of 256, bf16), local (window 4096) and
+    # global; no single PyTorch call computes softcapped attention, so the
+    # library column is empty and SDPA (causal, GQA, no softcap, no window:
+    # a different function) is printed beside it
+    lm_cfg = get_config("gemma2-2b")
+    Bw, Sw, hq, hkv, hd = 4, 4608, lm_cfg.num_heads, lm_cfg.num_kv_heads, \
+        lm_cfg.head_dim
+    qa, ka, va = (randn(Bw, Sw, h, hd).bfloat16() for h in (hq, hkv, hkv))
+    kw_local = dict(causal=True, window=lm_cfg.sliding_window,
+                    softcap=lm_cfg.attn_softcap)
+    kw_global = dict(causal=True, window=0, softcap=lm_cfg.attn_softcap)
+    serve_out = fa_ops.flash_attention(qa, ka, va, **kw_local)
+    serve_ref = plain_lm_attn(qa, ka, va, **kw_local)
+    serve_err = max_err(serve_out, serve_ref)
+    serve_rel = row_rel_err(serve_out, serve_ref)
+    check(serve_rel <= TOL_ATTN_BF16_ROW, f"flash_attention at wave A's "
+          f"layer: row-relative error {serve_rel:.3g} > "
+          f"{TOL_ATTN_BF16_ROW:g}")
+    del serve_out, serve_ref
+    # q, k, v read once and o written once, bf16
+    attn_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
+    pairs = {n: Bw * hq * attn_pairs(Sw, Sw, True, kw["window"])
+             for n, kw in (("local", kw_local), ("global", kw_global))}
+    record("flash_attention_lm", "cuda",
+           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN_BF16,
+           attn_checks["bfloat16"] + [dict(mode="gemma2_local", shape=[
+               Bw, Sw, hq, hkv, hd], max_abs_err=serve_err,
+               max_row_rel_err=serve_rel)],
+           lambda: fa_ops.flash_attention(qa, ka, va, **kw_local),
+           lambda: plain_lm_attn(qa, ka, va, **kw_local), None,
+           attn_bytes, 4 * hd * pairs["local"], [Bw, Sw, hq, hkv, hd],
+           peak=BF16_FLOPS, iters=5, phase=8,
+           mode="causal, window 4096, softcap 50, GQA 8/4, bf16 (gemma2 "
+                "local layer, wave A prefill)",
+           library_call="none (softcap)",
+           fp32_max_abs_err=max(c["max_abs_err"]
+                                for c in attn_checks["float32"]))
+    attn_global = dict(
+        ms=cuda_ms(lambda: fa_ops.flash_attention(qa, ka, va, **kw_global),
+                   5),
+        device_ms=graph_ms(lambda: fa_ops.flash_attention(qa, ka, va,
+                                                          **kw_global), 2),
+        plain_ms=cuda_ms(lambda: plain_lm_attn(qa, ka, va, **kw_global), 5),
+        bound_ms=bound(attn_bytes, 4 * hd * pairs["global"], BF16_FLOPS)[0],
+        flops=4 * hd * pairs["global"],
+        sdpa_causal_gqa_ms_different_function=cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 5))
+    say(json.dumps({"flash_attention_lm_global_layer": {
+        "shape": [Bw, Sw, hq, hkv, hd], "mode": "causal, softcap 50, GQA 8/4, "
+        "bf16", **attn_global, "card": smi}}))
+    del qa, ka, va
+
+    # rmsnorm at the LM's norm shapes: wave A's 4 x 4608 rows of d 2304,
+    # and a small ragged one
+    rms_checks = []
+    for shape in ((18432, 2304), (5, 96)):
+        xr, sr = randn(*shape), 0.1 * randn(shape[1])
+        for dtype, tol in (("float32", TOL_RMS), ("bfloat16", TOL_RMS_BF16)):
+            xd = xr.to(getattr(torch, dtype))
+            err = max_err(rn_ops.rmsnorm(xd, sr), rn_ref.rmsnorm(xd, sr))
+            check(err <= tol, f"rmsnorm {shape} {dtype}: max abs error "
+                  f"{err:.3g} > {tol:g}")
+            rms_checks.append(dict(shape=list(shape), dtype=dtype, tol=tol,
+                                   max_abs_err=err))
+    xr, sr = randn(18432, 2304).bfloat16(), 0.1 * randn(2304)
+    w1 = (1.0 + sr).bfloat16()
+    record("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+           "src/repro/kernels/rmsnorm/kernel.py:25", TOL_RMS_BF16,
+           rms_checks, lambda: rn_ops.rmsnorm(xr, sr),
+           lambda: rn_ref.rmsnorm(xr, sr),
+           lambda: torch.nn.functional.rms_norm(xr, (2304,), w1, 1e-6),
+           2 * 2 * xr.numel() + 4 * 2304, 4 * xr.numel(), [18432, 2304],
+           peak=BF16_FLOPS, phase=8, dtype="bfloat16",
+           library_call="F.rms_norm, weight 1 + scale")
+    del xr
+
+    # 8b. full-width serving in bf16: seeded random weights (the repository
+    # holds no gemma2 checkpoint), two rounds of wave A (4 x 4608-token
+    # prompts, past the 4096 window, 32 new tokens) and wave B (16 x 512,
+    # 64 new tokens), the last-position read-out only after prefill
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = LM(lm_cfg, generator=torch.Generator(dev).manual_seed(14),
+            device=dev)
+    lm.eval()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    par = Parallel(prefill_last_only=True)
+    rng = np.random.default_rng(14)
+    waves = {"A": [rng.integers(0, lm_cfg.vocab_size, 4608) for _ in range(4)],
+             "B": [rng.integers(0, lm_cfg.vocab_size, 512)
+                   for _ in range(16)]}
+    budget = {"A": 32, "B": 64}
+    fwd, phase_s = lm.forward, {}
+
+    def timed_forward(*args, **kwargs):        # the engine's prefill call
+        n0 = fa_ops.flash_attention.launches
+        t = time.perf_counter()
+        out = fwd(*args, **kwargs)
+        torch.cuda.synchronize()
+        phase_s["prefill"] = time.perf_counter() - t
+        phase_s["prefill_launches"] = fa_ops.flash_attention.launches - n0
+        return out
+
+    lm.forward = timed_forward
+    serve_rounds, tokens = [], {}
+    for rnd in (1, 2):
+        eng = ServeEngine(lm_cfg, lm, max_len=4640, par=par)
+        step = eng._decode
+
+        def timed_step(*args):
+            n0 = fa_ops.flash_attention.launches
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            phase_s["decode"] += time.perf_counter() - t
+            phase_s["decode_launches"] += fa_ops.flash_attention.launches - n0
+            return out
+
+        eng._decode = timed_step
+        for fn in fns.values():
+            fn.launches = 0
+        out, per_wave = {}, []
+        for name in ("A", "B"):
+            rids = [eng.submit(p_, max_new=budget[name])
+                    for p_ in waves[name]]
+            phase_s.update(decode=0.0, decode_launches=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated()
+            nb, L = len(rids), len(waves[name][0])
+            check(sorted(res) == rids and all(
+                len(res[r]) == budget[name] for r in rids),
+                f"wave {name}: results {[len(res.get(r, [])) for r in rids]}")
+            check(phase_s["prefill_launches"] == lm_cfg.num_layers
+                  and phase_s["decode_launches"] == 0,
+                  f"wave {name}: {phase_s['prefill_launches']} flash launches "
+                  f"in prefill (want {lm_cfg.num_layers}), "
+                  f"{phase_s['decode_launches']} in decode (want 0)")
+            out.update(res)
+            per_wave.append(dict(
+                wave=name, requests=nb, prompt=L, new_tokens=budget[name],
+                prefill_tokens_per_s=nb * L / phase_s["prefill"],
+                decode_tokens_per_s=nb * (budget[name] - 1) / phase_s[
+                    "decode"],
+                prefill_s=phase_s["prefill"], decode_s=phase_s["decode"],
+                wall_s=wall, peak_gib=peak / 2**30))
+            w = per_wave[-1]
+            say(f"[8] serve round {rnd} wave {name} ({nb} x {L}, "
+                f"{budget[name]} new): prefill "
+                f"{w['prefill_tokens_per_s']:.1f} tokens/s "
+                f"({w['prefill_s']:.3f} s), decode "
+                f"{w['decode_tokens_per_s']:.1f} tokens/s "
+                f"({w['decode_s']:.3f} s), wall {wall:.3f} s, peak memory "
+                f"{peak / 2**30:.2f} GiB ({smi})")
+        launches = {name: fn.launches for name, fn in fns.items()}
+        want_stats = dict(waves=2, prefilled=20,
+                          decoded=4 * 31 + 16 * 63)
+        check(eng.stats == want_stats, f"serve round {rnd}: stats "
+              f"{eng.stats} != {want_stats}")
+        want8 = {name: 0 for name in fns}
+        want8["flash_attention"] = 2 * lm_cfg.num_layers
+        check(launches == want8, f"serve round {rnd}: launches {launches} "
+              f"!= expected {want8}")
+        tokens[rnd] = out
+        serve_rounds.append(dict(round=rnd, waves=per_wave, stats=eng.stats,
+                                 launches=launches))
+    lm.forward = fwd
+    check(tokens[1] == tokens[2], "serve round 2 tokens differ from round "
+          "1's, same weights and prompts")
+    kernels["flash_attention_lm"]["launches"] = \
+        serve_rounds[0]["launches"]["flash_attention"]
+    kernels["rmsnorm"]["launches"] = serve_rounds[0]["launches"]["rmsnorm"]
+
+    # one wave-A prefill and one decode step of it under the profiler
+    toks_a = torch.as_tensor(np.stack(waves["A"]), device=dev)
+    with torch.inference_mode():
+        logits_a, _, caches_a = lm(toks_a, par, mode="prefill")
+        full_a = eng._pad_caches(caches_a, 4, 4608)
+        del caches_a
+        cur_a = torch.argmax(logits_a[:, -1, :lm_cfg.vocab_size],
+                             -1)[:, None].to(torch.int32)
+        serve_step = make_serve_step(lm, par)
+        trace_pre = device_busy(lambda: lm(toks_a, par, mode="prefill"),
+                                BUILD_DIR / "lm_prefill_trace.json")
+        trace_dec = device_busy(lambda: serve_step(cur_a, full_a, 4608),
+                                BUILD_DIR / "lm_decode_trace.json")
+    del full_a
+    # the device's idle share against the untraced times of round 2's wave
+    # A: its prefill, and its mean decode step
+    wave_a = serve_rounds[-1]["waves"][0]
+    trace_pre["device_idle_share_of_untraced_wall"] = \
+        1 - trace_pre["device_busy_s"] / wave_a["prefill_s"]
+    trace_dec["untraced_step_s"] = wave_a["decode_s"] / (budget["A"] - 1)
+    trace_dec["device_idle_share_of_untraced_wall"] = \
+        1 - trace_dec["device_busy_s"] / trace_dec["untraced_step_s"]
+    say(json.dumps({"lm_serving": {
+        "model": "gemma2-2b", "params": n_params, "dtype": "bfloat16",
+        "init_s": t_init, "rounds": serve_rounds,
+        "prefill_trace_wave_A": trace_pre, "decode_step_trace_wave_A":
+        trace_dec, "card": smi}}))
+
+    # 8c. kernel route against plain route at full width in fp32, on the
+    # same seeded weights: one 4608-token request, 8 new tokens
+    del lm, eng, step, timed_step, serve_step, fwd, timed_forward, logits_a
+    torch.cuda.empty_cache()
+    cfg32 = lm_cfg.replace(dtype="float32")
+    lm32 = LM(cfg32, generator=torch.Generator(dev).manual_seed(14),
+              device=dev)
+    lm32.eval()
+    prompt = waves["A"][0]
+    toks1 = torch.as_tensor(prompt[None], device=dev)
+    last, gen = {}, {}
+    for use_kernels in (True, False):
+        p32 = Parallel(use_kernels=use_kernels, prefill_last_only=True)
+        with torch.inference_mode():
+            last[use_kernels] = lm32(toks1, p32, mode="prefill")[0][0, -1]
+        eng32 = ServeEngine(cfg32, lm32, max_len=4640, par=p32)
+        rid = eng32.submit(prompt, max_new=8)
+        gen[use_kernels] = eng32.run()[rid]
+    err_lm = max_err(last[True], last[False])
+    check(bool(torch.isfinite(last[True]).all())
+          and float(last[False].abs().max()) > 1e-1,
+          "vacuous or non-finite fp32 logits")
+    say(json.dumps({"lm_kernel_vs_plain_fp32": {
+        "prompt": 4608, "last_logits_max_abs_err": err_lm,
+        "tol": TOL_LM_LOGITS, "max_abs_logit": float(last[False].abs().max()),
+        "tokens_kernel": gen[True], "tokens_plain": gen[False],
+        "tokens_agree": gen[True] == gen[False], "card": smi}}))
+    check(err_lm <= TOL_LM_LOGITS, f"fp32 prefill logits kernel vs plain "
+          f"{err_lm:.3g} > {TOL_LM_LOGITS:g}")
+    del lm32
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(smi)

@@ -1,3 +1,14 @@
+"""Configs of the port: the OSCAR experiment (``oscar.py``) and the LM
+zoo's registry (``base.py``), where importing this package registers the
+configs the port can run."""
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, MambaConfig,
+                                      ModelConfig, MoEConfig, XLSTMConfig,
+                                      get_config, list_configs, register)
 from repro_torch.configs.oscar import DataConfig, DiffusionConfig, OscarConfig
+from repro_torch.configs import gemma2_2b  # noqa: F401  (registers)
+from repro_torch.configs.shapes import smoke_config, smoke_shape
 
-__all__ = ["DataConfig", "DiffusionConfig", "OscarConfig"]
+__all__ = ["DataConfig", "DiffusionConfig", "OscarConfig", "INPUT_SHAPES",
+           "InputShape", "MambaConfig", "ModelConfig", "MoEConfig",
+           "XLSTMConfig", "get_config", "list_configs", "register",
+           "smoke_config", "smoke_shape"]

@@ -1,4 +1,4 @@
-"""Parameters of the JAX package's DiT and classifiers, as the port's
+"""Parameters of the JAX package's DiT, classifiers and LMs, as the port's
 ``state_dict``s.
 
 The reference ``init_dit`` pytree is nested dicts of arrays plus a
@@ -66,4 +66,40 @@ def classifier_state_from_jax(tree, name: str) -> dict:
             state[prefix[:-1]] = torch.tensor(np.asarray(node, np.float32))
 
     walk("", tree)
+    return state
+
+
+def lm_state_from_jax(params, cfg) -> dict:
+    """``init_lm(key, cfg)`` tree → ``LM.load_state_dict`` input.
+
+    ``params["groups"]`` holds ``p0..p{period-1}``, each stacked along a
+    leading ``num_groups`` axis; absolute layer ``g · period + p`` takes
+    slice g of ``p{p}``.  Dense ``w`` (and the MLP's bare ``w_up``,
+    ``w_gate``, ``w_down``) is (in, out) there and (out, in) in
+    ``nn.Linear``; norms carry ``scale`` in both."""
+    state = {"embedding": torch.tensor(
+        np.asarray(params["embed"]["embedding"], np.float32))}
+
+    def walk(prefix: str, node, g=None) -> None:
+        def leaf(a):
+            a = np.asarray(a, np.float32)
+            return torch.tensor(a if g is None else a[g])
+        if not isinstance(node, dict):     # the MLP's bare (in, out) matrices
+            state[f"{prefix}weight"] = leaf(node).T.contiguous()
+        elif "w" in node:
+            state[f"{prefix}weight"] = leaf(node["w"]).T.contiguous()
+            if "b" in node:
+                state[f"{prefix}bias"] = leaf(node["b"])
+        elif "scale" in node:
+            state[f"{prefix}scale"] = leaf(node["scale"])
+        else:
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v, g)
+
+    walk("final_norm.", params["final_norm"])
+    if "lm_head" in params:
+        walk("lm_head.", params["lm_head"])
+    for g in range(cfg.num_groups):
+        for p in range(cfg.period):
+            walk(f"layers.{g * cfg.period + p}.", params["groups"][f"p{p}"], g)
     return state

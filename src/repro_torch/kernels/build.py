@@ -19,14 +19,20 @@ import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _library_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
 def nvcc_library(src: Path) -> ctypes.CDLL:
-    """Compile ``src`` (once per content hash) and load it."""
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    """Compile ``src`` (once per content hash) and load it.  ptxas's
+    report (registers, shared memory and spills of each kernel) is kept
+    beside the library in ``build_log(src)``."""
+    out = _library_path(src)
     if not out.exists():
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not Path(nvcc).exists():
@@ -37,8 +43,14 @@ def nvcc_library(src: Path) -> ctypes.CDLL:
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)      # atomic: no process loads a half-written file
     return ctypes.CDLL(str(out))
+
+
+def build_log(src: Path) -> str:
+    """The compiler's output from the build of ``src``'s current content."""
+    return _library_path(src).with_suffix(".log").read_text()
 
 
 def import_triton():

@@ -2,8 +2,9 @@
 (``csrc/flash_attention.cu``; the design note is in that file).
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_bhsd``
-in its non-causal mode.  The library is compiled by ``nvcc`` for sm_90a at
-first use into ``build/`` and called with plain pointers and strides on
+in every mode it has: causal, sliding window, logit softcap, GQA, and the
+non-causal mode of the DiT.  The library is compiled by ``nvcc`` for sm_90a
+at first use into ``build/`` and called with plain pointers and strides on
 PyTorch's current stream.
 """
 from __future__ import annotations
@@ -17,14 +18,16 @@ import torch
 from repro_torch.kernels.build import nvcc_library
 
 SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
 def _fn():
     fn = nvcc_library(SOURCE).flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -34,18 +37,20 @@ def build() -> None:
     _fn()
 
 
-def flash_attention_bshd(q, k, v) -> torch.Tensor:
-    """Non-causal attention of fp32 CUDA views q (B, Sq, H, hd), k/v
-    (B, Sk, H, hd), each with unit stride over hd.  Returns a contiguous
-    (B, Sq, H, hd)."""
-    B, Sq, H, hd = q.shape
-    Sk = k.shape[1]
-    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+def flash_attention_bshd(q, k, v, *, causal: bool, window: int,
+                         softcap: float) -> torch.Tensor:
+    """Attention of CUDA views q (B, Sq, Hq, hd), k/v (B, Sk, Hkv, hd), each
+    with unit stride over hd, fp32 or bf16, Hq a multiple of Hkv.  Returns
+    a contiguous (B, Sq, Hq, hd) of q's type."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
     # the library's runtime launches on the current device: make it q's
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, H, Sq, Sk, hd, *strides, hd ** -0.5,
+                    DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, hd, int(causal),
+                    int(window), float(softcap), *strides, hd ** -0.5,
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd failed: CUDA error {err}")

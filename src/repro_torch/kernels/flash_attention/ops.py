@@ -1,9 +1,7 @@
-"""Public wrapper, (B, S, H, hd) layout: the CUDA kernel for CUDA tensors
-(non-causal mode), the plain version (``ref.py``, every mode) for CPU
-tensors."""
+"""Public wrapper, (B, S, H, hd) layout: the CUDA kernel for CUDA tensors,
+the plain version (``ref.py``) for CPU tensors, in every mode (causal,
+sliding window, logit softcap, GQA, non-causal)."""
 from __future__ import annotations
-
-import torch
 
 from repro_torch.kernels.build import check_cuda_inputs
 from repro_torch.kernels.flash_attention import kernel as K
@@ -19,23 +17,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                             softcap=softcap)
         return out.transpose(1, 2)
     check_cuda_inputs("flash_attention", q, k, v)
-    if causal or window or softcap or k.shape[2] != q.shape[2]:
-        raise NotImplementedError(
-            "flash_attention on CUDA: only the non-causal mode without "
-            "window, softcap or GQA is ported")
-    B, Sq, H, hd = q.shape
-    if k.shape != (B, k.shape[1], H, hd) or v.shape != k.shape:
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, Hkv, hd) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} do not agree")
-    if q.dtype != torch.float32:
-        raise NotImplementedError("flash_attention on CUDA: fp32 only")
-    if not 1 <= hd <= K.MAX_HEAD_DIM or min(Sq, k.shape[1], B, H) < 1 \
-            or max(B, H) > 65535:
+    if q.dtype not in K.DTYPES:
+        raise NotImplementedError(f"flash_attention on CUDA: {q.dtype}; "
+                                  "fp32 and bf16 only")
+    if not 1 <= hd <= K.MAX_HEAD_DIM or min(Sq, Sk, B, Hq, Hkv) < 1 \
+            or max(B, Hq) > 65535:
         raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)}"
                          f" / {tuple(k.shape)}")
+    if Hq % Hkv:
+        raise ValueError(f"flash_attention: {Hq} query heads are not a "
+                         f"multiple of {Hkv} kv heads")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"flash_attention: window {window}, softcap "
+                         f"{softcap}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the kernel needs unit stride over hd")
-    out = K.flash_attention_bshd(q, k, v)
+    out = K.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
     flash_attention.launches += 1
     return out
 

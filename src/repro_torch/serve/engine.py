@@ -1,0 +1,117 @@
+"""Batched LM serving engine: the JAX package's ``serve/engine.py``.
+
+Requests are grouped into WAVES of equal prompt length; each wave
+prefills as one batch and decodes in lockstep (one decode step per tick
+for the whole wave), finishing when every member hits its token budget or
+EOS.  Lockstep waves keep the single-position decode step exact.
+
+The model runs where its parameters are (the card unless it was built
+with ``device="cpu"``); prefill attention goes through the flash-attention
+kernel unless ``par.use_kernels`` is off, and decode attention is plain.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.moe import Parallel
+from repro_torch.models.transformer import LM
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.serve.steps import make_serve_step
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (L,) int32
+    max_new: int = 32
+    eos: Optional[int] = None
+    out: list = field(default_factory=list)
+
+
+class ServeEngine:
+    """Wave-based batched generation."""
+
+    _STAT_KEYS = ("waves", "prefilled", "decoded")
+
+    def __init__(self, cfg: ModelConfig, lm: LM, *, max_len: int = 256,
+                 par: Parallel = Parallel(),
+                 metrics: MetricsRegistry | None = None):
+        assert cfg.supports_decode, f"{cfg.name} is encoder-only"
+        self.cfg, self.lm, self.par = cfg, lm, par
+        self.max_len = max_len
+        self._decode = make_serve_step(lm, par)
+        self._queue: list[Request] = []
+        self._next_rid = 0
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+
+    @property
+    def stats(self) -> dict:
+        """Dict view over the metrics registry (the reference's keys)."""
+        return {k: self.metrics.get(k) for k in self._STAT_KEYS}
+
+    def submit(self, prompt, max_new: int = 32, eos: int | None = None) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append(Request(rid, np.asarray(prompt, np.int32),
+                                   max_new, eos))
+        return rid
+
+    def run(self) -> dict[int, list[int]]:
+        """Drain the queue.  Returns rid -> generated token ids."""
+        results: dict[int, list[int]] = {}
+        while self._queue:
+            # wave = all queued requests sharing the front prompt length
+            L = len(self._queue[0].prompt)
+            wave = [r for r in self._queue if len(r.prompt) == L]
+            self._queue = [r for r in self._queue if len(r.prompt) != L]
+            self._run_wave(wave, results)
+        return results
+
+    # -- internals --------------------------------------------------------
+    def _pad_caches(self, caches, B: int, L: int):
+        """The prefill's (B, L, ...) caches copied into zero caches of
+        max_len positions, as the reference pads them."""
+        full = self.lm.init_caches(B, self.max_len, caches[0].k.dtype)
+        for dst, src in zip(full, caches):
+            dst.k[:, :L] = src.k
+            dst.v[:, :L] = src.v
+        return full
+
+    @torch.inference_mode()
+    def _run_wave(self, wave, results):
+        L = len(wave[0].prompt)
+        budget = max(r.max_new for r in wave)
+        assert L + budget <= self.max_len, "wave exceeds engine max_len"
+        toks = torch.as_tensor(np.stack([r.prompt for r in wave]),
+                               device=self.lm.device)
+        logits, _, caches = self.lm(toks, self.par, mode="prefill")
+        caches = self._pad_caches(caches, len(wave), L)
+        self.metrics.inc("waves")
+        self.metrics.inc("prefilled", len(wave))
+        cur = torch.argmax(logits[:, -1, :self.cfg.vocab_size], -1)[:, None]
+        cur = cur.to(torch.int32)
+        done = [False] * len(wave)
+        for r, t in zip(wave, cur[:, 0].tolist()):
+            r.out.append(int(t))
+        for i in range(budget - 1):
+            cur, _, caches = self._decode(cur, caches, L + i)
+            self.metrics.inc("decoded", len(wave))
+            toks_np = np.asarray(cur[:, 0].cpu()) % self.cfg.vocab_size
+            for j, (r, t) in enumerate(zip(wave, toks_np)):
+                if done[j]:
+                    continue
+                r.out.append(int(t))
+                if len(r.out) >= r.max_new or (r.eos is not None
+                                               and int(t) == r.eos):
+                    done[j] = True
+                    results[r.rid] = r.out
+            if all(done):
+                break
+        for j, r in enumerate(wave):
+            if not done[j]:
+                results[r.rid] = r.out

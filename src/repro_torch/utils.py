@@ -1,4 +1,4 @@
-"""Device selection and parameter initialisers.
+"""Device selection, parameter initialisers and the logit soft cap.
 
 The initialisers draw from an explicit ``torch.Generator``; their values
 are the port's own and do not reproduce the JAX package's threefry draws.
@@ -47,3 +47,8 @@ def lecun_init(shape, generator: torch.Generator | None = None,
     w = torch.empty(shape, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return w / math.sqrt(max(shape[0], 1))
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap · tanh(x / cap)``: gemma2's logit soft cap."""
+    return cap * torch.tanh(x / cap)

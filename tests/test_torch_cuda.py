@@ -1,5 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-a CUDA card, and the kernel path of the sampler against its plain path.
+a CUDA card, and the kernel paths of the sampler and of the LM serving
+engine against their plain paths.
 
 Every test here is marked ``cuda`` and skips (deciding inside the test)
 where there is no card.  The file imports neither jax nor the JAX package,
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.configs import get_config
 from repro_torch.configs.oscar import DiffusionConfig
 from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
@@ -25,7 +27,12 @@ from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rmsnorm import ops as rn_ops
+from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.models.classifiers import classifier_logprob, init_classifier
+from repro_torch.models.moe import Parallel
+from repro_torch.models.transformer import LM
+from repro_torch.serve.engine import ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -144,13 +151,108 @@ def test_attention_kernel_matches_plain(dev, B, S, H, hd):
 
 
 def test_attention_kernel_refuses_unported_modes(dev):
-    q, k, v = _randn(dev, 3, (1, 8, 2, 16), (1, 8, 2, 16), (1, 8, 2, 16))
-    for kw in (dict(causal=True), dict(causal=False, window=4),
-               dict(causal=False, softcap=30.0)):
-        with pytest.raises(NotImplementedError):
-            fa_ops.flash_attention(q, k, v, **kw)
+    """Every mode of the reference kernel runs on the card; what the
+    kernel still does not take raises: fp16, head dim > 256, query heads
+    not a multiple of kv heads, and a non-unit stride over hd."""
+    q, k, v = _randn(dev, 3, (1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))
     with pytest.raises(NotImplementedError):
-        fa_ops.flash_attention(q, k[:, :, :1], v[:, :, :1], causal=False)
+        fa_ops.flash_attention(q.half(), k.half(), v.half())
+    big = _randn(dev, 3, (1, 8, 2, 264))[0]
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q[:, :, :3], k, v)
+    (qkv,) = _randn(dev, 3, (1, 8, 4, 32))
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(qkv[..., ::2], k, v)
+
+
+def _plain_attention(q, k, v, **kw):
+    return fa_ref.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+ATTN_MODES = {"causal": dict(causal=True),
+              "causal_window": dict(causal=True, window=40),
+              "causal_window_softcap": dict(causal=True, window=40,
+                                            softcap=50.0),
+              "noncausal": dict(causal=False)}
+
+
+@pytest.mark.parametrize("mode", list(ATTN_MODES))
+@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 4), (8, 1)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_modes_match_plain(dev, mode, Hq, Hkv, hd, dtype):
+    """The mode grid at a ragged S = 100 (32-row tiles leave 4), window 40:
+    fp32 within 2e-5 and bf16 within 2e-2 (one bf16 ulp of the output), the
+    reference's own gates."""
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(dt) for t in _randn(dev, 11, (2, 100, Hq, hd),
+                                        (2, 100, Hkv, hd), (2, 100, Hkv, hd)))
+    kw = ATTN_MODES[mode]
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert _err(out.float(), _plain_attention(q, k, v, **kw).float()) < tol
+
+
+def test_attention_kernel_at_gemma2_prefill_length(dev):
+    """S = 4608 > the 4096 window, gemma2's local mode in bf16, one head."""
+    q, k, v = (t.bfloat16() for t in _randn(dev, 12, (1, 4608, 2, 256),
+                                            (1, 4608, 1, 256),
+                                            (1, 4608, 1, 256)))
+    kw = dict(causal=True, window=4096, softcap=50.0)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    assert _err(out.float(), _plain_attention(q, k, v, **kw).float()) < 2e-2
+
+
+@pytest.mark.parametrize("shape", [(18432, 2304), (5, 96), (3, 7, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    x, s = _randn(dev, 13, shape, shape[-1:])
+    x = x.to(getattr(torch, dtype))
+    before = rn_ops.rmsnorm.launches
+    out = rn_ops.rmsnorm(x, 0.1 * s)
+    assert rn_ops.rmsnorm.launches == before + 1
+    tol = 5e-2 if dtype == "bfloat16" else 1e-5
+    assert _err(out.float(), rn_ref.rmsnorm(x, 0.1 * s).float()) <= tol
+
+
+def test_serve_engine_kernel_route_matches_plain_route(dev):
+    """A 2-layer gemma2 at full width in fp32 on seeded weights: the same
+    waves (16-token prompts past a window of 8, and 40-token ones) through
+    the flash kernel and through the plain route give the same tokens,
+    with one kernel launch per layer and wave and none in decode.  A
+    random-weight model's greedy tokens tell little (they repeat one
+    token), so the prefill's last-position logits of the two routes are
+    held too, at 1e-3: each attention layer differs by ~1e-6 relative
+    (fp32 sums in another order) and |logit| < 30 after the final soft
+    cap."""
+    cfg = get_config("gemma2-2b").replace(num_layers=2, dtype="float32",
+                                          sliding_window=8)
+    lm = LM(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (16, 16, 40)]
+    toks = torch.as_tensor(np.stack(prompts[:2]), device=dev)
+    out, last = {}, {}
+    for use_kernels in (True, False):
+        par = Parallel(use_kernels=use_kernels, prefill_last_only=True)
+        with torch.inference_mode():
+            last[use_kernels] = lm(toks, par, mode="prefill")[0][:, -1]
+        eng = ServeEngine(cfg, lm, max_len=64, par=par)
+        rids = [eng.submit(p, max_new=4) for p in prompts]
+        before = fa_ops.flash_attention.launches
+        res = eng.run()
+        launched = fa_ops.flash_attention.launches - before
+        assert launched == (2 * cfg.num_layers if use_kernels else 0)
+        assert eng.stats == {"waves": 2, "prefilled": 3, "decoded": 9}
+        out[use_kernels] = [res[r] for r in rids]
+    assert float(last[False].abs().max()) > 1e-2
+    assert _err(last[True], last[False]) < 1e-3
+    assert out[True] == out[False]
 
 
 def test_sample_cfg_kernel_path_matches_plain(dev):

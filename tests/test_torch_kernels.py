@@ -1,4 +1,4 @@
-"""The port's three kernel families against the JAX package.
+"""The port's four kernel families against the JAX package.
 
 On the CPU each wrapper runs its plain version (``ref.py``): it is held
 against the reference's jnp oracle and against the Pallas kernel run in
@@ -17,11 +17,15 @@ from repro.kernels.cfg_fuse import ops as j_cfg_ops
 from repro.kernels.cfg_fuse import ref as j_cfg_ref
 from repro.kernels.flash_attention import ops as j_fa_ops
 from repro.kernels.flash_attention import ref as j_fa_ref
+from repro.kernels.rmsnorm import ops as j_rn_ops
+from repro.kernels.rmsnorm import ref as j_rn_ref
 from repro_torch.kernels.adaln_norm import ops as an_ops
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rmsnorm import ops as rn_ops
+from repro_torch.kernels.rmsnorm import ref as rn_ref
 
 
 def _normal(seed, *shapes):
@@ -109,11 +113,59 @@ def test_attention_noncausal_matches_reference(S, hd):
 @pytest.mark.parametrize("Hkv,causal,window,cap", [
     (4, True, 0, 0.0), (2, True, 0, 0.0), (4, True, 8, 30.0)])
 def test_attention_ref_other_modes_match_reference(Hkv, causal, window, cap):
-    """The plain version keeps every mode of the reference oracle (the
-    kernel on the card takes the non-causal one only)."""
+    """The plain version keeps every mode of the reference oracle, as the
+    kernel on the card does."""
     q, k, v = _normal(3, (2, 4, 24, 32), (2, Hkv, 24, 32), (2, Hkv, 24, 32))
     oracle = j_fa_ref.attention(*(jnp.asarray(a) for a in (q, k, v)),
                                 causal=causal, window=window, softcap=cap)
     port = fa_ref.attention(*(torch.from_numpy(a) for a in (q, k, v)),
                             causal=causal, window=window, softcap=cap)
     assert _max_err(port, oracle) < 2e-5
+
+
+@pytest.mark.parametrize("Hq,Hkv,causal,window,cap", [
+    (8, 4, True, 0, 50.0),            # gemma2's global layers
+    (8, 4, True, 16, 50.0),           # its local layers, window < S
+    (8, 1, True, 0, 0.0),             # MQA
+    (4, 2, False, 0, 0.0)])           # non-causal GQA
+def test_attention_ref_and_wrapper_at_head_dim_256(Hq, Hkv, causal, window,
+                                                   cap):
+    """gemma2's head dim: the plain version against the reference oracle,
+    and the wrapper's CPU route against the Pallas kernel in interpret
+    mode, at a ragged S = 40 (the Pallas wrapper pads it to 40; the CUDA
+    kernel's 32-row tiles leave 8)."""
+    q, k, v = _normal(9, (1, 40, Hq, 256), (1, 40, Hkv, 256),
+                      (1, 40, Hkv, 256))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    oracle = j_fa_ref.attention(*(a.transpose(0, 2, 1, 3) for a in j), **kw)
+    port = fa_ref.attention(*(torch.from_numpy(a).transpose(1, 2)
+                              for a in (q, k, v)), **kw)
+    assert _max_err(port, oracle) < 2e-5
+    pallas = j_fa_ops.flash_attention(*j, interpret=True, **kw)
+    wrapper = fa_ops.flash_attention(*(torch.from_numpy(a)
+                                       for a in (q, k, v)), **kw)
+    assert wrapper.shape == (1, 40, Hq, 256)
+    assert _max_err(wrapper, pallas) < 2e-5
+
+
+# --- rmsnorm ----------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(5, 96), (2, 7, 256), (3, 2304)])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rmsnorm_matches_reference(shape, dt):
+    """Against the reference's jnp oracle and its Pallas kernel in
+    interpret mode, at the reference's own gates (``tests/test_kernels.py``:
+    1e-5 in fp32; 5e-2 in bf16, where one bf16 ulp at |y| ~ 4 is 3e-2)."""
+    x, s = _normal(10, shape, shape[-1:])
+    s = 0.1 * s
+    jx = jnp.asarray(x).astype(dt)
+    tx = torch.from_numpy(x).to(getattr(torch, dt))
+    oracle = j_rn_ref.rmsnorm(jx, jnp.asarray(s))
+    pallas = j_rn_ops.rmsnorm(jx, jnp.asarray(s), interpret=True)
+    port = rn_ops.rmsnorm(tx, torch.from_numpy(s))
+    assert port.dtype == tx.dtype and port.shape == tx.shape
+    assert torch.equal(port, rn_ref.rmsnorm(tx, torch.from_numpy(s)))
+    tol = 5e-2 if dt == "bfloat16" else 1e-5
+    assert _max_err(port.float(), np.asarray(oracle, np.float32)) <= tol
+    assert _max_err(port.float(), np.asarray(pallas, np.float32)) <= tol

@@ -1,0 +1,327 @@
+"""The port's LM (gemma2 configs, layers, attention, ``LM``) against the
+JAX package's, on the CPU.
+
+Both packages get the same parameters: the reference's ``init_lm`` tree
+with every leaf perturbed by 0.05·normal from a numpy seed (``init_lm``
+zero-initialises every norm scale and qkv bias, so unperturbed parameters
+would leave those paths untested), carried across by
+``convert.lm_state_from_jax``.  Sizes are ``smoke_config(gemma2-2b)``
+(4 layers, d 256, 4 heads of 64, window 8) with 20-token prompts, so the
+local layers' window masks, and the same config with 2 kv heads, qkv bias
+and qk-norm (GQA and the qwen-style flags).
+
+Tolerance: 2e-5 in fp32 wherever the two packages compute the same
+function, the gate the reference holds its own Pallas kernels to against
+its oracle (``tests/test_kernels.py``); what differs is only the order of
+fp32 sums in XLA's and torch's CPU kernels.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.configs import get_config as jget_config
+from repro.configs import shapes as jshapes
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models.moe import Parallel as JParallel
+from repro.models.transformer import (decode_step as jdecode_step,
+                                      forward as jforward, init_lm)
+from repro.utils import softcap as jsoftcap
+from repro_torch.configs import base as tbase
+from repro_torch.configs import get_config, list_configs, shapes as tshapes
+from repro_torch.convert import lm_state_from_jax
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models.moe import Parallel
+from repro_torch.models.transformer import LM
+from repro_torch.utils import softcap
+
+TOL = 2e-5
+S = 20                                   # > the smoke window of 8
+VARIANTS = {"gemma2": {}, "gqa_bias_qknorm": dict(num_kv_heads=2,
+                                                  qkv_bias=True,
+                                                  qk_norm=True)}
+
+
+def smoke_pair(variant: str):
+    """(reference config, port config) of one variant."""
+    kw = VARIANTS[variant]
+    return (jshapes.smoke_config(jget_config("gemma2-2b")).replace(**kw),
+            tshapes.smoke_config(get_config("gemma2-2b")).replace(**kw))
+
+
+def perturbed(tree, seed: int, scale: float = 0.05):
+    """Every leaf of ``tree`` as numpy, plus scale·normal from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: np.asarray(a, np.float32) + scale *
+                        rng.standard_normal(a.shape).astype(np.float32), tree)
+
+
+def lm_pair(variant: str, seed: int = 0):
+    """(jcfg, tcfg, reference params (jnp), port LM on the CPU)."""
+    jcfg, tcfg = smoke_pair(variant)
+    params = perturbed(jax.jit(init_lm, static_argnums=1)(
+        jax.random.PRNGKey(seed), jcfg), seed + 100)
+    lm = LM(tcfg, device="cpu")
+    lm.load_state_dict(lm_state_from_jax(params, tcfg))
+    lm.eval()
+    return jcfg, tcfg, jax.tree.map(jnp.asarray, params), lm
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def pair(request):
+    return lm_pair(request.param)
+
+
+def _tokens(seed, B=2, L=S, vocab=512):
+    return np.random.default_rng(seed).integers(0, vocab, (B, L)).astype(
+        np.int32)
+
+
+def _err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float32) -
+                               np.asarray(b, np.float32))))
+
+
+# --- configs ----------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "gemma2-2b-swa"])
+def test_config_fields_and_derived_values_match_reference(name):
+    jc, tc = jget_config(name), get_config(name)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.act_dtype == torch.bfloat16 and str(jc.act_dtype) == "bfloat16"
+    for attr in ("padded_vocab", "period", "num_groups", "supports_decode"):
+        assert getattr(tc, attr) == getattr(jc, attr)
+    assert tc.param_counts() == jc.param_counts()
+    assert [tc.layer_kind(i) for i in range(tc.num_layers)] == \
+        [jc.layer_kind(i) for i in range(jc.num_layers)]
+    assert dataclasses.asdict(tshapes.smoke_config(tc)) == \
+        dataclasses.asdict(jshapes.smoke_config(jc))
+    for sname, shape in jbase.INPUT_SHAPES.items():
+        tshape = tbase.INPUT_SHAPES[sname]
+        assert dataclasses.asdict(tshape) == dataclasses.asdict(shape)
+        assert tshapes.shape_supported(tc, tshape) == \
+            jshapes.shape_supported(jc, shape)
+        assert tshapes.resolve_decode_config(tc, tshape).name == \
+            jshapes.resolve_decode_config(jc, shape).name
+    assert tshapes.smoke_shape("decode", 16, 3) == \
+        tbase.InputShape("smoke_decode", 16, 3, "decode")
+    assert set(list_configs()) == {"gemma2-2b", "gemma2-2b-swa"}
+
+
+def test_sub_config_defaults_match_reference():
+    for t, j in ((tbase.MambaConfig(), jbase.MambaConfig()),
+                 (tbase.XLSTMConfig(), jbase.XLSTMConfig()),
+                 (tbase.MoEConfig(8, 2, 64), jbase.MoEConfig(8, 2, 64))):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert tbase.ModelConfig("x", "dense", 2, 64, 4, 2, 128, 100).head_dim \
+        == 16
+
+
+# --- layers -----------------------------------------------------------------
+
+def test_softcap_and_layers_match_reference():
+    rng = np.random.default_rng(0)
+    x = (3 * rng.standard_normal((2, 5, 64))).astype(np.float32)
+    scale, bias = (rng.standard_normal(64).astype(np.float32) for _ in "ab")
+    tx = torch.from_numpy(x)
+    assert _err(softcap(tx, 5.0), jsoftcap(jnp.asarray(x), 5.0)) < 1e-6
+    assert _err(tlayers.rmsnorm(tx, torch.from_numpy(scale)),
+                jlayers.rmsnorm({"scale": jnp.asarray(scale)},
+                                jnp.asarray(x))) < 1e-5
+    assert _err(tlayers.layernorm(tx, torch.from_numpy(scale),
+                                  torch.from_numpy(bias)),
+                jlayers.layernorm({"scale": jnp.asarray(scale),
+                                   "bias": jnp.asarray(bias)},
+                                  jnp.asarray(x))) < 1e-5
+    q = rng.standard_normal((2, 7, 3, 32)).astype(np.float32)
+    pos = np.tile(np.arange(7, dtype=np.int32) * 97, (2, 1))
+    assert _err(tlayers.apply_rope(torch.from_numpy(q), torch.from_numpy(pos),
+                                   10_000.0),
+                jlayers.apply_rope(jnp.asarray(q), jnp.asarray(pos),
+                                   10_000.0)) < 1e-5
+    for gated, act in ((True, "gelu"), (False, "silu")):
+        p = perturbed(jlayers.init_mlp(jax.random.PRNGKey(1), 64, 128, gated),
+                      2)
+        mlp = tlayers.MLP(64, 128, gated, act, device="cpu")
+        mlp.load_state_dict({f"{k}.weight": torch.from_numpy(
+            np.ascontiguousarray(v.T)) for k, v in p.items()})
+        want = jlayers.mlp(jax.tree.map(jnp.asarray, p), jnp.asarray(x), act)
+        with torch.no_grad():
+            assert _err(mlp(tx), want) < TOL
+
+
+# --- attention --------------------------------------------------------------
+
+def _attn_pair(variant, seed=3):
+    jcfg, tcfg = smoke_pair(variant)
+    p = perturbed(jattn.init_attention(jax.random.PRNGKey(seed), jcfg),
+                  seed + 1)
+    mod = tattn.Attention(tcfg, device="cpu")
+    state = {}
+    for name, node in p.items():
+        if "w" in node:
+            state[f"{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(node["w"].T))
+            if "b" in node:
+                state[f"{name}.bias"] = torch.from_numpy(node["b"])
+        else:
+            state[f"{name}.scale"] = torch.from_numpy(node["scale"])
+    mod.load_state_dict(state)
+    return jcfg, tcfg, jax.tree.map(jnp.asarray, p), mod
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("kind", ["attn", "attn_local"])
+@pytest.mark.parametrize("route", ["kernel", "naive", "chunked"])
+def test_attention_routes_match_reference(variant, kind, route):
+    """Port ``use_kernels=True`` (the kernel wrapper's plain version on the
+    CPU) against the reference's Pallas kernel in interpret mode; the naive
+    and chunked routes against the reference's own."""
+    jcfg, tcfg, jp, mod = _attn_pair(variant)
+    x = np.random.default_rng(4).standard_normal((2, S, 256)).astype(
+        np.float32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (2, 1))
+    want, (jk, jv) = jattn.attention(jp, jcfg, jnp.asarray(x),
+                                     jnp.asarray(pos), kind=kind,
+                                     use_pallas=route == "kernel",
+                                     impl=route)
+    with torch.no_grad():
+        got, (k, v) = tattn.attention(mod, tcfg, torch.from_numpy(x),
+                                      torch.from_numpy(pos), kind=kind,
+                                      use_kernels=route == "kernel",
+                                      impl=route)
+    assert float(jnp.max(jnp.abs(want))) > 1e-2
+    assert _err(got, want) < TOL
+    assert _err(k, jk) < TOL and _err(v, jv) < TOL
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("kind", ["attn", "attn_local"])
+def test_attention_decode_matches_reference(variant, kind):
+    """One token at position 13 against a cache of 24 whose first 13
+    positions hold data (and whose tail holds junk the mask must hide);
+    the port writes the new token into its cache in place."""
+    jcfg, tcfg, jp, mod = _attn_pair(variant)
+    rng = np.random.default_rng(5)
+    hd, hkv = tcfg.head_dim, tcfg.num_kv_heads
+    ck, cv = (rng.standard_normal((2, 24, hkv, hd)).astype(np.float32)
+              for _ in "kv")
+    x = rng.standard_normal((2, 1, 256)).astype(np.float32)
+    want, jc = jattn.attention_decode(
+        jp, jcfg, jnp.asarray(x), jattn.KVCache(jnp.asarray(ck),
+                                                jnp.asarray(cv)),
+        jnp.int32(13), kind=kind)
+    cache = tattn.KVCache(torch.from_numpy(ck.copy()),
+                          torch.from_numpy(cv.copy()))
+    with torch.no_grad():
+        got, tc = tattn.attention_decode(mod, tcfg, torch.from_numpy(x),
+                                         cache, 13, kind=kind)
+    assert tc.k is cache.k
+    assert _err(got, want) < TOL
+    assert _err(tc.k, jc.k) < TOL and _err(tc.v, jc.v) < TOL
+
+
+def test_make_mask_matches_reference():
+    for kw in (dict(causal=True, window=0), dict(causal=True, window=4),
+               dict(causal=False, window=3, q_offset=5)):
+        assert np.array_equal(tattn.make_mask(9, 14, **kw).numpy(),
+                              np.asarray(jattn.make_mask(9, 14, **kw)))
+
+
+# --- the LM -----------------------------------------------------------------
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_prefill_logits_and_caches_match_reference(pair, use_kernels):
+    jcfg, tcfg, jp, lm = pair
+    toks = _tokens(6)
+    want, _, jcaches = jax.jit(
+        lambda p, t: jforward(p, jcfg, {"tokens": t},
+                              JParallel(use_pallas=use_kernels),
+                              mode="prefill"))(jp, jnp.asarray(toks))
+    with torch.no_grad():
+        got, aux, caches = lm(torch.from_numpy(toks),
+                              Parallel(use_kernels=use_kernels),
+                              mode="prefill")
+    assert got.shape == (2, S, tcfg.padded_vocab) and float(aux) == 0.0
+    assert float(jnp.max(jnp.abs(want))) > 1e-1
+    assert _err(got, want) < TOL
+    assert len(caches) == tcfg.num_layers
+    for i, c in enumerate(caches):
+        g, p = divmod(i, tcfg.period)
+        assert _err(c.k, jcaches[f"p{p}"].k[g]) < TOL
+        assert _err(c.v, jcaches[f"p{p}"].v[g]) < TOL
+
+
+def test_prefill_last_only_and_train_mode(pair):
+    jcfg, tcfg, jp, lm = pair
+    toks = torch.from_numpy(_tokens(7))
+    with torch.no_grad():
+        full, _ = lm(toks)
+        last, _, _ = lm(toks, Parallel(prefill_last_only=True),
+                        mode="prefill")
+    assert last.shape == (2, 1, tcfg.padded_vocab)
+    # the read-out of one position against that of all: the same sums, but
+    # the CPU's matmul blocks a (2, 1, d) product otherwise, ~6 ulps at the
+    # logits' size (|logit| ~3)
+    assert _err(last[:, 0], full[:, -1]) < 1e-5
+
+
+def test_prefill_then_decode_matches_forward_and_reference(pair):
+    """Prefill 16 tokens, pad the caches to 19, decode 3 more: each step's
+    logits against the full forward of all 19 (as the reference's
+    ``test_prefill_decode_matches_forward`` does, at its 5e-4) and against
+    the reference's ``decode_step`` on the same caches (2e-5)."""
+    jcfg, tcfg, jp, lm = pair
+    toks = _tokens(8, L=19)
+    P, K = 16, 3
+    with torch.no_grad():
+        full, _ = lm(torch.from_numpy(toks))
+        lp, _, caches = lm(torch.from_numpy(toks[:, :P]), mode="prefill")
+    padded = lm.init_caches(2, P + K)
+    for dst, src in zip(padded, caches):
+        dst.k[:, :P], dst.v[:, :P] = src.k, src.v
+    jcaches = {f"p{p}": jattn.KVCache(
+        jnp.asarray(np.stack([padded[g * tcfg.period + p].k.numpy()
+                              for g in range(tcfg.num_groups)])),
+        jnp.asarray(np.stack([padded[g * tcfg.period + p].v.numpy()
+                              for g in range(tcfg.num_groups)])))
+        for p in range(tcfg.period)}
+    step = jax.jit(lambda p, t, c, i: jdecode_step(p, jcfg, t, c, i))
+    errs = [_err(lp[:, -1], full[:, P - 1])]
+    for i in range(K):
+        t = toks[:, P + i:P + i + 1]
+        with torch.no_grad():
+            lg, padded = lm.decode_step(torch.from_numpy(t), padded, P + i)
+        jlg, jcaches = step(jp, jnp.asarray(t), jcaches, jnp.int32(P + i))
+        errs.append(_err(lg[:, 0], full[:, P + i]))
+        assert _err(lg, jlg) < TOL
+    assert max(errs) < 5e-4, errs
+
+
+def test_lm_refuses_unported_layers_and_frontends():
+    base = tshapes.smoke_config(get_config("gemma2-2b"))
+    for kw, what in ((dict(layer_pattern=("mamba", "attn")), "Mamba"),
+                     (dict(layer_pattern=("mlstm", "slstm")), "xLSTM"),
+                     (dict(moe=tbase.MoEConfig(4, 2, 64)), "MoE"),
+                     (dict(frontend="vision_patches"), "frontend")):
+        with pytest.raises(NotImplementedError, match=what):
+            LM(base.replace(**kw), device="cpu")
+
+
+def test_lm_init_is_seeded_and_zeroes_norms():
+    cfg = tshapes.smoke_config(get_config("gemma2-2b")).replace(
+        qkv_bias=True, qk_norm=True)
+    a, b = (LM(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+            for _ in range(2))
+    for (name, pa), pb in zip(a.state_dict().items(),
+                              b.state_dict().values()):
+        assert torch.equal(pa, pb), name
+        if name.endswith(("scale", "bias")):
+            assert not pa.any(), name
+    assert float(a.embedding.detach().std()) == pytest.approx(0.02, rel=0.05)
