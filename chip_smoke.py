@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
-  1. card check, build of every kernel (nvcc for the CUDA source, first
-     launch for the Triton kernels), with the build seconds;
+  1. card check, build of every kernel (nvcc for the two CUDA sources,
+     first launch for the Triton kernels), with the build seconds and
+     ptxas's report (the tensor-core flash kernel must spill nothing);
   2. each kernel against its plain PyTorch version at the main path's
      shapes and at edge shapes, with kernel, plain and library times and
      the card's lower bound for the same work;
@@ -44,14 +45,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      8/4 heads of 256, vocab 256000) on seeded random weights:
      8a. flash attention's mode grid (causal, window, softcap, GQA with
          and without window, MQA, non-causal; head dims 64/128/256;
-         S = 100 and 4608; fp32 and bf16, bf16 also gated row by row
+         S = 100 and 4608; fp32 through the CUDA-core kernel and bf16
+         through the tensor-core kernel, bf16 also gated row by row
          relative to the row's size) and rmsnorm against their plain
-         versions, and both timed at the serving shapes;
+         versions, and both timed at the serving shapes, beside
+         ``flex_attention`` (the same function, compiled) and SDPA (a
+         different one);
      8b. ``ServeEngine`` in bf16, two rounds of a wave of 4 × 4608-token
          prompts (32 new tokens each) and a wave of 16 × 512 (64 each),
-         with stats and flash launches checked (26 per prefill, none in
-         decode), the same tokens in both rounds, and one traced prefill
-         and decode step;
+         with stats and flash launches checked (26 per prefill, all on
+         the tensor cores, none in decode), the same tokens in both
+         rounds, and one traced prefill (with the flash kernel's share of
+         its device time) and decode step;
      8c. one 4608-token request in fp32 through the kernel route and the
          plain route on the same weights: last-position logits gated,
          greedy tokens compared.
@@ -65,6 +70,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -181,17 +187,20 @@ def device_busy(fn, trace_path: Path) -> dict:
     work = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["name"])
                   for e in events if e.get("ph") == "X" and e.get("cat") in
                   ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end, by_name = 0.0, lo, {}
+    busy, end, by_name, flash = 0.0, lo, {}, 0.0
     for a, b, name in work:
         if b > a:
             busy += max(0.0, b - max(a, end))
             end = max(end, b)
             by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a)
+            flash += (b - a) if "flash_fwd" in name else 0.0
     check(busy > 0, "the profiler trace holds no device work")
     traced_wall = (hi - lo) * 1e-6
     return {"kernels": len(work), "traced_wall_s": traced_wall,
             "device_busy_s": busy * 1e-6,
             "device_idle_share": 1 - busy * 1e-6 / traced_wall,
+            "flash_attention_device_s": flash * 1e-6,
+            "flash_attention_share_of_busy": flash / busy,
             "top_device_us": sorted(by_name.items(),
                                     key=lambda kv: -kv[1])[:10]}
 
@@ -247,9 +256,21 @@ def main() -> int:
     t0 = time.perf_counter()
     fa_kernel.build()
     t_nvcc = time.perf_counter() - t0
-    for line in build_log(fa_kernel.SOURCE).splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say(f"[1] ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    fa_kernel.build_tc()
+    t_nvcc_tc = time.perf_counter() - t0
+    for src in (fa_kernel.SOURCE, fa_kernel.TC_SOURCE):
+        for line in build_log(src).splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "arning", "Performance Loss")):
+                say(f"[1] ptxas {src.name}: {line.strip()}")
+    tc_log = build_log(fa_kernel.TC_SOURCE)
+    tc_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", tc_log)
+    check(len(tc_spills) == 4 and all(a == b == "0" for a, b in tc_spills),
+          f"flash_attention_tc spills: {tc_spills}")
+    check("Performance Loss" not in tc_log, "ptxas serialised the wgmma "
+          "instructions of flash_attention_tc")
     t0 = time.perf_counter()
     small = randn(2, 4, 8)
     an_ops.adaln_norm(small, randn(2, 8), randn(2, 8))
@@ -262,7 +283,9 @@ def main() -> int:
     rn_ops.rmsnorm(small, randn(8))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    say(f"[1] build: nvcc flash_attention {t_nvcc:.2f} s, triton adaln_norm "
+    say(f"[1] build: nvcc flash_attention {t_nvcc:.2f} s, nvcc "
+        f"flash_attention_tc {t_nvcc_tc:.2f} s (4 instances, 0 spill "
+        f"bytes), triton adaln_norm "
         f"+ cfg_update + cfg_update_rowwise + cfg_update_mixed + rmsnorm "
         f"first launch {t_triton:.2f} s")
 
@@ -1080,6 +1103,7 @@ def main() -> int:
             ("mqa_rep8", 1, True, False, False),
             ("noncausal", 8, False, False, False)]
     attn_checks = {"float32": [], "bfloat16": []}
+    fa = fa_ops.flash_attention
     for S, W, B in ((100, 40, 2), (4608, 4096, 1)):
         for hd in (64, 128, 256):
             base = [randn(B, S, 8, hd), randn(B, S, 8, hd), randn(B, S, 8, hd)]
@@ -1091,8 +1115,15 @@ def main() -> int:
                                base[2][:, :, :hkv].to(dt))
                     kw = dict(causal=causal, window=W if windowed else 0,
                               softcap=50.0 if capped else 0.0)
-                    out = fa_ops.flash_attention(q, k, v, **kw)
+                    routes = (fa.launches_tensor_core, fa.launches_cuda_core)
+                    out = fa(q, k, v, **kw)
                     torch.cuda.synchronize()
+                    tc = dtype == "bfloat16"
+                    check((fa.launches_tensor_core - routes[0],
+                           fa.launches_cuda_core - routes[1]) == (tc, not tc),
+                          f"flash_attention {mode} S={S} hd={hd} {dtype}: "
+                          f"not on the {'tensor' if tc else 'CUDA'}-core "
+                          f"kernel")
                     ref = plain_lm_attn(q, k, v, **kw)
                     err, rel = max_err(out, ref), row_rel_err(out, ref)
                     check(out.dtype == dt and err <= tol,
@@ -1119,9 +1150,10 @@ def main() -> int:
 
     # timed at the serving shape: one prefill layer of wave A (B 4, S 4608,
     # 8 query heads over 4 kv heads of 256, bf16), local (window 4096) and
-    # global; no single PyTorch call computes softcapped attention, so the
-    # library column is empty and SDPA (causal, GQA, no softcap, no window:
-    # a different function) is printed beside it
+    # global.  The library column is flex_attention, compiled, with the soft
+    # cap as its score_mod and the masks as a BlockMask: one PyTorch call
+    # computing the same function (the port never calls it).  SDPA (causal,
+    # GQA, no softcap, no window: a different function) is printed beside it
     lm_cfg = get_config("gemma2-2b")
     Bw, Sw, hq, hkv, hd = 4, 4608, lm_cfg.num_heads, lm_cfg.num_kv_heads, \
         lm_cfg.head_dim
@@ -1129,49 +1161,104 @@ def main() -> int:
     kw_local = dict(causal=True, window=lm_cfg.sliding_window,
                     softcap=lm_cfg.attn_softcap)
     kw_global = dict(causal=True, window=0, softcap=lm_cfg.attn_softcap)
-    serve_out = fa_ops.flash_attention(qa, ka, va, **kw_local)
+    n_tc = fa.launches_tensor_core
+    serve_out = fa(qa, ka, va, **kw_local)
+    check(fa.launches_tensor_core == n_tc + 1, "wave A's layer did not take "
+          "the tensor-core kernel")
     serve_ref = plain_lm_attn(qa, ka, va, **kw_local)
     serve_err = max_err(serve_out, serve_ref)
     serve_rel = row_rel_err(serve_out, serve_ref)
-    check(serve_rel <= TOL_ATTN_BF16_ROW, f"flash_attention at wave A's "
-          f"layer: row-relative error {serve_rel:.3g} > "
-          f"{TOL_ATTN_BF16_ROW:g}")
+    check(serve_err <= TOL_ATTN_BF16 and serve_rel <= TOL_ATTN_BF16_ROW,
+          f"flash_attention at wave A's layer: max abs error {serve_err:.3g},"
+          f" row-relative {serve_rel:.3g}")
+    check(torch.equal(serve_out, fa(qa, ka, va, **kw_local)),
+          "flash_attention at wave A's layer: two calls differ")
+    try:                     # decided by import: present from PyTorch 2.5
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+    except ImportError:
+        flex_attention = None
+    flex, bhsd = {}, [t.transpose(1, 2) for t in (qa, ka, va)]
+    if flex_attention is not None:
+        cap, win = lm_cfg.attn_softcap, lm_cfg.sliding_window
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        def local_mask(b, h, q_idx, kv_idx):
+            return (kv_idx <= q_idx) & (kv_idx > q_idx - win)
+
+        def causal_mask(b, h, q_idx, kv_idx):
+            return kv_idx <= q_idx
+
+        flex_c = torch.compile(flex_attention, dynamic=False)
+        for name, mask_mod in (("local", local_mask),
+                               ("global", causal_mask)):
+            bm = create_block_mask(mask_mod, None, None, Sw, Sw, device=dev)
+            call = (lambda bm=bm: flex_c(*bhsd, score_mod=score_mod,
+                                         block_mask=bm, enable_gqa=True))
+            t0 = time.perf_counter()
+            fo = call()
+            torch.cuda.synchronize()
+            flex[name] = dict(call=call, compile_s=time.perf_counter() - t0)
+            if name == "local":
+                flex[name]["max_abs_err_vs_plain"] = max_err(
+                    fo.transpose(1, 2), serve_ref)
+            del fo
+        say(f"[8] flex_attention (compiled; score_mod 50 tanh(s/50), "
+            f"BlockMask, GQA): first call local "
+            f"{flex['local']['compile_s']:.2f} s, global "
+            f"{flex['global']['compile_s']:.2f} s; local against the plain "
+            f"version: max_abs_err "
+            f"{flex['local']['max_abs_err_vs_plain']:.3g}")
+    else:
+        say("[8] flex_attention: not in this PyTorch "
+            f"({torch.__version__}); library column none")
     del serve_out, serve_ref
     # q, k, v read once and o written once, bf16
     attn_bytes = 2 * (2 * qa.numel() + ka.numel() + va.numel())
     pairs = {n: Bw * hq * attn_pairs(Sw, Sw, True, kw["window"])
              for n, kw in (("local", kw_local), ("global", kw_global))}
+
+    def sdpa_lm():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
     record("flash_attention_lm", "cuda",
-           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "src/repro_torch/kernels/flash_attention/csrc/"
+           "flash_attention_tc.cu",
            "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN_BF16,
            attn_checks["bfloat16"] + [dict(mode="gemma2_local", shape=[
                Bw, Sw, hq, hkv, hd], max_abs_err=serve_err,
                max_row_rel_err=serve_rel)],
-           lambda: fa_ops.flash_attention(qa, ka, va, **kw_local),
-           lambda: plain_lm_attn(qa, ka, va, **kw_local), None,
+           lambda: fa(qa, ka, va, **kw_local),
+           lambda: plain_lm_attn(qa, ka, va, **kw_local),
+           flex["local"]["call"] if flex else None,
            attn_bytes, 4 * hd * pairs["local"], [Bw, Sw, hq, hkv, hd],
            peak=BF16_FLOPS, iters=5, phase=8,
            mode="causal, window 4096, softcap 50, GQA 8/4, bf16 (gemma2 "
-                "local layer, wave A prefill)",
-           library_call="none (softcap)",
+                "local layer, wave A prefill), tensor-core kernel",
+           library_call=("flex_attention, compiled, score_mod softcap, "
+                         "BlockMask causal + window, enable_gqa" if flex
+                         else "none (no flex_attention in this PyTorch)"),
+           library_max_abs_err=(flex["local"]["max_abs_err_vs_plain"]
+                                if flex else None),
+           sdpa_causal_gqa_ms_different_function=cuda_ms(sdpa_lm, 5),
            fp32_max_abs_err=max(c["max_abs_err"]
                                 for c in attn_checks["float32"]))
     attn_global = dict(
-        ms=cuda_ms(lambda: fa_ops.flash_attention(qa, ka, va, **kw_global),
-                   5),
-        device_ms=graph_ms(lambda: fa_ops.flash_attention(qa, ka, va,
-                                                          **kw_global), 2),
+        ms=cuda_ms(lambda: fa(qa, ka, va, **kw_global), 5),
+        device_ms=graph_ms(lambda: fa(qa, ka, va, **kw_global), 2),
         plain_ms=cuda_ms(lambda: plain_lm_attn(qa, ka, va, **kw_global), 5),
+        library_ms=cuda_ms(flex["global"]["call"], 5) if flex else None,
         bound_ms=bound(attn_bytes, 4 * hd * pairs["global"], BF16_FLOPS)[0],
         flops=4 * hd * pairs["global"],
-        sdpa_causal_gqa_ms_different_function=cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
-                is_causal=True, enable_gqa=True), 5))
+        sdpa_causal_gqa_ms_different_function=cuda_ms(sdpa_lm, 5))
     say(json.dumps({"flash_attention_lm_global_layer": {
         "shape": [Bw, Sw, hq, hkv, hd], "mode": "causal, softcap 50, GQA 8/4, "
-        "bf16", **attn_global, "card": smi}}))
-    del qa, ka, va
+        "bf16, tensor-core kernel", **attn_global, "card": smi}}))
+    del flex, bhsd, qa, ka, va
 
     # rmsnorm at the LM's norm shapes: wave A's 4 x 4608 rows of d 2304,
     # and a small ragged one
@@ -1218,12 +1305,14 @@ def main() -> int:
     fwd, phase_s = lm.forward, {}
 
     def timed_forward(*args, **kwargs):        # the engine's prefill call
-        n0 = fa_ops.flash_attention.launches
+        n0 = (fa.launches, fa.launches_tensor_core, fa.launches_cuda_core)
         t = time.perf_counter()
         out = fwd(*args, **kwargs)
         torch.cuda.synchronize()
         phase_s["prefill"] = time.perf_counter() - t
-        phase_s["prefill_launches"] = fa_ops.flash_attention.launches - n0
+        phase_s["prefill_launches"] = fa.launches - n0[0]
+        phase_s["prefill_launches_tc"] = fa.launches_tensor_core - n0[1]
+        phase_s["prefill_launches_cuda_core"] = fa.launches_cuda_core - n0[2]
         return out
 
     lm.forward = timed_forward
@@ -1261,13 +1350,20 @@ def main() -> int:
                 len(res[r]) == budget[name] for r in rids),
                 f"wave {name}: results {[len(res.get(r, [])) for r in rids]}")
             check(phase_s["prefill_launches"] == lm_cfg.num_layers
+                  and phase_s["prefill_launches_tc"] == lm_cfg.num_layers
+                  and phase_s["prefill_launches_cuda_core"] == 0
                   and phase_s["decode_launches"] == 0,
                   f"wave {name}: {phase_s['prefill_launches']} flash launches "
-                  f"in prefill (want {lm_cfg.num_layers}), "
-                  f"{phase_s['decode_launches']} in decode (want 0)")
+                  f"in prefill ({phase_s['prefill_launches_tc']} on the "
+                  f"tensor cores, {phase_s['prefill_launches_cuda_core']} on "
+                  f"the CUDA cores; want {lm_cfg.num_layers}, all on the "
+                  f"tensor cores), {phase_s['decode_launches']} in decode "
+                  f"(want 0)")
             out.update(res)
             per_wave.append(dict(
                 wave=name, requests=nb, prompt=L, new_tokens=budget[name],
+                prefill_flash_launches_tensor_core=phase_s[
+                    "prefill_launches_tc"],
                 prefill_tokens_per_s=nb * L / phase_s["prefill"],
                 decode_tokens_per_s=nb * (budget[name] - 1) / phase_s[
                     "decode"],
@@ -1296,8 +1392,9 @@ def main() -> int:
     lm.forward = fwd
     check(tokens[1] == tokens[2], "serve round 2 tokens differ from round "
           "1's, same weights and prompts")
-    kernels["flash_attention_lm"]["launches"] = \
-        serve_rounds[0]["launches"]["flash_attention"]
+    kernels["flash_attention_lm"]["launches"] = sum(
+        w["prefill_flash_launches_tensor_core"]
+        for w in serve_rounds[0]["waves"])
     kernels["rmsnorm"]["launches"] = serve_rounds[0]["launches"]["rmsnorm"]
 
     # one wave-A prefill and one decode step of it under the profiler
@@ -1322,6 +1419,11 @@ def main() -> int:
     trace_dec["untraced_step_s"] = wave_a["decode_s"] / (budget["A"] - 1)
     trace_dec["device_idle_share_of_untraced_wall"] = \
         1 - trace_dec["device_busy_s"] / trace_dec["untraced_step_s"]
+    say(f"[8] traced wave-A prefill: device busy "
+        f"{trace_pre['device_busy_s']:.4f} s, flash attention "
+        f"{trace_pre['flash_attention_device_s']:.4f} s, "
+        f"{100 * trace_pre['flash_attention_share_of_busy']:.1f}% of it "
+        f"({smi})")
     say(json.dumps({"lm_serving": {
         "model": "gemma2-2b", "params": n_params, "dtype": "bfloat16",
         "init_s": t_init, "rounds": serve_rounds,

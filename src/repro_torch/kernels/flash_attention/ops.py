@@ -1,6 +1,9 @@
-"""Public wrapper, (B, S, H, hd) layout: the CUDA kernel for CUDA tensors,
+"""Public wrapper, (B, S, H, hd) layout: a CUDA kernel for CUDA tensors,
 the plain version (``ref.py``) for CPU tensors, in every mode (causal,
-sliding window, logit softcap, GQA, non-causal)."""
+sliding window, logit softcap, GQA, non-causal).  On the card, bf16 calls
+that ``kernel.tensor_core_route`` accepts go to the tensor-core kernel and
+every other call to the CUDA-core kernel; ``flash_attention.launches``
+counts both, ``launches_tensor_core`` and ``launches_cuda_core`` each."""
 from __future__ import annotations
 
 from repro_torch.kernels.build import check_cuda_inputs
@@ -37,10 +40,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{softcap}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the kernel needs unit stride over hd")
-    out = K.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
+    if K.tensor_core_route(q, k, v):
+        out = K.flash_attention_tc_bshd(q, k, v, causal=causal,
+                                        window=window, softcap=softcap)
+        flash_attention.launches_tensor_core += 1
+    else:
+        out = K.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+        flash_attention.launches_cuda_core += 1
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tensor_core = 0
+flash_attention.launches_cuda_core = 0

@@ -186,14 +186,18 @@ ATTN_MODES = {"causal": dict(causal=True),
 def test_attention_kernel_modes_match_plain(dev, mode, Hq, Hkv, hd, dtype):
     """The mode grid at a ragged S = 100 (32-row tiles leave 4), window 40:
     fp32 within 2e-5 and bf16 within 2e-2 (one bf16 ulp of the output), the
-    reference's own gates."""
+    reference's own gates.  bf16 takes the tensor-core kernel, fp32 the
+    CUDA-core one."""
     dt = getattr(torch, dtype)
     q, k, v = (t.to(dt) for t in _randn(dev, 11, (2, 100, Hq, hd),
                                         (2, 100, Hkv, hd), (2, 100, Hkv, hd)))
     kw = ATTN_MODES[mode]
-    before = fa_ops.flash_attention.launches
+    fa = fa_ops.flash_attention
+    before = (fa.launches, fa.launches_tensor_core, fa.launches_cuda_core)
     out = fa_ops.flash_attention(q, k, v, **kw)
-    assert fa_ops.flash_attention.launches == before + 1
+    tc = dtype == "bfloat16"
+    assert (fa.launches, fa.launches_tensor_core, fa.launches_cuda_core) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
     assert out.dtype == dt and out.shape == q.shape
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     assert _err(out.float(), _plain_attention(q, k, v, **kw).float()) < tol
@@ -207,6 +211,111 @@ def test_attention_kernel_at_gemma2_prefill_length(dev):
     kw = dict(causal=True, window=4096, softcap=50.0)
     out = fa_ops.flash_attention(q, k, v, **kw)
     assert _err(out.float(), _plain_attention(q, k, v, **kw).float()) < 2e-2
+
+
+def _bf16_gates(out, ref):
+    """The bf16 gates: 2e-2 absolute, and each row within 2^-6 of its
+    largest value (two bf16 ulps)."""
+    d = (out.float() - ref.float()).abs()
+    rel = d.amax(-1) / ref.float().abs().amax(-1).clamp_min(1e-30)
+    return float(d.max()) <= 2e-2 and float(rel.max()) <= 2.0 ** -6
+
+
+# (causal, window, softcap, q scale): q x 10 drives the scores to +-40, at
+# the cap's knee when the cap is 50
+TC_MODES = {"causal": (True, 0, 0.0, 1.0),
+            "causal_window64": (True, 64, 0.0, 1.0),
+            "causal_window65_cap": (True, 65, 50.0, 10.0),
+            "causal_window4096_cap": (True, 4096, 50.0, 10.0),
+            "causal_sharp": (True, 0, 0.0, 10.0),
+            "noncausal": (False, 0, 0.0, 1.0),
+            "noncausal_cap": (False, 0, 50.0, 10.0)}
+
+
+def _tc_inputs(dev, seed, B, Sq, Sk, Hq, Hkv, hd, q_scale):
+    q, k, v = _randn(dev, seed, (B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                     (B, Sk, Hkv, hd))
+    # with scores at +-40 a row is nearly one-hot and its output is one v
+    # entry; v at half scale keeps those under 4, where the 2e-2 absolute
+    # gate is one bf16 ulp (above 4 an ulp is 0.031, and any two roundings
+    # of one fp32 value may differ by it)
+    v = v * (0.5 if q_scale > 1 else 1.0)
+    return q.mul(q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+@pytest.mark.parametrize("mode", list(TC_MODES))
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 100, 129, 4608])
+@pytest.mark.parametrize("Hkv,hd", [(8, 64), (4, 128), (1, 256), (4, 256)])
+def test_attention_tensor_core_kernel_grid(dev, mode, S, Hkv, hd):
+    """The tensor-core kernel against the plain version at lengths of 1,
+    one 64-key tile and one key either side of it, a ragged 100 and 129
+    (one past the 128-row query tile) and gemma2's 4608; windows on (64)
+    and off (65) a key-tile boundary and gemma2's 4096; GQA 8/8, 8/4 and
+    8/1; head dims 64, 128 and 256."""
+    causal, window, softcap, q_scale = TC_MODES[mode]
+    q, k, v = _tc_inputs(dev, 21, 1 if S > 1000 else 2, S, S, 8, Hkv, hd,
+                         q_scale)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa_ops.flash_attention.launches_tensor_core
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.flash_attention.launches_tensor_core == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _bf16_gates(out, _plain_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("Sq,Sk", [(100, 37), (37, 300), (1, 129),
+                                   (65, 4608)])
+@pytest.mark.parametrize("window,softcap,q_scale", [(0, 0.0, 1.0),
+                                                    (0, 50.0, 10.0),
+                                                    (64, 0.0, 1.0)])
+def test_attention_tensor_core_kernel_with_more_keys_or_queries(
+        dev, Sq, Sk, window, softcap, q_scale):
+    """Non-causal attention with Sq != Sk (cross attention's shape)."""
+    q, k, v = _tc_inputs(dev, 22, 2, Sq, Sk, 8, 4, 256, q_scale)
+    kw = dict(causal=False, window=window, softcap=softcap)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    assert _bf16_gates(out, _plain_attention(q, k, v, **kw))
+
+
+def test_attention_tensor_core_kernel_is_deterministic(dev):
+    """Two calls on the same inputs give the same bits (gemma2's local
+    layer at one batch row): no block's result depends on the schedule."""
+    q, k, v = _tc_inputs(dev, 23, 1, 4608, 4608, 8, 4, 256, 1.0)
+    kw = dict(causal=True, window=4096, softcap=50.0)
+    a = fa_ops.flash_attention(q, k, v, **kw)
+    b = fa_ops.flash_attention(q, k, v, **kw)
+    assert torch.equal(a, b)
+
+
+def test_attention_tensor_core_kernel_takes_a_transposed_layout(dev):
+    """(B, H, S, hd) storage seen as (B, S, H, hd): strides TMA addresses
+    in another order."""
+    q, k, v = (t.bfloat16().transpose(1, 2) for t in _randn(
+        dev, 24, (2, 8, 100, 128), (2, 4, 100, 128), (2, 4, 100, 128)))
+    before = fa_ops.flash_attention.launches_tensor_core
+    out = fa_ops.flash_attention(q, k, v, causal=True, softcap=50.0)
+    assert fa_ops.flash_attention.launches_tensor_core == before + 1
+    assert _bf16_gates(out, _plain_attention(q, k, v, causal=True,
+                                             softcap=50.0))
+
+
+@pytest.mark.parametrize("layout", ["hd36", "padded_heads", "offset"])
+def test_bf16_calls_the_tensor_cores_do_not_take_go_to_the_cuda_cores(
+        dev, layout):
+    """bf16 at head dim 36, with heads 136 bytes apart, or 8 bytes off
+    16-byte alignment: the CUDA-core kernel, within the same gates."""
+    hd = 36 if layout == "hd36" else 64
+    width = hd + (4 if layout != "hd36" else 0)
+    q, k, v = (t.bfloat16() for t in _randn(dev, 25, (2, 100, 8, width),
+                                            (2, 100, 4, width),
+                                            (2, 100, 4, width)))
+    cut = slice(4, None) if layout == "offset" else slice(0, hd)
+    q, k, v = q[..., cut], k[..., cut], v[..., cut]
+    kw = dict(causal=True, window=40, softcap=50.0)
+    before = fa_ops.flash_attention.launches_cuda_core
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.flash_attention.launches_cuda_core == before + 1
+    assert _bf16_gates(out, _plain_attention(q, k, v, **kw))
 
 
 @pytest.mark.parametrize("shape", [(18432, 2304), (5, 96), (3, 7, 256)])
