@@ -6,23 +6,29 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
-  1. card check, build of every kernel (nvcc for the two CUDA sources,
-     first launch for the Triton kernels), with the build seconds and
-     ptxas's report (the tensor-core flash kernel must spill nothing);
+  1. card check, build of every kernel (nvcc for the four CUDA sources,
+     all started together; first launch for the Triton kernels), with the
+     build seconds and ptxas's report (the tensor-core flash kernel must
+     spill nothing);
   2. each kernel against its plain PyTorch version at the main path's
-     shapes and at edge shapes, with kernel, plain and library times and
-     the card's lower bound for the same work;
+     shapes and at edge shapes, with kernel (per call and on the device),
+     plain and library times (per call and, where there is a library
+     call, on the device), the card's lower bound for the same work, and
+     for the DiT's two kernels the launch floor (an empty kernel at the
+     same launch) and what their bindings cost on the host; the DiT's
+     attention also through the CUDA-core kernel it replaced;
   3. the DiT at the paper preset's full width (d_model 144, 4 layers,
      4 heads, patch 4, 512-d conditioning, 16 px, batch 256) on seeded
-     weights perturbed 0.05·normal: kernel path against plain path;
+     weights perturbed 0.05·normal: kernel path against plain path, and
+     a call's host and device time;
      3b. a ResNet-18 classifier's forward pass and input gradient at
      B = 120 on the card against the CPU run of the same weights;
   4. the slice: federated data → client encodings → D_syn synthesis
      (6 clients × 10 categories × 30 samples, 50 steps, guidance 2.0,
      waves of at most 128: 15 waves of 120), twice from one
-     threefry key, with launch counts checked against the path each time,
-     then a 4-step wave on the kernel path against the plain DiT on the
-     same draws;
+     threefry key, with launch counts checked against the path each time
+     (every DiT attention on the short-sequence kernel), then a 4-step
+     wave on the kernel path against the plain DiT on the same draws;
   5. one 128-row wave through ``synthesize`` under the profiler: the
      device's busy time in the trace against the wave's wall time;
   6. ragged synthesis at the same width: the same 60 uploads at mixed
@@ -56,10 +62,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          with stats and flash launches checked (26 per prefill, all on
          the tensor cores, none in decode), the same tokens in both
          rounds, and one traced prefill (with the flash kernel's share of
-         its device time) and decode step;
-     8c. one 4608-token request in fp32 through the kernel route and the
-         plain route on the same weights: last-position logits gated,
-         greedy tokens compared.
+         its device time) and decode step (its device time);
+     8c. one 4608-token request in fp32 through the kernel route (the
+         CUDA-core flash kernel, its launches counted) and the plain route
+         on the same weights: last-position logits gated, greedy tokens
+         compared.
 Phases 4 and 6 run two rounds each, phase 7 two per schedule, phase 8b
 two.
 The last line is the result; the line before it names the card.
@@ -91,6 +98,12 @@ TOL_ATTN_BF16, TOL_RMS, TOL_RMS_BF16 = 2e-2, 1e-5, 5e-2
 # in size, below the absolute gate; a window edge off by one moves it by
 # far more than 2^-6 of its largest value
 TOL_ATTN_BF16_ROW = 2.0 ** -6
+# adaln_norm in bf16: kernel and plain version (in fp32 on the same bf16
+# inputs) each give an fp32 result, the kernel rounds it once, so an element
+# differs by one bf16 ulp (2^-7 of its size) plus the fp32 gate: where the
+# shift cancels the scaled term, |y| is small and the fp32 roundings of the
+# two orders (the kernel fuses the multiply-add) dominate
+TOL_ADALN_BF16_ULP = 2.0 ** -7
 # 8c: last-position logits of a 26-layer fp32 prefill, kernel route against
 # plain route.  Each attention layer differs by ~1e-6 relative (fp32 sums
 # in another order); 26 layers of a random-weight residual stream carry
@@ -141,6 +154,19 @@ def graph_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
     return cuda_ms(graph.replay, 10, 2) / iters
+
+
+def host_us(fn, iters: int = 1000) -> float:
+    """Host time per call of ``fn`` in microseconds: the host clock over
+    ``iters`` back-to-back calls, without waiting for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
@@ -221,9 +247,11 @@ def main() -> int:
                                                sample_cfg_window, sample_mixed)
     from repro_torch.diffusion.schedule import make_schedule
     from repro_torch.encoders.foundation import FrozenFM
+    from repro_torch.kernels.adaln_norm import kernel as an_kernel
     from repro_torch.kernels.adaln_norm import ops as an_ops
     from repro_torch.kernels.adaln_norm import ref as an_ref
-    from repro_torch.kernels.build import BUILD_DIR, build_log
+    from repro_torch.kernels.build import (BUILD_DIR, build_log,
+                                           check_cuda_inputs, compile_all)
     from repro_torch.kernels.cfg_fuse import ops as cfg_ops
     from repro_torch.kernels.cfg_fuse import ref as cfg_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -252,17 +280,46 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
+    # phase 2's checks past its first few (the short kernel's modes, bf16
+    # and odd widths of adaln_norm, 8a's fp32 layer) draw from a generator
+    # of their own, so that the later phases draw the same data whatever
+    # phase 2 checks: the 4-step ragged gate of phase 6 amplifies a 1e-6
+    # difference by ~2e4 (1 + 2s) in the few values the first step leaves
+    # unclipped, and on other seeded weights plain against plain at another
+    # batch size exceeds it
+    g16 = torch.Generator(dev).manual_seed(16)
+
+    def randn16(*shape):
+        return torch.randn(shape, generator=g16, device=dev)
+
     # -- 1. build ------------------------------------------------------------
+    # one nvcc per CUDA source, all started together
+    sources = (fa_kernel.SOURCE, fa_kernel.TC_SOURCE, fa_kernel.SHORT_SOURCE,
+               an_kernel.SOURCE)
     t0 = time.perf_counter()
-    fa_kernel.build()
+    nvcc_s = compile_all(sources)
     t_nvcc = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    fa_kernel.build()
     fa_kernel.build_tc()
-    t_nvcc_tc = time.perf_counter() - t0
-    for src in (fa_kernel.SOURCE, fa_kernel.TC_SOURCE):
-        for line in build_log(src).splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling",
-                                       "arning", "Performance Loss")):
+    fa_kernel.build_short()
+    an_kernel.build()
+    for src in sources:
+        log = build_log(src)
+        if src in (fa_kernel.SOURCE, fa_kernel.TC_SOURCE):
+            for line in log.splitlines():
+                if any(w in line for w in ("registers", "spill", "Compiling",
+                                           "arning", "Performance Loss")):
+                    say(f"[1] ptxas {src.name}: {line.strip()}")
+            continue
+        # one line a template instance: the summary, and any spill or warning
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [(int(a), int(b)) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        say(f"[1] ptxas {src.name}: {len(regs)} kernels, registers "
+            f"{min(regs)}-{max(regs)}, spill bytes (stores, loads) at most "
+            f"{max(spills)}")
+        for line in log.splitlines():
+            if "arning" in line or "Performance Loss" in line:
                 say(f"[1] ptxas {src.name}: {line.strip()}")
     tc_log = build_log(fa_kernel.TC_SOURCE)
     tc_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -283,11 +340,11 @@ def main() -> int:
     rn_ops.rmsnorm(small, randn(8))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    say(f"[1] build: nvcc flash_attention {t_nvcc:.2f} s, nvcc "
-        f"flash_attention_tc {t_nvcc_tc:.2f} s (4 instances, 0 spill "
-        f"bytes), triton adaln_norm "
-        f"+ cfg_update + cfg_update_rowwise + cfg_update_mixed + rmsnorm "
-        f"first launch {t_triton:.2f} s")
+    say(f"[1] build: nvcc {t_nvcc:.2f} s for all four sources together ("
+        + ", ".join(f"{src.name} {sec:.2f} s" for src, sec in nvcc_s.items())
+        + f"; flash_attention_tc 4 instances, 0 spill bytes), first "
+        f"launches of adaln_norm and the Triton cfg_update + "
+        f"cfg_update_rowwise + cfg_update_mixed + rmsnorm {t_triton:.2f} s")
 
     # -- 2. kernels against their plain versions -----------------------------
     kernels = {}
@@ -295,23 +352,29 @@ def main() -> int:
     def record(name, route, source, replaces, tol, checks, launch,
                plain, library, nbytes, flops, shape, peak=FP32_FLOPS,
                iters=100, phase=2, **extra):
+        """One row of the kernels line; device times, the library call's
+        too, are graph replays."""
         err = max(c["max_abs_err"] for c in checks)
         check(err <= tol, f"{name}: max abs error {err:.3g} > {tol:g}")
         b_ms, b_by = bound(nbytes, flops, peak)
+        lib_dev = (None if library is None
+                   else graph_ms(library, max(2, iters // 5)))
         kernels[name] = dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=None, max_abs_err=err, tol=tol,
             ms=cuda_ms(launch, iters), plain_ms=cuda_ms(plain, iters),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None if library is None else cuda_ms(library, iters),
-            device_ms=graph_ms(launch, max(2, iters // 5)), shape=shape,
-            checks=checks, **extra)
+            device_ms=graph_ms(launch, max(2, iters // 5)),
+            library_device_ms=lib_dev, shape=shape, checks=checks, **extra)
         k = kernels[name]
         say(f"[{phase}] {name}: max_abs_err {err:.3g} (tol {tol:g}) over "
-            f"{[c['shape'] for c in checks]}; at {shape}: {k['ms']:.4f} ms "
-            f"per call, {k['device_ms']:.4f} ms on the device, plain "
-            f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{len(checks)} checks; at {shape}: {k['ms']:.4f} ms per call, "
+            f"{k['device_ms']:.4f} ms on the device, plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms per call "
+            f"and {lib_dev} ms on the device, bound {b_ms:.4f} ms ({b_by}), "
+            f"launch floor {extra.get('launch_floor_ms')} ms, memory phases "
+            f"alone {extra.get('memory_only_ms')} ms ({smi})")
 
     # cfg_update: a wave's 128 x 16 x 16 x 3 and an odd total size, at the
     # first step of a 4-step (t = 999) and of a 50-step trajectory
@@ -445,67 +508,224 @@ def main() -> int:
            5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3])
 
     # adaln_norm: the block sites (B, S, d), the final site (the strided
-    # tok[:, 1:] view), the default d_model; scale/shift are strided
-    # chunks of a (B, 6d) modulation, as in the DiT
-    def adaln_inputs(B, N, d, drop_first):
-        xx = randn(B, N + drop_first, d)[:, drop_first:]
-        mod = randn(B, 6 * d)
+    # tok[:, 1:] view), the default d_model and an odd d (one element at a
+    # time), fp32 and bf16; scale/shift are strided chunks of a (B, 6d)
+    # modulation, as in the DiT.  bf16 is held against the plain version in
+    # fp32 on the same bf16 inputs, within one bf16 ulp of each element plus
+    # the fp32 gate
+    def adaln_inputs(B, N, d, drop_first, dt=torch.float32, rand=randn):
+        xx = rand(B, N + drop_first, d).to(dt)[:, drop_first:]
+        mod = rand(B, 6 * d).to(dt)
         return xx, mod[:, d:2 * d], mod[:, :d]
 
-    checks = []
+    checks, bf16_checks = [], []
     for B, N, d, drop in [(256, 17, 144, 0), (256, 16, 144, 1),
-                          (256, 17, 128, 0)]:
-        xs = adaln_inputs(B, N, d, drop)
-        checks.append(dict(shape=[B, N, d], max_abs_err=max_err(
-            an_ops.adaln_norm(*xs), an_ref.adaln_norm(*xs))))
+                          (256, 17, 128, 0), (64, 17, 145, 0),
+                          (3, 40, 2048, 1)]:
+        xs = adaln_inputs(B, N, d, drop,
+                          rand=randn if d in (128, 144) else randn16)
+        out = an_ops.adaln_norm(*xs)
+        check(torch.equal(out, an_ops.adaln_norm(*xs)),
+              f"adaln_norm {B, N, d}: two calls differ")
+        checks.append(dict(shape=[B, N, d],
+                           vector_route=an_kernel.vector_route(xs[0]),
+                           max_abs_err=max_err(out, an_ref.adaln_norm(*xs))))
+        xs = adaln_inputs(B, N, d, drop, torch.bfloat16, randn16)
+        ref = an_ref.adaln_norm(*(t.float() for t in xs))
+        diff = (an_ops.adaln_norm(*xs).float() - ref).abs()
+        over = int((diff > TOL_ADALN_BF16_ULP * ref.abs() + TOL_ADALN).sum())
+        check(over == 0, f"adaln_norm {B, N, d} bf16: {over} elements more "
+              f"than one bf16 ulp + {TOL_ADALN:g} from the plain version")
+        bf16_checks.append(dict(shape=[B, N, d],
+                                vector_route=an_kernel.vector_route(xs[0]),
+                                max_abs_err=float(diff.max())))
+    check([c["vector_route"] for c in checks]
+          == [True, True, True, False, True], "adaln_norm: unexpected routes")
     xs = adaln_inputs(256, 17, 144, 0)
     elems = 256 * 17 * 144
-    record("adaln_norm", "triton",
-           "src/repro_torch/kernels/adaln_norm/kernel.py",
+    geo = an_kernel.geometry(256, 17, 144, True, 4)
+    # what a call costs on the host: the whole wrapper, the binding alone,
+    # and the binding's parts (the input checks, the output's allocation,
+    # the packed geometry, the ctypes call timed on a geometry the library
+    # rejects before launching)
+    an_lib, an_bad = an_kernel._lib(), an_kernel._ARGS.pack(*[0] * 14)
+    an_ptrs = [t.data_ptr() for t in xs] + [xs[0].data_ptr()]
+    an_binding = dict(
+        wrapper=host_us(lambda: an_ops.adaln_norm(*xs)),
+        binding=host_us(lambda: an_kernel.adaln_norm_3d(*xs, 1e-6)),
+        input_checks=host_us(lambda: check_cuda_inputs("adaln_norm", *xs)),
+        output_alloc=host_us(lambda: torch.empty_like(
+            xs[0], memory_format=torch.contiguous_format)),
+        pack_geometry=host_us(lambda: an_kernel._args(*xs, an_ptrs[0])),
+        ctypes_packed=host_us(lambda: an_lib.adaln_norm_fwd(
+            *an_ptrs, an_bad, 1e-6, 0)))
+    say(f"[2] adaln_norm binding, host us per call ({smi}): "
+        f"{json.dumps(an_binding)}")
+    record("adaln_norm", "cuda",
+           "src/repro_torch/kernels/adaln_norm/csrc/adaln_norm.cu",
            "src/repro/kernels/adaln_norm/kernel.py:33", TOL_ADALN, checks,
            lambda: an_ops.adaln_norm(*xs), lambda: an_ref.adaln_norm(*xs),
-           None, 4 * (2 * elems + 2 * 256 * 144), 8 * elems, [256, 17, 144])
+           None, 4 * (2 * elems + 2 * 256 * 144), 8 * elems, [256, 17, 144],
+           bf16_checks=bf16_checks,
+           launch_floor_ms=graph_ms(lambda: an_kernel.empty_launch(*xs)),
+           host_us_breakdown=an_binding,
+           geometry=dict(values_per_lane=geo[0], warps_per_block=geo[1],
+                         batch_rows_per_block=geo[2], blocks=geo[3],
+                         shared_bytes=geo[4]))
 
     # flash_attention: q, k, v as views of a (B, S, 3, H, hd) QKV buffer
-    def qkv_views(B, S, H, hd):
-        qkv = randn(B, S, 3, H, hd)
+    def qkv_views(B, S, H, hd, dt=torch.float32):
+        qkv = randn(B, S, 3, H, hd).to(dt)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
-    def plain_attn(q, k, v):
+    def plain_attn(q, k, v, causal=False, **kw):
         return fa_ref.attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=False).transpose(1, 2)
+                                v.transpose(1, 2), causal=causal,
+                                **kw).transpose(1, 2)
 
     def sdpa(q, k, v):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
-    checks = []
-    long_ms = {}
-    for B, S, H, hd in [(256, 17, 4, 36), (256, 17, 4, 32), (4, 3137, 4, 32)]:
-        q, k, v = qkv_views(B, S, H, hd)
-        checks.append(dict(shape=[B, S, H, hd], max_abs_err=max_err(
-            fa_ops.flash_attention(q, k, v, causal=False),
-            plain_attn(q, k, v))))
-        if S > 1000:
-            long_ms = dict(
-                shape=[B, S, H, hd],
-                ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v,
-                                                          causal=False), 5),
-                device_ms=graph_ms(lambda: fa_ops.flash_attention(
-                    q, k, v, causal=False), 5),
-                plain_ms=cuda_ms(lambda: plain_attn(q, k, v), 5),
-                library_ms=cuda_ms(lambda: sdpa(q, k, v), 5),
-                bound_ms=bound(4 * 4 * B * S * H * hd,
-                               4 * B * H * S * S * hd)[0])
-    q, k, v = qkv_views(256, 17, 4, 36)
-    record("flash_attention", "cuda",
-           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-           "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN, checks,
-           lambda: fa_ops.flash_attention(q, k, v, causal=False),
-           lambda: plain_attn(q, k, v), lambda: sdpa(q, k, v),
+    fa = fa_ops.flash_attention
+
+    def attn_check(q, k, v, route, **kw):
+        """One call against the plain version, on the route named."""
+        kw.setdefault("causal", False)
+        n0 = (fa.launches_short, fa.launches_tensor_core,
+              fa.launches_cuda_core)
+        out = fa(q, k, v, **kw)
+        moved = (fa.launches_short - n0[0], fa.launches_tensor_core - n0[1],
+                 fa.launches_cuda_core - n0[2])
+        want = {"short": (1, 0, 0), "tensor_core": (0, 1, 0),
+                "cuda_core": (0, 0, 1)}[route]
+        check(moved == want, f"flash_attention {tuple(q.shape)} "
+              f"{q.dtype} {kw}: routes {moved}, want {route}")
+        ref = plain_attn(q, k, v, **kw)
+        err, rel = max_err(out, ref), row_rel_err(out, ref)
+        if q.dtype == torch.float32:
+            check(err <= TOL_ATTN, f"flash_attention {tuple(q.shape)} {kw}: "
+                  f"max abs error {err:.3g}")
+        else:
+            check(err <= TOL_ATTN_BF16 and rel <= TOL_ATTN_BF16_ROW,
+                  f"flash_attention {tuple(q.shape)} bf16 {kw}: max abs "
+                  f"error {err:.3g}, row-relative {rel:.3g}")
+        return dict(shape=list(q.shape) + [k.shape[2]], dtype=str(q.dtype)[6:],
+                    **kw, max_abs_err=err, max_row_rel_err=rel)
+
+    # the short kernel: the DiT's calls (QKV views, hd 36 and the default
+    # 32), then every mode at S = 1, 17 and 32, head dims 20, 36 and 64,
+    # GQA 4/2 and MQA 4/1, fp32 and bf16, and views 4 bytes off 16-byte
+    # alignment (read one element at a time, as bf16 at hd 20 is); the
+    # cap's knee with q x 10 (v at half scale: near one-hot rows in bf16)
+    short_checks = [attn_check(*qkv_views(256, 17, 4, hd), "short")
+                    for hd in (36, 32)]
+    long_qkv = qkv_views(4, 3137, 4, 32)        # the CUDA-core check's
+    q, k, v = qkv_views(256, 17, 4, 36)         # the timed call
+    for dt in (torch.float32, torch.bfloat16):
+        for S, hd, hkv, off in ((1, 36, 4, 0), (17, 36, 2, 0),
+                                (32, 64, 1, 0), (17, 20, 4, 0),
+                                (17, 36, 4, 2)):
+            qq, kk, vv = (randn16(8, S, h, hd + off)[..., off:]
+                          for h in (4, hkv, hkv))
+            for kw in (dict(causal=False), dict(causal=True),
+                       dict(causal=True, window=5),
+                       dict(causal=False, softcap=50.0)):
+                sharp = 10.0 if kw.get("softcap") else 1.0
+                short_checks.append(attn_check(
+                    (qq * sharp).to(dt), kk.to(dt),
+                    (vv * (0.5 if sharp > 1 else 1.0)).to(dt), "short",
+                    **kw))
+    fp32_short = [c for c in short_checks if c["dtype"] == "float32"]
+    bf16_short = [c for c in short_checks if c["dtype"] == "bfloat16"]
+    check(torch.equal(fa(q, k, v, causal=False), fa(q, k, v, causal=False)),
+          "flash_attention_short: two calls differ")
+    check(fa_kernel.vector_loads(q), "the DiT's QKV views are not read 16 "
+          "bytes at a time")
+    hb, nkv, smem = fa_kernel.short_geometry(4, 4, 17, 17, 36)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = 256 * -(-4 // hb)
+    cuda_core_same_call = dict(  # the kernel the DiT's call took before
+        ms=cuda_ms(lambda: fa_kernel.flash_attention_bshd(
+            q, k, v, causal=False, window=0, softcap=0.0)),
+        device_ms=graph_ms(lambda: fa_kernel.flash_attention_bshd(
+            q, k, v, causal=False, window=0, softcap=0.0)),
+        max_abs_err=max_err(fa_kernel.flash_attention_bshd(
+            q, k, v, causal=False, window=0, softcap=0.0), plain_attn(q, k, v)))
+    # what a call costs on the host, piece by piece: the whole wrapper, the
+    # binding alone, the old binding alone, and the old binding's parts (a
+    # device context, its 12-stride list, its 31-argument ctypes call,
+    # timed on arguments the library rejects before launching)
+    ptrs = [t.data_ptr() for t in (q, k, v, q)]
+    rejected = [0] * 26                       # hd 0: returns at once
+    old_fn, new_lib = fa_kernel._fn(), fa_kernel._short_lib()
+    bad_geo = fa_kernel._SHORT_ARGS.pack(*[0] * 25)
+
+    def ctx():
+        with torch.cuda.device(q.device):
+            pass
+
+    binding = dict(
+        wrapper=host_us(lambda: fa(q, k, v, causal=False)),
+        short_binding=host_us(lambda: fa_kernel.flash_attention_short_bshd(
+            q, k, v, causal=False, window=0, softcap=0.0)),
+        cuda_core_binding=host_us(lambda: fa_kernel.flash_attention_bshd(
+            q, k, v, causal=False, window=0, softcap=0.0)),
+        device_context=host_us(ctx),
+        stride_list=host_us(lambda: [t.stride(i) for t in (q, k, v, q)
+                                     for i in range(3)]),
+        ctypes_31_args=host_us(lambda: old_fn(*ptrs, *rejected[:9], 0.0,
+                                              *rejected[9:21], 0.0, 0)),
+        ctypes_packed=host_us(lambda: new_lib.flash_attention_short_fwd(
+            *ptrs, bad_geo, 0.0, 0.0, 0)),
+        pack_geometry=host_us(lambda: fa_kernel._short_args(
+            q, k, v, ptrs, False, 0)))
+    say(f"[2] flash attention bindings, host us per call ({smi}): "
+        f"{json.dumps(binding)}; the CUDA-core kernel on the same call: "
+        f"{json.dumps(cuda_core_same_call)}")
+    record("flash_attention_short", "cuda",
+           "src/repro_torch/kernels/flash_attention/csrc/"
+           "flash_attention_short.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN,
+           fp32_short,
+           lambda: fa(q, k, v, causal=False), lambda: plain_attn(q, k, v),
+           lambda: sdpa(q, k, v),
            4 * 4 * 256 * 17 * 144, 4 * 256 * 4 * 17 * 17 * 36,
-           [256, 17, 4, 36])
-    say(f"[2] flash_attention at S=3137: {json.dumps(long_ms)}")
+           [256, 17, 4, 36],
+           mode="non-causal fp32, q/k/v views of the DiT's QKV buffer",
+           library_call="scaled_dot_product_attention",
+           launch_floor_ms=graph_ms(
+               lambda: fa_kernel.short_empty_launch(q, k, v)),
+           cuda_core_kernel_same_call=cuda_core_same_call,
+           host_us_breakdown=binding, bf16_checks=bf16_short,
+           max_bf16_abs_err=max(c["max_abs_err"] for c in bf16_short),
+           max_bf16_row_rel_err=max(c["max_row_rel_err"] for c in bf16_short),
+           memory_only_ms=graph_ms(
+               lambda: fa_kernel.short_memory_only_launch(q, k, v)),
+           geometry=dict(heads_per_block=hb, kv_heads_per_block=nkv,
+                         warps_per_block=hb, shared_bytes=smem, blocks=blocks,
+                         sms=sm_count,
+                         resident_blocks_per_sm=fa_kernel.short_occupancy(
+                             q, k, v),
+                         warps_per_sm_at_most=hb * -(-blocks // sm_count)))
+
+    # the CUDA-core kernel at a length past the short kernel's: a DiT over
+    # 56 x 56 patches and the conditioning token; its row of the kernels
+    # line is taken in 8a and 8c, where the LM in fp32 runs it
+    B, S, H, hd = 4, 3137, 4, 32
+    q, k, v = long_qkv
+    cuda_core_checks = [attn_check(q, k, v, "cuda_core")]
+    long_ms = dict(
+        shape=[B, S, H, hd],
+        ms=cuda_ms(lambda: fa(q, k, v, causal=False), 5),
+        device_ms=graph_ms(lambda: fa(q, k, v, causal=False), 5),
+        plain_ms=cuda_ms(lambda: plain_attn(q, k, v), 5),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v), 5),
+        library_device_ms=graph_ms(lambda: sdpa(q, k, v), 5),
+        bound_ms=bound(4 * 4 * B * S * H * hd, 4 * B * H * S * S * hd)[0])
+    say(f"[2] flash_attention at S=3137 (CUDA-core kernel): "
+        f"{json.dumps(long_ms)}")
+    del q, k, v, long_qkv
 
     # -- 3. the DiT at full width --------------------------------------------
     dc = DiffusionConfig(d_model=144, num_layers=4, num_heads=4, patch=4,
@@ -534,9 +754,10 @@ def main() -> int:
         dit_ms = cuda_ms(lambda: model(xt, tt, yy), 20)
         dit_plain_ms = cuda_ms(lambda: plain(xt, tt, yy), 20)
         dit_dev_ms = graph_ms(lambda: model(xt, tt, yy), 5)
-    say(f"[3] DiT call at B={B}: kernel path {dit_ms:.3f} ms per call "
-        f"({dit_dev_ms:.3f} ms on the device), plain path "
-        f"{dit_plain_ms:.3f} ms ({smi})")
+        dit_host_ms = host_us(lambda: model(xt, tt, yy), 100) * 1e-3
+    say(f"[3] DiT call at B={B}: kernel path {dit_ms:.3f} ms per call, "
+        f"{dit_host_ms:.3f} ms of host time and {dit_dev_ms:.3f} ms on the "
+        f"device; plain path {dit_plain_ms:.3f} ms per call ({smi})")
 
     # -- 3b. the classifier on the card --------------------------------------
     # ResNet-18 at a mixed wave's width: logits and the guidance gradient
@@ -639,6 +860,9 @@ def main() -> int:
     for rnd in (1, 2):
         for fn in fns.values():
             fn.launches = 0
+        fa_ops.flash_attention.launches_short = 0
+        fa_ops.flash_attention.launches_cuda_core = 0
+        fa_ops.flash_attention.launches_tensor_core = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         wave_walls.clear()
@@ -649,9 +873,15 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in fns.items()}
+        routes = {r: getattr(fa_ops.flash_attention, f"launches_{r}")
+                  for r in ("short", "tensor_core", "cuda_core")}
         peak = torch.cuda.max_memory_allocated()
         check(launches == want, f"round {rnd}: launches {launches} != "
               f"expected {want}")
+        check(routes == {"short": want["flash_attention"], "tensor_core": 0,
+                         "cuda_core": 0},
+              f"round {rnd}: attention routes {routes}, want all "
+              f"{want['flash_attention']} on the short kernel")
         check(n_rows == 1800, f"{n_rows} D_syn rows, expected 1800")
         check(len(wave_walls) == n_waves == 15, f"{len(wave_walls)} waves")
         check(tuple(images.shape) == (n_rows, 16, 16, 3),
@@ -665,14 +895,15 @@ def main() -> int:
                            wave_walls_s=list(wave_walls)))
         if rnd == 1:
             first_images = images
-            for name in ("cfg_update", "adaln_norm", "flash_attention"):
+            for name in ("cfg_update", "adaln_norm"):
                 kernels[name]["launches"] = launches[name]
+            kernels["flash_attention_short"]["launches"] = routes["short"]
         else:
             check(torch.equal(images, first_images),
                   f"round {rnd}: D_syn differs from round 1's, same key")
             say(f"[4] D_syn: {n_rows} images {tuple(images.shape)} finite in "
                 f"[-1, 1]; encodings {t_enc:.3f} s; launches {launches} == "
-                f"expected")
+                f"expected; attention routes {routes}")
         say(f"[4] synthesis round {rnd}: {n_rows / wall:.1f} images/s, wall "
             f"{wall:.3f} s, peak memory {peak / 2**20:.1f} MiB, {wave_steps} "
             f"wave-steps ({smi})")
@@ -715,7 +946,8 @@ def main() -> int:
         "rows": wave, "steps": num_steps, **trace,
         "untraced_wall_s": wave_wall, "device_idle_share_of_untraced_wall":
         1 - trace["device_busy_s"] / wave_wall,
-        "dit_call_ms": dit_ms, "dit_device_ms": dit_dev_ms, "card": smi}}))
+        "dit_call_ms": dit_ms, "dit_host_ms": dit_host_ms,
+        "dit_device_ms": dit_dev_ms, "card": smi}}))
 
     # -- 6. ragged synthesis: mixed (guidance, steps) ------------------------
     # the reference benchmark's mixed workload (benchmarks/
@@ -1258,7 +1490,53 @@ def main() -> int:
     say(json.dumps({"flash_attention_lm_global_layer": {
         "shape": [Bw, Sw, hq, hkv, hd], "mode": "causal, softcap 50, GQA 8/4, "
         "bf16, tensor-core kernel", **attn_global, "card": smi}}))
-    del flex, bhsd, qa, ka, va
+    del bhsd, qa, ka, va
+
+    # the CUDA-core kernel at 8c's layer: one 4608-token request of gemma2
+    # in fp32, local mode (window 4096, softcap 50, GQA 8/4); its launches
+    # are counted in 8c.  The library column is flex_attention compiled for
+    # fp32, its device time from a profiler trace
+    q32, k32, v32 = (randn16(1, Sw, h, hd) for h in (hq, hkv, hkv))
+    if flex:
+        bm_local = create_block_mask(local_mask, None, None, Sw, Sw,
+                                     device=dev)
+        bhsd32 = [t.transpose(1, 2) for t in (q32, k32, v32)]
+
+        def flex32():
+            return flex_c(*bhsd32, score_mod=score_mod, block_mask=bm_local,
+                          enable_gqa=True)
+        t0 = time.perf_counter()
+        flex32_err = max_err(flex32().transpose(1, 2),
+                             plain_lm_attn(q32, k32, v32, **kw_local))
+        flex32_compile_s = time.perf_counter() - t0
+    n_cc = fa.launches_cuda_core
+    out32 = fa(q32, k32, v32, **kw_local)
+    check(fa.launches_cuda_core == n_cc + 1, "8c's fp32 layer did not take "
+          "the CUDA-core kernel")
+    err32 = max_err(out32, plain_lm_attn(q32, k32, v32, **kw_local))
+    del out32
+    record("flash_attention", "cuda",
+           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN,
+           cuda_core_checks + attn_checks["float32"] + [dict(
+               mode="gemma2_local_fp32", shape=[1, Sw, hq, hkv, hd],
+               max_abs_err=err32)],
+           lambda: fa(q32, k32, v32, **kw_local),
+           lambda: plain_lm_attn(q32, k32, v32, **kw_local),
+           flex32 if flex else None,
+           4 * (2 * q32.numel() + k32.numel() + v32.numel()),
+           4 * hd * pairs["local"] // Bw, [1, Sw, hq, hkv, hd], iters=3,
+           phase=8,
+           mode="causal, window 4096, softcap 50, GQA 8/4, fp32 (gemma2 "
+                "local layer of a one-request fp32 prefill, 8c), CUDA-core "
+                "kernel",
+           library_call=("flex_attention, compiled for fp32, score_mod "
+                         "softcap, BlockMask causal + window, enable_gqa"
+                         if flex else "none (no flex_attention in this "
+                         "PyTorch)"),
+           library_max_abs_err=flex32_err if flex else None,
+           library_first_call_s=flex32_compile_s if flex else None)
+    del flex, q32, k32, v32
 
     # rmsnorm at the LM's norm shapes: wave A's 4 x 4608 rows of d 2304,
     # and a small ragged one
@@ -1424,6 +1702,11 @@ def main() -> int:
         f"{trace_pre['flash_attention_device_s']:.4f} s, "
         f"{100 * trace_pre['flash_attention_share_of_busy']:.1f}% of it "
         f"({smi})")
+    say(f"[8] traced wave-A decode step: device busy "
+        f"{1e3 * trace_dec['device_busy_s']:.2f} ms over "
+        f"{trace_dec['kernels']} kernels, untraced step "
+        f"{1e3 * trace_dec['untraced_step_s']:.2f} ms; top device time (us) "
+        f"{trace_dec['top_device_us'][:5]} ({smi})")
     say(json.dumps({"lm_serving": {
         "model": "gemma2-2b", "params": n_params, "dtype": "bfloat16",
         "init_s": t_init, "rounds": serve_rounds,
@@ -1443,11 +1726,22 @@ def main() -> int:
     last, gen = {}, {}
     for use_kernels in (True, False):
         p32 = Parallel(use_kernels=use_kernels, prefill_last_only=True)
+        fa.launches = fa.launches_short = fa.launches_tensor_core = 0
+        fa.launches_cuda_core = 0
         with torch.inference_mode():
             last[use_kernels] = lm32(toks1, p32, mode="prefill")[0][0, -1]
         eng32 = ServeEngine(cfg32, lm32, max_len=4640, par=p32)
         rid = eng32.submit(prompt, max_new=8)
         gen[use_kernels] = eng32.run()[rid]
+        routes = (fa.launches_short, fa.launches_tensor_core,
+                  fa.launches_cuda_core)
+        want = 2 * cfg32.num_layers if use_kernels else 0
+        check(fa.launches == want and routes == (0, 0, want),
+              f"8c use_kernels={use_kernels}: {fa.launches} flash launches, "
+              f"routes (short, tensor core, CUDA core) {routes}, want {want} "
+              f"on the CUDA cores")
+        if use_kernels:
+            kernels["flash_attention"]["launches"] = fa.launches_cuda_core
     err_lm = max_err(last[True], last[False])
     check(bool(torch.isfinite(last[True]).all())
           and float(last[False].abs().max()) > 1e-1,

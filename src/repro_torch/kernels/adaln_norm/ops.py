@@ -1,4 +1,4 @@
-"""Public wrapper for the fused adaLN LayerNorm: the Triton kernel for CUDA
+"""Public wrapper for the fused adaLN LayerNorm: the CUDA kernel for CUDA
 tensors, the plain version (``ref.py``) for CPU tensors."""
 from __future__ import annotations
 
@@ -16,9 +16,16 @@ def adaln_norm(x, scale, shift, eps: float = 1e-6):
     if scale.shape != (B, d) or shift.shape != (B, d):
         raise ValueError(f"adaln_norm: scale/shift must be {(B, d)}, got "
                          f"{tuple(scale.shape)} and {tuple(shift.shape)}")
-    if x.stride(2) != 1 or scale.stride(1) != 1 or shift.stride(1) != 1:
+    if x.dtype not in K.DTYPES:
+        raise NotImplementedError(f"adaln_norm on CUDA: {x.dtype}; fp32 and "
+                                  "bf16 only")
+    if not 1 <= d <= K.MAX_D or B * N < 1:
+        raise ValueError(f"adaln_norm: unsupported shape {tuple(x.shape)} "
+                         f"(d <= {K.MAX_D})")
+    sx = x.stride()
+    if sx[2] != 1 or scale.stride(1) != 1 or shift.stride(1) != 1:
         raise ValueError("adaln_norm: the kernel needs unit stride over d")
-    if max(x.stride(0) * B, B * N * d) >= 2 ** 31:
+    if max(sx[0] * B, B * N * d) >= 2 ** 31:
         raise ValueError("adaln_norm: offsets beyond 2**31 elements")
     out = K.adaln_norm_3d(x, scale, shift, eps)
     adaln_norm.launches += 1

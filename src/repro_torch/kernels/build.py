@@ -13,6 +13,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -48,6 +50,18 @@ def nvcc_library(src: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
+def compile_all(sources) -> dict:
+    """Compile every source at once, one ``nvcc`` each, and return the
+    seconds each took (near 0 for one already built)."""
+    def one(src):
+        t = time.perf_counter()
+        nvcc_library(src)
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(zip(sources, pool.map(one, sources)))
+
+
 def build_log(src: Path) -> str:
     """The compiler's output from the build of ``src``'s current content."""
     return _library_path(src).with_suffix(".log").read_text()
@@ -62,15 +76,28 @@ def import_triton():
     return triton, tl
 
 
+def whole_chunks(width: int, strides, ptr: int, size: int) -> bool:
+    """Whether rows of ``width`` elements of ``size`` bytes, at ``strides``
+    (the outer strides, in elements) from a base pointer ``ptr``, can be
+    read 16 bytes at a time: the width, every stride and the pointer whole
+    16-byte chunks."""
+    n = 16 // size
+    return width % n == 0 and ptr % 16 == 0 and not any(s % n
+                                                         for s in strides)
+
+
 def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
     """Raise on what the CUDA kernels do not take: tensors off the card,
-    mixed devices or dtypes, or a graph that would need a backward kernel."""
-    dev, dt = tensors[0].device, tensors[0].dtype
+    mixed devices or dtypes, or a graph that would need a backward kernel.
+    (Device indices, not ``torch.device`` objects: this runs on every
+    launch, and the host's time per launch bounds the DiT's waves.)"""
+    dev, dt = tensors[0].get_device(), tensors[0].dtype
+    grad = torch.is_grad_enabled()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if dev < 0 or t.get_device() != dev:
             raise ValueError(f"{name}: every tensor must be on one CUDA device")
         if t.dtype != dt:
             raise ValueError(f"{name}: mixed dtypes {dt} and {t.dtype}")
-        if torch.is_grad_enabled() and t.requires_grad:
+        if grad and t.requires_grad:
             raise NotImplementedError(f"{name}: the kernel has no backward; "
                                       "call it under torch.no_grad()")

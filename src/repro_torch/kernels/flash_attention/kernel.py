@@ -1,13 +1,16 @@
-"""ctypes bindings of the two CUDA flash-attention forward kernels (the
+"""ctypes bindings of the three CUDA flash-attention forward kernels (the
 design notes are in their sources):
 
+* ``csrc/flash_attention_short.cu``: fp32 and bf16 at Sq, Sk <= 32 and head
+  dim <= 64, one exact pass with every key on chip (``short_seq_route``):
+  the DiT's attention;
 * ``csrc/flash_attention_tc.cu``: bf16 on the tensor cores (wgmma, TMA, a
   warp-specialised pipeline), for head dims that are multiples of 16 and
   strides TMA can address (``tensor_core_route``);
 * ``csrc/flash_attention.cu``: fp32 and bf16 on the CUDA cores, any head
   dim up to 256 and any strides with a unit stride over hd.
 
-Both replace ``src/repro/kernels/flash_attention/kernel.py::
+All three replace ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_bhsd`` in every mode it has: causal, sliding window, logit
 softcap, GQA, and the non-causal mode of the DiT.  Each library is compiled
 by ``nvcc`` for sm_90a at first use into ``build/`` and called with plain
@@ -17,18 +20,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import nvcc_library
+from repro_torch.kernels.build import nvcc_library, whole_chunks
 
 SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
 TC_SOURCE = SOURCE.with_name("flash_attention_tc.cu")
+SHORT_SOURCE = SOURCE.with_name("flash_attention_short.cu")
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_BLOCK_Q, TC_BLOCK_K = 128, 64      # the tensor-core kernel's tiles
+# the short kernel: one query row per lane and every key on chip (S <= 32);
+# a lane's q row and accumulators in registers (hd <= 64); at most 8 warps
+# (one per query head) and 48 KB of shared memory a block
+SHORT_MAX_S, SHORT_MAX_HEAD_DIM = 32, 64
+SHORT_MAX_WARPS, SHORT_MAX_SMEM = 8, 48 * 1024
 
 
 def tensor_core_route(q, k, v) -> bool:
@@ -44,6 +54,47 @@ def tensor_core_route(q, k, v) -> bool:
             and all(t.stride(i) > 0 and t.stride(i) * 2 % 16 == 0
                     for t in (q, k, v) for i in range(3))
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def short_seq_route(q, k, v) -> bool:
+    """Whether a call goes to the short-sequence kernel: fp32 or bf16, Sq
+    and Sk at most 32, head dim at most 64, and a unit stride over hd.  A
+    plain function of dtype, shape and strides; any (batch, seq, head)
+    strides and pointers are taken, and ``vector_loads`` decides, per
+    tensor, whether it is read 16 bytes at a time."""
+    return (q.dtype in DTYPES and q.shape[1] <= SHORT_MAX_S
+            and k.shape[1] <= SHORT_MAX_S
+            and q.shape[3] <= SHORT_MAX_HEAD_DIM
+            and q.stride(3) == k.stride(3) == v.stride(3) == 1)
+
+
+def vector_loads(t) -> bool:
+    """Whether the short kernel reads the (B, S, H, hd) view ``t`` 16 bytes
+    at a time: hd and its (batch, seq, head) strides whole 16-byte chunks,
+    its base pointer 16-byte aligned.  Otherwise it reads one element at a
+    time."""
+    return whole_chunks(t.shape[3], t.stride()[:3], t.data_ptr(),
+                        t.element_size())
+
+
+@functools.lru_cache(maxsize=1024)
+def short_geometry(Hq: int, Hkv: int, Sq: int, Sk: int,
+                   hd: int) -> tuple[int, int, int]:
+    """The short kernel's launch: (query heads per block hb, kv heads a
+    block stages at most, shared bytes).  Block (x, b) takes batch element
+    b and query heads [x * hb, min((x + 1) * hb, Hq)), one warp each (lane
+    i: query row i), and stages the kv heads h // (Hq // Hkv) of those
+    heads; the grid is (ceil(Hq / hb), B).  hb is the most heads, up to 8,
+    whose q, k, v and score scratch fit in 48 KB; one head always fits."""
+    rep, hdp = Hq // Hkv, -(-hd // 4) * 4
+    hb = min(Hq, SHORT_MAX_WARPS)
+    while True:
+        nkv = max((h0 + min(hb, Hq - h0) - 1) // rep - h0 // rep + 1
+                  for h0 in range(0, Hq, hb))
+        smem = 4 * (hdp * (hb * Sq + 2 * nkv * Sk) + hb * Sk * 32)
+        if smem <= SHORT_MAX_SMEM or hb == 1:
+            return hb, nkv, smem
+        hb = -(-hb // 2)
 
 
 def work_list(Sq: int, Sk: int, causal: bool, window: int) -> np.ndarray:
@@ -144,3 +195,107 @@ def flash_attention_tc_bshd(q, k, v, *, causal: bool, window: int,
     if err != 0:
         raise RuntimeError(f"flash_attention_tc_fwd failed: CUDA error {err}")
     return o
+
+
+_SHORT_ARGS = struct.Struct("25q")
+
+
+@functools.cache
+def _short_lib():
+    lib = nvcc_library(SHORT_SOURCE)
+    lib.flash_attention_short_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_char_p, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_short_empty.argtypes = [ctypes.c_char_p,
+                                                ctypes.c_void_p]
+    lib.flash_attention_short_occupancy.argtypes = [ctypes.c_char_p]
+    lib.flash_attention_short_memory_only.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_char_p, ctypes.c_void_p])
+    for fn in (lib.flash_attention_short_fwd, lib.flash_attention_short_empty,
+               lib.flash_attention_short_occupancy,
+               lib.flash_attention_short_memory_only):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_short() -> None:
+    """Compile (or load) the short-sequence library without launching."""
+    _short_lib()
+
+
+@functools.cache
+def _scale(hd: int) -> float:
+    return hd ** -0.5
+
+
+def _short_args(q, k, v, ptrs, causal: bool, window: int) -> bytes:
+    """The packed geometry ``flash_attention_short_fwd`` reads (see its
+    source): shapes, mode, strides, the 16-byte read of each input, the
+    launch and the device."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    sq, sk, sv = q.stride(), k.stride(), v.stride()
+    size = q.element_size()
+    return _SHORT_ARGS.pack(
+        DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, hd, causal, window,
+        sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2],
+        whole_chunks(hd, sq[:3], ptrs[0], size),
+        whole_chunks(hd, sk[:3], ptrs[1], size),
+        whole_chunks(hd, sv[:3], ptrs[2], size),
+        *short_geometry(Hq, Hkv, Sq, Sk, hd), q.get_device())
+
+
+def flash_attention_short_bshd(q, k, v, *, causal: bool, window: int,
+                               softcap: float) -> torch.Tensor:
+    """``flash_attention_bshd`` on the short-sequence kernel, for the calls
+    ``short_seq_route`` accepts.  Returns a contiguous (B, Sq, Hq, hd) of
+    q's type.  The library sets the device itself, so no device context is
+    entered per call."""
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    err = _short_lib().flash_attention_short_fwd(
+        *ptrs, o.data_ptr(), _short_args(q, k, v, ptrs, causal, window),
+        softcap, _scale(q.shape[3]),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_short_fwd failed: CUDA error "
+                           f"{err}")
+    return o
+
+
+def short_empty_launch(q, k, v) -> None:
+    """Launch an empty kernel at the grid, block and shared memory that
+    ``flash_attention_short_bshd`` would launch for these inputs: the
+    launch floor of the call (not counted as a launch of the kernel)."""
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    err = _short_lib().flash_attention_short_empty(
+        _short_args(q, k, v, ptrs, False, 0),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_short_empty failed: CUDA error "
+                           f"{err}")
+
+
+def short_occupancy(q, k, v) -> int:
+    """How many blocks of ``flash_attention_short_bshd``'s launch for these
+    inputs fit on one SM at once (CUDA's occupancy calculator)."""
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    n = _short_lib().flash_attention_short_occupancy(
+        _short_args(q, k, v, ptrs, False, 0))
+    if n < 0:
+        raise RuntimeError("flash_attention_short_occupancy failed")
+    return n
+
+
+def short_memory_only_launch(q, k, v) -> None:
+    """Launch the short kernel for these inputs without its compute: q, k
+    and v staged and an output stored, at the same grid, block and shared
+    memory.  What the memory phases cost (not counted as a launch)."""
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    err = _short_lib().flash_attention_short_memory_only(
+        *ptrs, o.data_ptr(), _short_args(q, k, v, ptrs, False, 0),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_short_memory_only failed: CUDA "
+                           f"error {err}")

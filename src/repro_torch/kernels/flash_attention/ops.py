@@ -1,9 +1,13 @@
 """Public wrapper, (B, S, H, hd) layout: a CUDA kernel for CUDA tensors,
 the plain version (``ref.py``) for CPU tensors, in every mode (causal,
-sliding window, logit softcap, GQA, non-causal).  On the card, bf16 calls
-that ``kernel.tensor_core_route`` accepts go to the tensor-core kernel and
-every other call to the CUDA-core kernel; ``flash_attention.launches``
-counts both, ``launches_tensor_core`` and ``launches_cuda_core`` each."""
+sliding window, logit softcap, GQA, non-causal).  On the card a call goes
+to the first kernel whose route takes it: the short-sequence kernel
+(``kernel.short_seq_route``: Sq, Sk <= 32, hd <= 64, fp32 or bf16; the
+DiT's attention), the tensor-core kernel (``kernel.tensor_core_route``:
+bf16; gemma2's prefill), else the CUDA-core kernel.
+``flash_attention.launches`` counts every launch, and
+``launches_short``, ``launches_tensor_core`` and ``launches_cuda_core``
+each route's."""
 from __future__ import annotations
 
 from repro_torch.kernels.build import check_cuda_inputs
@@ -38,9 +42,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if window < 0 or softcap < 0:
         raise ValueError(f"flash_attention: window {window}, softcap "
                          f"{softcap}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the kernel needs unit stride over hd")
-    if K.tensor_core_route(q, k, v):
+    if K.short_seq_route(q, k, v):
+        out = K.flash_attention_short_bshd(q, k, v, causal=causal,
+                                           window=window, softcap=softcap)
+        flash_attention.launches_short += 1
+    elif K.tensor_core_route(q, k, v):
         out = K.flash_attention_tc_bshd(q, k, v, causal=causal,
                                         window=window, softcap=softcap)
         flash_attention.launches_tensor_core += 1
@@ -53,5 +61,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.launches_short = 0
 flash_attention.launches_tensor_core = 0
 flash_attention.launches_cuda_core = 0

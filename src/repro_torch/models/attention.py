@@ -10,7 +10,7 @@ kernel wrapper (``kernels/flash_attention``: the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors), the chunked online-softmax
 loop, or the plain materialised softmax (``_attend``), the reference the
 other two are held against.  Decode is always ``_attend`` over the whole
-cache, as in the reference.
+cache, as in the reference; on the card it reads a bf16 cache in place.
 """
 from __future__ import annotations
 
@@ -65,31 +65,69 @@ def _project_qkv(mod: Attention, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
+def _scores_f32(qs, k):
+    """q·kᵀ with fp32 output from bf16 operands, without an fp32 copy of k:
+    qs (B, Sq, Hkv, rep, hd), k (B, Sk, Hkv, hd) → (B, Hkv, rep, Sq, Sk).
+    One ``bmm(..., out_dtype=float32)`` per kv head reads that head of the
+    cache in place (a strided, transposed operand) into its slice of one
+    output; only q, a few rows, is copied."""
+    B, Sq, Hkv, rep, hd = qs.shape
+    qh = qs.permute(2, 0, 3, 1, 4).reshape(Hkv, B, rep * Sq, hd)
+    out = torch.empty((Hkv, B, rep * Sq, k.shape[1]), dtype=torch.float32,
+                      device=qs.device)
+    for h in range(Hkv):
+        torch.bmm(qh[h], k[:, :, h].transpose(1, 2), out_dtype=torch.float32,
+                  out=out[h])
+    return out.view(Hkv, B, rep, Sq, -1).transpose(0, 1)
+
+
+def _mix_f32(p, v):
+    """P·V with fp32 output from bf16 operands, without an fp32 copy of v:
+    p (B, Hkv, rep, Sq, Sk), v (B, Sk, Hkv, hd) → (B, Sq, Hkv, rep, hd)."""
+    B, Hkv, rep, Sq, Sk = p.shape
+    out = torch.empty((Hkv, B, rep * Sq, v.shape[3]), dtype=torch.float32,
+                      device=p.device)
+    for h in range(Hkv):
+        torch.bmm(p[:, h].reshape(B, rep * Sq, Sk), v[:, :, h],
+                  out_dtype=torch.float32, out=out[h])
+    return out.view(Hkv, B, rep, Sq, -1).permute(1, 3, 0, 2, 4)
+
+
 def _attend(q, k, v, mask, cfg: ModelConfig, window: int):
     """Reference attention.  q: (B,Sq,Hq,hd); k,v: (B,Sk,Hkv,hd).
 
     ``mask``: (B, Sq, Sk) or (Sq, Sk) boolean, True = attend.
 
     q is scaled in its storage dtype, as in the reference; the contractions
-    run on fp32 copies (a bf16 product is exact in fp32, so this is the
-    reference's fp32 accumulation), and the probabilities are cast to v's
-    dtype before P·V.
+    accumulate in fp32 (a bf16 product is exact in fp32), and the
+    probabilities are cast to v's dtype before P·V.  On the card, bf16
+    operands are contracted as they are stored, with fp32 output, as the
+    reference's ``preferred_element_type=float32`` does: decode reads the
+    whole cache every step, and an fp32 copy of it would cost more than the
+    products.  On the CPU (no ``bmm`` with an fp32 output for bf16) the
+    contractions run on fp32 copies, which give the same products.
     """
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
     scale = hd ** -0.5
     qs = (q * scale).reshape(B, Sq, Hkv, rep, hd)
-    logits = torch.einsum("bqhrd,bkhd->bhrqk", qs.float(), k.float())
+    in_place = q.device.type == "cuda" and k.dtype != torch.float32
+    if in_place:
+        logits = _scores_f32(qs, k)
+    else:
+        logits = torch.einsum("bqhrd,bkhd->bhrqk", qs.float(), k.float())
     if cfg.attn_softcap:
         logits = _softcap(logits, cfg.attn_softcap)
     if mask is not None:
         if mask.ndim == 2:
             mask = mask[None]
         logits = logits.masked_fill(~mask[:, None, None], NEG)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(v.dtype).float(),
-                       v.float())
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    if in_place:
+        out = _mix_f32(probs, v)
+    else:
+        out = torch.einsum("bhrqk,bkhd->bqhrd", probs.float(), v.float())
     return out.to(v.dtype).reshape(B, Sq, Hq * hd)
 
 

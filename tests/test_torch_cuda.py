@@ -25,10 +25,13 @@ from repro_torch.kernels.adaln_norm import ops as an_ops
 from repro_torch.kernels.adaln_norm import ref as an_ref
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
+from repro_torch.kernels.adaln_norm import kernel as an_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.kernels.rmsnorm import ref as rn_ref
+from repro_torch.models import attention as lm_attention
 from repro_torch.models.classifiers import classifier_logprob, init_classifier
 from repro_torch.models.moe import Parallel
 from repro_torch.models.transformer import LM
@@ -131,12 +134,49 @@ def test_cfg_update_mixed_kernel_is_bit_equal_to_plain(dev, B, Bs, off):
 
 
 @pytest.mark.parametrize("B,N,d", [(256, 17, 144), (256, 16, 144),
-                                   (256, 17, 128)])
+                                   (256, 17, 128), (64, 17, 145),
+                                   (3, 40, 2048)])
 def test_adaln_norm_kernel_matches_plain(dev, B, N, d):
     x, mod = _randn(dev, 1, (B, N + 1, d), (B, 6 * d))
     x, sc, sh = x[:, 1:], mod[:, d:2 * d], mod[:, :d]   # strided, as in the DiT
     assert _err(an_ops.adaln_norm(x, sc, sh), an_ref.adaln_norm(x, sc, sh)) \
         < 1e-5
+
+
+ADALN_SITES = {"block": (256, 17, 144, 0), "final_view": (256, 16, 144, 1),
+               "d128": (256, 17, 128, 0), "odd_d": (64, 17, 145, 0)}
+
+
+def _adaln_inputs(dev, site, dtype):
+    B, N, d, drop = ADALN_SITES[site]
+    x, mod = _randn(dev, 2, (B, N + drop, d), (B, 6 * d))
+    x, mod = x.to(dtype)[:, drop:], mod.to(dtype)
+    return x, mod[:, d:2 * d], mod[:, :d]
+
+
+@pytest.mark.parametrize("site", list(ADALN_SITES))
+def test_adaln_norm_kernel_in_bf16(dev, site):
+    """The DiT's block site, its final tok[:, 1:] view, d 128 and an odd d
+    (read one element at a time) in bf16: within one bf16 ulp (2^-7 of the
+    element) plus 1e-5 of the plain version in fp32 on the same bf16
+    inputs.  The kernel rounds its fp32 result once; where the shift
+    cancels the scaled term, the fp32 roundings of the two orders (the
+    kernel fuses the multiply-add) are what is left."""
+    x, sc, sh = _adaln_inputs(dev, site, torch.bfloat16)
+    assert an_kernel.vector_route(x) == (site != "odd_d")
+    before = an_ops.adaln_norm.launches
+    out = an_ops.adaln_norm(x, sc, sh)
+    assert an_ops.adaln_norm.launches == before + 1
+    assert out.dtype == x.dtype and out.shape == x.shape and out.is_contiguous()
+    ref = an_ref.adaln_norm(x.float(), sc.float(), sh.float())
+    assert bool(((out.float() - ref).abs()
+                 <= 2.0 ** -7 * ref.abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adaln_norm_kernel_is_bit_equal_to_itself(dev, dtype):
+    xs = _adaln_inputs(dev, "block", getattr(torch, dtype))
+    assert torch.equal(an_ops.adaln_norm(*xs), an_ops.adaln_norm(*xs))
 
 
 @pytest.mark.parametrize("B,S,H,hd", [(256, 17, 4, 36), (256, 17, 4, 32),
@@ -251,14 +291,18 @@ def test_attention_tensor_core_kernel_grid(dev, mode, S, Hkv, hd):
     one 64-key tile and one key either side of it, a ragged 100 and 129
     (one past the 128-row query tile) and gemma2's 4608; windows on (64)
     and off (65) a key-tile boundary and gemma2's 4096; GQA 8/8, 8/4 and
-    8/1; head dims 64, 128 and 256."""
+    8/1; head dims 64, 128 and 256.  Length 1 at head dim 64 is the
+    short-sequence kernel's call, within the same gates."""
     causal, window, softcap, q_scale = TC_MODES[mode]
     q, k, v = _tc_inputs(dev, 21, 1 if S > 1000 else 2, S, S, 8, Hkv, hd,
                          q_scale)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    before = fa_ops.flash_attention.launches_tensor_core
+    fa = fa_ops.flash_attention
+    before = (fa.launches_tensor_core, fa.launches_short)
     out = fa_ops.flash_attention(q, k, v, **kw)
-    assert fa_ops.flash_attention.launches_tensor_core == before + 1
+    short = S <= 32 and hd <= 64      # the short-sequence kernel's calls
+    assert (fa.launches_tensor_core, fa.launches_short) == (
+        before[0] + (not short), before[1] + short)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert _bf16_gates(out, _plain_attention(q, k, v, **kw))
 
@@ -316,6 +360,156 @@ def test_bf16_calls_the_tensor_cores_do_not_take_go_to_the_cuda_cores(
     out = fa_ops.flash_attention(q, k, v, **kw)
     assert fa_ops.flash_attention.launches_cuda_core == before + 1
     assert _bf16_gates(out, _plain_attention(q, k, v, **kw))
+
+
+def _short_check(q, k, v, **kw):
+    """One call on the short-sequence kernel against the plain version:
+    fp32 within 2e-5, bf16 within the bf16 gates."""
+    fa = fa_ops.flash_attention
+    before = (fa.launches_short, fa.launches_tensor_core, fa.launches_cuda_core)
+    out = fa(q, k, v, **kw)
+    assert (fa.launches_short, fa.launches_tensor_core,
+            fa.launches_cuda_core) == (before[0] + 1, before[1], before[2])
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert out.is_contiguous()
+    ref = _plain_attention(q, k, v, **kw)
+    if q.dtype == torch.float32:
+        assert _err(out, ref) <= 2e-5
+    else:
+        assert _bf16_gates(out, ref)
+
+
+@pytest.mark.parametrize("S", [1, 2, 16, 17, 31, 32])
+@pytest.mark.parametrize("hd", [20, 32, 36, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_short_attention_kernel_matches_plain(dev, S, hd, dtype):
+    """Non-causal attention over q, k, v as views of a (B, S, 3, H, hd) QKV
+    buffer, as the DiT calls it, at lengths up to the kernel's 32 and head
+    dims up to its 64 (20 and, in bf16, 36 are read one element at a
+    time)."""
+    (qkv,) = _randn(dev, 30, (6, S, 3, 4, hd))
+    qkv = qkv.to(getattr(torch, dtype))
+    _short_check(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=False)
+
+
+SHORT_MODES = {"noncausal": dict(causal=False),
+               "causal": dict(causal=True),
+               "window": dict(causal=True, window=5),
+               "softcap": dict(causal=False, softcap=50.0),
+               "all": dict(causal=True, window=9, softcap=50.0)}
+
+
+@pytest.mark.parametrize("mode", list(SHORT_MODES))
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (8, 1), (6, 3)])
+@pytest.mark.parametrize("S,hd", [(17, 36), (32, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_short_attention_kernel_modes_match_plain(dev, mode, Hq, Hkv, S, hd,
+                                                  dtype):
+    """Causal, window, softcap and GQA/MQA at the kernel's shapes; with the
+    cap, q x 10 drives the scores to the cap's knee (v at half scale: near
+    one-hot rows, see ``_tc_inputs``)."""
+    kw = SHORT_MODES[mode]
+    sharp = 10.0 if kw.get("softcap") else 1.0
+    q, k, v = _randn(dev, 31, (3, S, Hq, hd), (3, S, Hkv, hd),
+                     (3, S, Hkv, hd))
+    dt = getattr(torch, dtype)
+    _short_check((q * sharp).to(dt), k.to(dt),
+                 (v * (0.5 if sharp > 1 else 1.0)).to(dt), **kw)
+
+
+@pytest.mark.parametrize("layout", ["qkv_views", "contiguous", "bhsd",
+                                    "unaligned", "sq_ne_sk"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_short_attention_kernel_layouts(dev, layout, dtype):
+    """The DiT's QKV views, contiguous tensors, (B, H, S, hd) storage seen as
+    (B, S, H, hd), views two elements off 16-byte alignment (read one
+    element at a time) and fewer keys than queries."""
+    dt = getattr(torch, dtype)
+    Sk = 9 if layout == "sq_ne_sk" else 17
+    if layout == "qkv_views":
+        (qkv,) = _randn(dev, 32, (5, 17, 3, 4, 32))
+        q, k, v = qkv.to(dt).unbind(2)
+    elif layout == "bhsd":
+        q, k, v = (t.to(dt).transpose(1, 2) for t in _randn(
+            dev, 32, (5, 4, 17, 32), (5, 2, 17, 32), (5, 2, 17, 32)))
+    elif layout == "unaligned":
+        q, k, v = (t.to(dt)[..., 2:] for t in _randn(
+            dev, 32, (5, 17, 4, 38), (5, 17, 2, 38), (5, 17, 2, 38)))
+        assert not any(fa_kernel.vector_loads(t) for t in (q, k, v))
+    else:
+        q, k, v = (t.to(dt) for t in _randn(
+            dev, 32, (5, 17, 4, 32), (5, Sk, 2, 32), (5, Sk, 2, 32)))
+    _short_check(q, k, v, causal=False)
+
+
+def test_short_attention_kernel_is_bit_equal_to_itself(dev):
+    (qkv,) = _randn(dev, 33, (256, 17, 3, 4, 36))
+    q, k, v = qkv.unbind(2)
+    a = fa_ops.flash_attention(q, k, v, causal=False)
+    assert torch.equal(a, fa_ops.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("Sq,Sk,hd,dtype,route", [
+    (32, 32, 64, "float32", "short"), (33, 33, 64, "float32", "cuda_core"),
+    (17, 40, 36, "float32", "cuda_core"), (32, 32, 80, "float32", "cuda_core"),
+    (32, 32, 64, "bfloat16", "short"), (33, 33, 64, "bfloat16", "tensor_core"),
+    (32, 32, 80, "bfloat16", "tensor_core")])
+def test_attention_routes_by_length_and_head_dim(dev, Sq, Sk, hd, dtype,
+                                                 route):
+    """S 32 against 33 and hd 64 against 65+: the short kernel takes Sq, Sk
+    <= 32 and hd <= 64, and every other call goes where it went before it
+    (fp32 to the CUDA cores, bf16 at hd % 16 == 0 to the tensor cores);
+    the counters move with the route and the result holds either way."""
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(dt) for t in _randn(dev, 34, (2, Sq, 4, hd),
+                                        (2, Sk, 4, hd), (2, Sk, 4, hd)))
+    fa = fa_ops.flash_attention
+    names = ("short", "tensor_core", "cuda_core")
+    before = [getattr(fa, f"launches_{n}") for n in names]
+    out = fa(q, k, v, causal=False)
+    moved = [getattr(fa, f"launches_{n}") - b for n, b in zip(names, before)]
+    assert moved == [int(n == route) for n in names]
+    ref = _plain_attention(q, k, v, causal=False)
+    assert _err(out.float(), ref.float()) <= (2e-5 if dtype == "float32"
+                                              else 2e-2)
+
+
+def test_decode_contracts_the_bf16_cache_in_place(dev):
+    """Decode's contractions over a bf16 cache on the card (``bmm`` with an
+    fp32 output) against the same contractions on fp32 copies: the same
+    products (a bf16 product is exact in fp32) summed in another order, so
+    within 1e-5 of the largest value; the attention output within the bf16
+    gates.  And no fp32 copy of the cache is made: the call's peak memory
+    stays below a quarter of one."""
+    cfg = get_config("gemma2-2b")
+    B, S, Hq, Hkv, hd = 4, 4640, cfg.num_heads, cfg.num_kv_heads, 256
+    q, k, v = (t.bfloat16() for t in _randn(dev, 35, (B, 1, Hq, hd),
+                                            (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    qs = (q * hd ** -0.5).reshape(B, 1, Hkv, Hq // Hkv, hd)
+    logits = lm_attention._scores_f32(qs, k)
+    ref = torch.einsum("bqhrd,bkhd->bhrqk", qs.float(), k.float())
+    assert logits.dtype == torch.float32
+    assert _err(logits, ref) <= 1e-5 * float(ref.abs().max())
+    p = torch.softmax(ref, -1).bfloat16()
+    mixed = lm_attention._mix_f32(p, v)
+    ref = torch.einsum("bhrqk,bkhd->bqhrd", p.float(), v.float())
+    assert _err(mixed, ref) <= 1e-5 * float(ref.abs().max())
+    mask = (torch.arange(S, device=dev) <= 4000)[None, None].expand(B, 1, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = lm_attention._attend(q, k, v, mask, cfg, 0)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - start < k.numel() * 4 / 4
+    scale = hd ** -0.5
+    s32 = torch.einsum("bqhrd,bkhd->bhrqk",
+                       (q * scale).reshape(B, 1, Hkv, -1, hd).float(),
+                       k.float())
+    s32 = cfg.attn_softcap * torch.tanh(s32 / cfg.attn_softcap)
+    s32 = s32.masked_fill(~mask[:, None, None], lm_attention.NEG)
+    p32 = torch.softmax(s32, -1).bfloat16().float()
+    ref = torch.einsum("bhrqk,bkhd->bqhrd", p32, v.float()).bfloat16()
+    assert _bf16_gates(out.reshape(B, 1, Hq, hd), ref.reshape(B, 1, Hq, hd))
 
 
 @pytest.mark.parametrize("shape", [(18432, 2304), (5, 96), (3, 7, 256)])
