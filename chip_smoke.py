@@ -6,17 +6,20 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
-  1. card check, build of every kernel (nvcc for the four CUDA sources,
+  1. card check, build of every kernel (nvcc for the five CUDA sources,
      all started together; first launch for the Triton kernels), with the
-     build seconds and ptxas's report (the tensor-core flash kernel must
-     spill nothing);
+     build seconds and ptxas's report (neither the tensor-core flash kernel
+     nor any of the CUDA-core flash kernel's 14 instances may spill);
   2. each kernel against its plain PyTorch version at the main path's
      shapes and at edge shapes, with kernel (per call and on the device),
      plain and library times (per call and, where there is a library
      call, on the device), the card's lower bound for the same work, and
      for the DiT's two kernels the launch floor (an empty kernel at the
      same launch) and what their bindings cost on the host; the DiT's
-     attention also through the CUDA-core kernel it replaced;
+     attention also through the CUDA-core kernel it replaced; the
+     CUDA-core kernel at the DiT's 224-px length (4, 3137, 4, 32) beside
+     SDPA and its launch floor, at its tile edges in every mode, and its
+     instances (registers, shared bytes, blocks an SM);
   3. the DiT at the paper preset's full width (d_model 144, 4 layers,
      4 heads, patch 4, 512-d conditioning, 16 px, batch 256) on seeded
      weights perturbed 0.05·normal: kernel path against plain path, and
@@ -47,6 +50,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      counts checked against a plan computed here, merged against
      isolated-mode D_syn, ragged against compacted, a 4-step mixed wave on
      the kernel path against the plain DiT, and one traced mixed wave;
+     7b. the DiT at the paper's 224 px (S = 3137, the preset's width, 4
+     layers, batch 8): kernel path against plain path, every attention on
+     the CUDA-core kernel, the call's device time and attention's share;
   8. LM serving, gemma2-2b at full width and depth (26 layers, d 2304,
      8/4 heads of 256, vocab 256000) on seeded random weights:
      8a. flash attention's mode grid (causal, window, softcap, GQA with
@@ -185,6 +191,29 @@ def row_rel_err(out, ref) -> float:
     return float((d / ref.float().abs().amax(-1).clamp_min(1e-30)).max())
 
 
+def ptxas_instances(log: str, pattern: str) -> list:
+    """Each kernel in ptxas's report whose name matches ``pattern`` (two
+    groups: its type and its head-dim class): registers and spill bytes
+    (stores, loads)."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(pattern, m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(dict(dtype="float32" if name.group(1) == "f"
+                            else "bfloat16", hdp=int(name.group(2)),
+                            registers=int(m.group(1)), spill_bytes=spill))
+            name = None
+    return out
+
+
 def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks leave, per (batch, head)."""
     q = np.arange(Sq)
@@ -257,6 +286,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.models.classifiers import (classifier_logprob,
@@ -295,7 +325,7 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     # one nvcc per CUDA source, all started together
     sources = (fa_kernel.SOURCE, fa_kernel.TC_SOURCE, fa_kernel.SHORT_SOURCE,
-               an_kernel.SOURCE)
+               an_kernel.SOURCE, rn_kernel.SOURCE)
     t0 = time.perf_counter()
     nvcc_s = compile_all(sources)
     t_nvcc = time.perf_counter() - t0
@@ -303,9 +333,10 @@ def main() -> int:
     fa_kernel.build_tc()
     fa_kernel.build_short()
     an_kernel.build()
+    rn_kernel.build()
     for src in sources:
         log = build_log(src)
-        if src in (fa_kernel.SOURCE, fa_kernel.TC_SOURCE):
+        if src == fa_kernel.TC_SOURCE:
             for line in log.splitlines():
                 if any(w in line for w in ("registers", "spill", "Compiling",
                                            "arning", "Performance Loss")):
@@ -328,6 +359,11 @@ def main() -> int:
           f"flash_attention_tc spills: {tc_spills}")
     check("Performance Loss" not in tc_log, "ptxas serialised the wgmma "
           "instructions of flash_attention_tc")
+    cc_instances = ptxas_instances(build_log(fa_kernel.SOURCE),
+                                   r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+    check(len(cc_instances) == 2 * len(fa_kernel.CUDA_CORE_TILES)
+          and all(i["spill_bytes"] == (0, 0) for i in cc_instances),
+          f"flash_attention.cu instances or spills: {cc_instances}")
     t0 = time.perf_counter()
     small = randn(2, 4, 8)
     an_ops.adaln_norm(small, randn(2, 8), randn(2, 8))
@@ -340,11 +376,12 @@ def main() -> int:
     rn_ops.rmsnorm(small, randn(8))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    say(f"[1] build: nvcc {t_nvcc:.2f} s for all four sources together ("
+    say(f"[1] build: nvcc {t_nvcc:.2f} s for all five sources together ("
         + ", ".join(f"{src.name} {sec:.2f} s" for src, sec in nvcc_s.items())
-        + f"; flash_attention_tc 4 instances, 0 spill bytes), first "
-        f"launches of adaln_norm and the Triton cfg_update + "
-        f"cfg_update_rowwise + cfg_update_mixed + rmsnorm {t_triton:.2f} s")
+        + f"; flash_attention_tc 4 instances and flash_attention "
+        f"{len(cc_instances)}, 0 spill bytes), first launches of adaln_norm, "
+        f"rmsnorm and the Triton cfg_update + cfg_update_rowwise + "
+        f"cfg_update_mixed {t_triton:.2f} s")
 
     # -- 2. kernels against their plain versions -----------------------------
     kernels = {}
@@ -653,32 +690,26 @@ def main() -> int:
         max_abs_err=max_err(fa_kernel.flash_attention_bshd(
             q, k, v, causal=False, window=0, softcap=0.0), plain_attn(q, k, v)))
     # what a call costs on the host, piece by piece: the whole wrapper, the
-    # binding alone, the old binding alone, and the old binding's parts (a
-    # device context, its 12-stride list, its 31-argument ctypes call,
-    # timed on arguments the library rejects before launching)
+    # short and the CUDA-core bindings alone, and their parts (the packed
+    # geometry, the ctypes call timed on a geometry the library rejects
+    # before launching)
     ptrs = [t.data_ptr() for t in (q, k, v, q)]
-    rejected = [0] * 26                       # hd 0: returns at once
-    old_fn, new_lib = fa_kernel._fn(), fa_kernel._short_lib()
-    bad_geo = fa_kernel._SHORT_ARGS.pack(*[0] * 25)
-
-    def ctx():
-        with torch.cuda.device(q.device):
-            pass
-
+    cc_lib, short_lib = fa_kernel._lib(), fa_kernel._short_lib()
+    bad_short = fa_kernel._SHORT_ARGS.pack(*[0] * 25)
+    bad_cc = fa_kernel._CC_ARGS.pack(*[0] * 26)
     binding = dict(
         wrapper=host_us(lambda: fa(q, k, v, causal=False)),
         short_binding=host_us(lambda: fa_kernel.flash_attention_short_bshd(
             q, k, v, causal=False, window=0, softcap=0.0)),
         cuda_core_binding=host_us(lambda: fa_kernel.flash_attention_bshd(
             q, k, v, causal=False, window=0, softcap=0.0)),
-        device_context=host_us(ctx),
-        stride_list=host_us(lambda: [t.stride(i) for t in (q, k, v, q)
-                                     for i in range(3)]),
-        ctypes_31_args=host_us(lambda: old_fn(*ptrs, *rejected[:9], 0.0,
-                                              *rejected[9:21], 0.0, 0)),
-        ctypes_packed=host_us(lambda: new_lib.flash_attention_short_fwd(
-            *ptrs, bad_geo, 0.0, 0.0, 0)),
+        ctypes_packed=host_us(lambda: short_lib.flash_attention_short_fwd(
+            *ptrs, bad_short, 0.0, 0.0, 0)),
+        cuda_core_ctypes_packed=host_us(lambda: cc_lib.flash_attention_fwd(
+            *ptrs, bad_cc, 0.0, 0.0, 0)),
         pack_geometry=host_us(lambda: fa_kernel._short_args(
+            q, k, v, ptrs, False, 0)),
+        cuda_core_pack_geometry=host_us(lambda: fa_kernel._cuda_core_args(
             q, k, v, ptrs, False, 0)))
     say(f"[2] flash attention bindings, host us per call ({smi}): "
         f"{json.dumps(binding)}; the CUDA-core kernel on the same call: "
@@ -710,21 +741,75 @@ def main() -> int:
                          warps_per_sm_at_most=hb * -(-blocks // sm_count)))
 
     # the CUDA-core kernel at a length past the short kernel's: a DiT over
-    # 56 x 56 patches and the conditioning token; its row of the kernels
-    # line is taken in 8a and 8c, where the LM in fp32 runs it
+    # 56 x 56 patches and the conditioning token (224 px at patch 4), q, k, v
+    # views of its QKV buffer at head dim 32; then its tile edges (S 33,
+    # 63-65, 127-129) in every mode at each head-dim class, fp32, and bf16
+    # at head dims the tensor cores do not take (36, 40), drawn from a
+    # generator of their own; its instances with ptxas's registers and how
+    # many blocks fit an SM.  Its launches are counted in 7b's 224-px DiT
+    g17 = torch.Generator(dev).manual_seed(17)
+
+    def randn17(*shape):
+        return torch.randn(shape, generator=g17, device=dev)
+
     B, S, H, hd = 4, 3137, 4, 32
     q, k, v = long_qkv
     cuda_core_checks = [attn_check(q, k, v, "cuda_core")]
-    long_ms = dict(
-        shape=[B, S, H, hd],
-        ms=cuda_ms(lambda: fa(q, k, v, causal=False), 5),
-        device_ms=graph_ms(lambda: fa(q, k, v, causal=False), 5),
-        plain_ms=cuda_ms(lambda: plain_attn(q, k, v), 5),
-        library_ms=cuda_ms(lambda: sdpa(q, k, v), 5),
-        library_device_ms=graph_ms(lambda: sdpa(q, k, v), 5),
-        bound_ms=bound(4 * 4 * B * S * H * hd, 4 * B * H * S * S * hd)[0])
-    say(f"[2] flash_attention at S=3137 (CUDA-core kernel): "
-        f"{json.dumps(long_ms)}")
+    check(torch.equal(fa(q, k, v, causal=False), fa(q, k, v, causal=False)),
+          "flash_attention (CUDA cores): two calls differ")
+    # (causal, window, softcap, kv heads of 4, q scale)
+    cc_modes = ((False, 0, 0.0, 4, 1.0), (True, 0, 0.0, 4, 1.0),
+                (True, 40, 0.0, 4, 1.0), (True, 40, 50.0, 2, 10.0),
+                (False, 0, 50.0, 1, 10.0))
+    for dt, hds in ((torch.float32, (32, 36, 64, 80, 128, 256)),
+                    (torch.bfloat16, (36, 40))):
+        for S_ in (33, 63, 64, 65, 127, 128, 129):
+            for hd_ in hds:
+                for causal, window, cap, hkv, sharp in cc_modes:
+                    qq, kk, vv = (randn17(2, S_, h, hd_) for h in (4, hkv, hkv))
+                    cuda_core_checks.append(attn_check(
+                        (qq * sharp).to(dt), kk.to(dt),
+                        (vv * (0.5 if sharp > 1 else 1.0)).to(dt),
+                        "cuda_core", causal=causal, window=window,
+                        softcap=cap))
+    fp32_cc = [c for c in cuda_core_checks if c["dtype"] == "float32"]
+    bf16_cc = [c for c in cuda_core_checks if c["dtype"] == "bfloat16"]
+    say(f"[2] flash_attention.cu tile edges: {len(fp32_cc)} fp32 and "
+        f"{len(bf16_cc)} bf16 checks; largest errors "
+        + json.dumps(sorted(fp32_cc, key=lambda c: -c["max_abs_err"])[:3]))
+    dev_index = q.get_device()
+    cc_instances = [dict(i, shared_bytes=fa_kernel.cuda_core_smem(i["hdp"]),
+                         blocks_per_sm=fa_kernel.cuda_core_occupancy(
+                             getattr(torch, i["dtype"]), i["hdp"], dev_index),
+                         tiles=fa_kernel.CUDA_CORE_TILES[i["hdp"]])
+                    for i in cc_instances]
+    say(f"[2] flash_attention.cu instances (dtype, head-dim class: ptxas "
+        f"registers, spill bytes, shared bytes, blocks an SM, (BM, BN)): "
+        + "; ".join(f"{i['dtype']} {i['hdp']}: {i['registers']}, "
+                    f"{i['spill_bytes']}, {i['shared_bytes']}, "
+                    f"{i['blocks_per_sm']}, {i['tiles']}"
+                    for i in cc_instances))
+    geo = fa_kernel.cuda_core_geometry(B, H, H, S, hd)
+    record("flash_attention_s3137", "cuda",
+           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN,
+           fp32_cc,
+           lambda: fa(q, k, v, causal=False), lambda: plain_attn(q, k, v),
+           lambda: sdpa(q, k, v),
+           4 * 4 * B * S * H * hd, 4 * B * H * S * S * hd, [B, S, H, hd],
+           iters=20,
+           mode="non-causal fp32, q/k/v views of the QKV buffer of a DiT at "
+                "224 px (S = 56 * 56 + 1), CUDA-core kernel",
+           library_call="scaled_dot_product_attention",
+           launch_floor_ms=graph_ms(
+               lambda: fa_kernel.cuda_core_empty_launch(q, k, v)),
+           bf16_checks=bf16_cc,
+           max_bf16_abs_err=max(c["max_abs_err"] for c in bf16_cc),
+           max_bf16_row_rel_err=max(c["max_row_rel_err"] for c in bf16_cc),
+           geometry=dict(zip(("hdp", "BM", "BN", "heads_per_block",
+                              "positions_per_block", "position_tiles",
+                              "blocks", "shared_bytes"), geo)),
+           instances=cc_instances)
     del q, k, v, long_qkv
 
     # -- 3. the DiT at full width --------------------------------------------
@@ -1315,6 +1400,66 @@ def main() -> int:
                              1 - trace7["device_busy_s"] / wall7},
         "card": smi}}))
 
+    # -- 7b. the DiT at the paper's 224 px -----------------------------------
+    # the paper preset's width (d_model 144, 4 heads of 36, patch 4, 512-d
+    # conditioning) at image_size 224: S = 56 * 56 + 1 = 3137 tokens, past
+    # the short kernel's 32, so every attention takes the CUDA-core kernel;
+    # 4 layers, batch 8, seeded weights perturbed 0.05·normal.  Weights and
+    # inputs come from generators of their own (later phases draw what they
+    # drew before), and it runs after the synthesis rounds, whose rates it
+    # would otherwise precede with a traced call
+    g224 = torch.Generator(dev).manual_seed(224)
+    model224 = DiT(dc, 224, 3, generator=torch.Generator(dev).manual_seed(2),
+                   device=dev)
+    with torch.no_grad():
+        for p in model224.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g224, device=dev))
+    model224.eval()
+    plain224 = copy.deepcopy(model224)
+    plain224.plain = True
+    x224 = torch.randn((8, 224, 224, 3), generator=g224, device=dev)
+    y224 = torch.randn((8, 512), generator=g224, device=dev)
+    t224 = torch.randint(0, 1000, (8,), generator=g224, device=dev)
+    fa = fa_ops.flash_attention
+    with torch.inference_mode():
+        n0 = (fa.launches, fa.launches_short, fa.launches_tensor_core,
+              fa.launches_cuda_core)
+        out224 = model224(x224, t224, y224)
+        torch.cuda.synchronize()
+        moved224 = (fa.launches - n0[0], fa.launches_short - n0[1],
+                    fa.launches_tensor_core - n0[2],
+                    fa.launches_cuda_core - n0[3])
+        check(moved224 == (dc.num_layers, 0, 0, dc.num_layers),
+              f"224-px DiT: flash launches (all, short, tensor core, CUDA "
+              f"core) {moved224}, want {dc.num_layers} on the CUDA cores")
+        ref224 = plain224(x224, t224, y224)
+        err224 = max_err(out224, ref224)
+        check(bool(torch.isfinite(out224).all())
+              and tuple(out224.shape) == (8, 224, 224, 3)
+              and float(ref224.abs().max()) > 1e-3,
+              "224-px DiT: vacuous or non-finite output")
+        check(err224 <= TOL_DIT, f"224-px DiT kernel path vs plain "
+              f"{err224:.3g} > {TOL_DIT:g}")
+        dit224_ms = cuda_ms(lambda: model224(x224, t224, y224), 5)
+        dit224_dev_ms = graph_ms(lambda: model224(x224, t224, y224), 3)
+        dit224_plain_ms = cuda_ms(lambda: plain224(x224, t224, y224), 3)
+        trace224 = device_busy(lambda: model224(x224, t224, y224),
+                               BUILD_DIR / "dit224_trace.json")
+    kernels["flash_attention_s3137"]["launches"] = moved224[3]
+    say(json.dumps({"dit_224px": {
+        "image_size": 224, "tokens": 3137, "batch": 8, "d_model": dc.d_model,
+        "heads": dc.num_heads, "head_dim": dc.d_model // dc.num_heads,
+        "layers": dc.num_layers, "max_abs_err_vs_plain": err224,
+        "tol": TOL_DIT, "max_abs_ref": float(ref224.abs().max()),
+        "flash_launches_cuda_core": moved224[3], "ms_per_call": dit224_ms,
+        "device_ms": dit224_dev_ms, "plain_ms_per_call": dit224_plain_ms,
+        "traced_device_busy_ms": 1e3 * trace224["device_busy_s"],
+        "attention_device_ms": 1e3 * trace224["flash_attention_device_s"],
+        "attention_share_of_busy": trace224[
+            "flash_attention_share_of_busy"],
+        "top_device_us": trace224["top_device_us"][:5], "card": smi}}))
+    del model224, plain224, out224, ref224, x224
+
     # -- 8. LM serving: gemma2-2b ---------------------------------------------
     # 8a. flash attention's modes and rmsnorm against their plain versions.
     # The grid: causal; causal + window; causal + window + softcap 50; GQA
@@ -1518,7 +1663,7 @@ def main() -> int:
     record("flash_attention", "cuda",
            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN,
-           cuda_core_checks + attn_checks["float32"] + [dict(
+           fp32_cc + attn_checks["float32"] + [dict(
                mode="gemma2_local_fp32", shape=[1, Sw, hq, hkv, hd],
                max_abs_err=err32)],
            lambda: fa(q32, k32, v32, **kw_local),
@@ -1539,7 +1684,9 @@ def main() -> int:
     del flex, q32, k32, v32
 
     # rmsnorm at the LM's norm shapes: wave A's 4 x 4608 rows of d 2304,
-    # and a small ragged one
+    # and a small ragged one; then odd widths (one element at a time), one
+    # and several warps a row, strided rows and bf16 scales, drawn from
+    # phase 2's generator of its own
     rms_checks = []
     for shape in ((18432, 2304), (5, 96)):
         xr, sr = randn(*shape), 0.1 * randn(shape[1])
@@ -1550,16 +1697,38 @@ def main() -> int:
                   f"{err:.3g} > {tol:g}")
             rms_checks.append(dict(shape=list(shape), dtype=dtype, tol=tol,
                                    max_abs_err=err))
+    for d, cut in ((1, None), (100, None), (2303, None), (8192, None),
+                   (2304, (3, 2307)), (2304, (8, 2312))):
+        width = d if cut is None else 2320
+        xr, sr = randn17(37, width), 0.1 * randn17(d)
+        for dtype, tol in (("float32", TOL_RMS), ("bfloat16", TOL_RMS_BF16)):
+            xd = xr.to(getattr(torch, dtype))
+            xd = xd if cut is None else xd[:, cut[0]:cut[1]]
+            for sdt in ("float32", "bfloat16"):
+                sd = sr.to(getattr(torch, sdt))
+                err = max_err(rn_ops.rmsnorm(xd, sd), rn_ref.rmsnorm(xd, sd))
+                check(err <= tol, f"rmsnorm {tuple(xd.shape)} {dtype}, "
+                      f"{sdt} scale, strides {xd.stride()}: max abs error "
+                      f"{err:.3g} > {tol:g}")
+                rms_checks.append(dict(
+                    shape=list(xd.shape), stride=list(xd.stride()),
+                    dtype=dtype, scale_dtype=sdt, tol=tol, max_abs_err=err,
+                    vector_route=rn_kernel.vector_route(xd)))
     xr, sr = randn(18432, 2304).bfloat16(), 0.1 * randn(2304)
     w1 = (1.0 + sr).bfloat16()
-    record("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+    nv, warps_per_row = rn_kernel.geometry(2304, 2)
+    record("rmsnorm", "cuda",
+           "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
            "src/repro/kernels/rmsnorm/kernel.py:25", TOL_RMS_BF16,
            rms_checks, lambda: rn_ops.rmsnorm(xr, sr),
            lambda: rn_ref.rmsnorm(xr, sr),
            lambda: torch.nn.functional.rms_norm(xr, (2304,), w1, 1e-6),
            2 * 2 * xr.numel() + 4 * 2304, 4 * xr.numel(), [18432, 2304],
            peak=BF16_FLOPS, phase=8, dtype="bfloat16",
-           library_call="F.rms_norm, weight 1 + scale")
+           library_call="F.rms_norm, weight 1 + scale",
+           geometry=dict(chunks_per_lane=nv, warps_per_row=warps_per_row,
+                         blocks=rn_kernel.grid(xr, sr),
+                         vector_route=rn_kernel.vector_route(xr)))
     del xr
 
     # 8b. full-width serving in bf16: seeded random weights (the repository

@@ -7,8 +7,9 @@ design notes are in their sources):
 * ``csrc/flash_attention_tc.cu``: bf16 on the tensor cores (wgmma, TMA, a
   warp-specialised pipeline), for head dims that are multiples of 16 and
   strides TMA can address (``tensor_core_route``);
-* ``csrc/flash_attention.cu``: fp32 and bf16 on the CUDA cores, any head
-  dim up to 256 and any strides with a unit stride over hd.
+* ``csrc/flash_attention.cu``: fp32 and bf16 on the CUDA cores, register-
+  tiled like an SGEMM, any head dim up to 256 (``cuda_core_geometry``) and
+  any strides with a unit stride over hd: every other call.
 
 All three replace ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_bhsd`` in every mode it has: causal, sliding window, logit
@@ -126,38 +127,150 @@ def _work_on(device: torch.device, Sq: int, Sk: int, causal: bool,
 
 
 @functools.cache
-def _fn():
-    fn = nvcc_library(SOURCE).flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _scale(hd: int) -> float:
+    return hd ** -0.5
+
+
+# the CUDA-core kernel (256 threads a block): per head-dim class (hd rounded
+# up to the class, columns past hd zeros) the query rows BM and keys BN of
+# a tile (the source's Tiles)
+CUDA_CORE_TILES = {16: (128, 64), 32: (128, 64), 48: (128, 32),
+                   64: (128, 32), 96: (64, 64), 128: (64, 64), 256: (64, 32)}
+MAX_SMEM = 232448                 # what one block may use on an H100
+
+
+def cuda_core_smem(hdp: int) -> int:
+    """Shared bytes of a CUDA-core block of class ``hdp``: Q, two stages of
+    K and V (rows hdp + 4 floats apart), P transposed (rows BM + 4 apart),
+    and two per-row vectors."""
+    bm, bn = CUDA_CORE_TILES[hdp]
+    ld = hdp + 4
+    return 4 * (bm * ld + 4 * bn * ld + bn * (bm + 4) + 2 * bm)
+
+
+@functools.lru_cache(maxsize=1024)
+def cuda_core_geometry(B: int, Hq: int, Hkv: int, Sq: int,
+                       hd: int) -> tuple[int, ...]:
+    """The CUDA-core kernel's launch: (class hdp, BM, BN, heads a block G,
+    positions a block P, position tiles, blocks, shared bytes).  A block
+    takes G query heads of one kv head (G the largest power of two dividing
+    Hq / Hkv with 16 * G <= BM) at P = BM / G consecutive positions; the
+    grid is one-dimensional, see ``cuda_core_blocks``."""
+    hdp = next(c for c in CUDA_CORE_TILES if hd <= c)
+    bm, bn = CUDA_CORE_TILES[hdp]
+    rep, G = Hq // Hkv, 1
+    while rep % (2 * G) == 0 and 32 * G <= bm:
+        G *= 2
+    P = bm // G
+    n_pt = -(-Sq // P)
+    return (hdp, bm, bn, G, P, n_pt, n_pt * B * Hkv * (rep // G),
+            cuda_core_smem(hdp))
+
+
+def cuda_core_blocks(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, hd: int,
+                     causal: bool, window: int):
+    """Each block of the CUDA-core launch in launch order, as the kernel
+    computes it: (batch b, first query head h0, first position q0, first
+    key, end key).  Row r of the block is query head h0 + r // P at
+    position q0 + r % P (rows past Sq are not stored); its keys are the
+    whole BN-key tiles that some row of the block sees, [first, end) (empty
+    when no row sees a key).  Position tiles go heaviest first: last first
+    under a causal mask, else first first (a window alone leaves the first
+    positions the most keys)."""
+    _, _, bn, G, P, n_pt, blocks, _ = cuda_core_geometry(B, Hq, Hkv, Sq, hd)
+    rep = Hq // Hkv
+    ng = rep // G
+    nbh = B * Hkv * ng
+    for bid in range(blocks):
+        rank, bh = divmod(bid, nbh)
+        b, hk, gi = bh // (Hkv * ng), (bh // ng) % Hkv, bh % ng
+        q0 = (n_pt - 1 - rank if causal else rank) * P
+        pos_hi = min(q0 + P, Sq) - 1
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        hi = min(Sk, pos_hi + 1) if causal else Sk
+        kt0 = lo // bn
+        nt = -(-hi // bn) - kt0 if hi > lo else 0
+        yield b, hk * rep + gi * G, q0, kt0 * bn, (kt0 + nt) * bn
+
+
+_CC_ARGS = struct.Struct("26q")
+
+
+@functools.cache
+def _lib():
+    lib = nvcc_library(SOURCE)
+    lib.flash_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_char_p, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_empty.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    lib.flash_attention_occupancy.argtypes = [ctypes.c_int] * 3
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_empty,
+               lib.flash_attention_occupancy):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def build() -> None:
     """Compile (or load) the library without launching anything."""
-    _fn()
+    _lib()
+
+
+def _cuda_core_args(q, k, v, ptrs, causal: bool, window: int) -> bytes:
+    """The packed geometry ``flash_attention_fwd`` reads (see its source):
+    shapes, mode, strides, the 16-byte read of each input, the launch and
+    the device."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    sq, sk, sv = q.stride(), k.stride(), v.stride()
+    size = q.element_size()
+    hdp, _, _, G, _, _, blocks, smem = cuda_core_geometry(B, Hq, Hkv, Sq, hd)
+    return _CC_ARGS.pack(
+        DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, hd, causal, window,
+        sq[0], sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2],
+        whole_chunks(hd, sq[:3], ptrs[0], size),
+        whole_chunks(hd, sk[:3], ptrs[1], size),
+        whole_chunks(hd, sv[:3], ptrs[2], size),
+        hdp, G, blocks, smem, q.get_device())
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool, window: int,
                          softcap: float) -> torch.Tensor:
     """Attention of CUDA views q (B, Sq, Hq, hd), k/v (B, Sk, Hkv, hd), each
-    with unit stride over hd, fp32 or bf16, Hq a multiple of Hkv.  Returns
-    a contiguous (B, Sq, Hq, hd) of q's type."""
-    B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
-    strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
-    # the library's runtime launches on the current device: make it q's
-    with torch.cuda.device(q.device):
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, hd, int(causal),
-                    int(window), float(softcap), *strides, hd ** -0.5,
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    with unit stride over hd, fp32 or bf16, Hq a multiple of Hkv, on the
+    CUDA-core kernel.  Returns a contiguous (B, Sq, Hq, hd) of q's type.
+    The library sets the device itself, so no device context is entered
+    per call."""
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    err = _lib().flash_attention_fwd(
+        *ptrs, o.data_ptr(), _cuda_core_args(q, k, v, ptrs, causal, window),
+        softcap, _scale(q.shape[3]),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd failed: CUDA error {err}")
     return o
+
+
+def cuda_core_empty_launch(q, k, v) -> None:
+    """Launch an empty kernel at the grid, block and shared memory that
+    ``flash_attention_bshd`` would launch for these inputs: the launch
+    floor of the call (not counted as a launch of the kernel)."""
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    err = _lib().flash_attention_empty(
+        _cuda_core_args(q, k, v, ptrs, False, 0),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_empty failed: CUDA error {err}")
+
+
+def cuda_core_occupancy(dtype: torch.dtype, hdp: int, device: int) -> int:
+    """How many blocks of the CUDA-core instance (``dtype``, class ``hdp``)
+    fit on one SM of CUDA device ``device`` at once (CUDA's occupancy
+    calculator)."""
+    n = _lib().flash_attention_occupancy(DTYPES[dtype], hdp, device)
+    if n < 0:
+        raise RuntimeError("flash_attention_occupancy failed")
+    return n
 
 
 @functools.cache
@@ -221,11 +334,6 @@ def _short_lib():
 def build_short() -> None:
     """Compile (or load) the short-sequence library without launching."""
     _short_lib()
-
-
-@functools.cache
-def _scale(hd: int) -> float:
-    return hd ** -0.5
 
 
 def _short_args(q, k, v, ptrs, causal: bool, window: int) -> bytes:

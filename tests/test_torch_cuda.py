@@ -224,7 +224,7 @@ ATTN_MODES = {"causal": dict(causal=True),
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_modes_match_plain(dev, mode, Hq, Hkv, hd, dtype):
-    """The mode grid at a ragged S = 100 (32-row tiles leave 4), window 40:
+    """The mode grid at a ragged S = 100, window 40:
     fp32 within 2e-5 and bf16 within 2e-2 (one bf16 ulp of the output), the
     reference's own gates.  bf16 takes the tensor-core kernel, fp32 the
     CUDA-core one."""
@@ -474,6 +474,101 @@ def test_attention_routes_by_length_and_head_dim(dev, Sq, Sk, hd, dtype,
                                               else 2e-2)
 
 
+# (causal, window, softcap, query heads, kv heads, q scale) for the CUDA-core
+# kernel's grid; q x 10 puts the capped scores at the cap's knee
+CC_MODES = {"noncausal": (False, 0, 0.0, 4, 4, 1.0),
+            "causal": (True, 0, 0.0, 4, 4, 1.0),
+            "causal_window": (True, 40, 0.0, 4, 4, 1.0),
+            "gqa_window_cap": (True, 40, 50.0, 4, 2, 10.0),
+            "mqa_cap": (False, 0, 50.0, 4, 1, 10.0)}
+
+
+def _cuda_core_check(q, k, v, **kw):
+    """One call on the CUDA-core kernel against the plain version: fp32
+    within 2e-5, bf16 within the bf16 gates."""
+    fa = fa_ops.flash_attention
+    names = ("short", "tensor_core", "cuda_core")
+    before = [getattr(fa, f"launches_{n}") for n in names]
+    out = fa(q, k, v, **kw)
+    assert [getattr(fa, f"launches_{n}") - b
+            for n, b in zip(names, before)] == [0, 0, 1]
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert out.is_contiguous()
+    ref = _plain_attention(q, k, v, **kw)
+    if q.dtype == torch.float32:
+        assert _err(out, ref) <= 2e-5
+    else:
+        assert _bf16_gates(out, ref)
+
+
+@pytest.mark.parametrize("mode", list(CC_MODES))
+@pytest.mark.parametrize("S", [33, 63, 64, 65, 127, 128, 129, 3137])
+@pytest.mark.parametrize("hd,dtype", [
+    (32, "float32"), (36, "float32"), (64, "float32"), (80, "float32"),
+    (128, "float32"), (256, "float32"), (36, "bfloat16"), (40, "bfloat16"),
+    (200, "bfloat16")])
+def test_cuda_core_kernel_at_tile_edges(dev, mode, S, hd, dtype):
+    """The CUDA-core kernel at lengths one short of, on and one past its
+    query and key tiles (32 to 128 keys, 64 or 128 query rows) and at the
+    DiT's 3137, in every head-dim class the DiT and the LM reach, every
+    mode: fp32, and bf16 at head dims the tensor cores do not take."""
+    causal, window, softcap, Hq, Hkv, q_scale = CC_MODES[mode]
+    B = 1 if S > 1000 else 2
+    q, k, v = _randn(dev, 40, (B, S, Hq, hd), (B, S, Hkv, hd),
+                     (B, S, Hkv, hd))
+    dt = getattr(torch, dtype)
+    v = v * (0.5 if q_scale > 1 else 1.0)
+    _cuda_core_check((q * q_scale).to(dt), k.to(dt), v.to(dt),
+                     causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("layout", ["qkv_views", "bhsd", "unaligned",
+                                    "odd_hd", "sq_ne_sk", "sk_lt_sq"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_core_kernel_layouts(dev, layout, dtype):
+    """Strides and lengths past the contiguous case: the DiT's QKV views,
+    (B, H, S, hd) storage seen as (B, S, H, hd), views 8 bytes off 16-byte
+    alignment and a head dim of 37 (copied one element at a time), and
+    fewer or more keys than queries."""
+    dt = getattr(torch, dtype)
+    kw = dict(causal=False)
+    if layout == "qkv_views":
+        (qkv,) = _randn(dev, 41, (3, 200, 3, 4, 36))
+        q, k, v = qkv.to(dt).unbind(2)
+    elif layout == "bhsd":
+        q, k, v = (t.to(dt).transpose(1, 2) for t in _randn(
+            dev, 41, (2, 4, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64)))
+        kw = dict(causal=True, window=50)
+    elif layout in ("unaligned", "odd_hd"):
+        cut = slice(2, 66) if layout == "unaligned" else slice(0, 37)
+        q, k, v = (t.to(dt)[..., cut] for t in _randn(
+            dev, 41, (2, 150, 4, 68), (2, 150, 2, 68), (2, 150, 2, 68)))
+        kw = dict(causal=True, softcap=50.0)
+        assert not any(fa_kernel.vector_loads(t) for t in (q, k, v))
+    else:
+        Sk = 300 if layout == "sq_ne_sk" else 70
+        q, k, v = (t.to(dt) for t in _randn(
+            dev, 41, (2, 150, 4, 64), (2, Sk, 4, 64), (2, Sk, 4, 64)))
+    if dt == torch.bfloat16 and fa_kernel.tensor_core_route(q, k, v):
+        q, k, v = (t[..., :36] for t in (q, k, v))  # keep off the tensor cores
+    _cuda_core_check(q, k, v, **kw)
+
+
+def test_cuda_core_kernel_is_bit_equal_to_itself(dev):
+    """Two calls on the same inputs give the same bits, at the DiT's 224-px
+    shape and at 8c's layer (cut to 1024 tokens): row sums are added in a
+    fixed order, no atomics."""
+    (qkv,) = _randn(dev, 42, (2, 3137, 3, 4, 32))
+    q, k, v = qkv.unbind(2)
+    a = fa_ops.flash_attention(q, k, v, causal=False)
+    assert torch.equal(a, fa_ops.flash_attention(q, k, v, causal=False))
+    q, k, v = _randn(dev, 43, (1, 1024, 8, 256), (1, 1024, 4, 256),
+                     (1, 1024, 4, 256))
+    kw = dict(causal=True, window=512, softcap=50.0)
+    a = fa_ops.flash_attention(q, k, v, **kw)
+    assert torch.equal(a, fa_ops.flash_attention(q, k, v, **kw))
+
+
 def test_decode_contracts_the_bf16_cache_in_place(dev):
     """Decode's contractions over a bf16 cache on the card (``bmm`` with an
     fp32 output) against the same contractions on fp32 copies: the same
@@ -510,6 +605,39 @@ def test_decode_contracts_the_bf16_cache_in_place(dev):
     p32 = torch.softmax(s32, -1).bfloat16().float()
     ref = torch.einsum("bhrqk,bkhd->bqhrd", p32, v.float()).bfloat16()
     assert _bf16_gates(out.reshape(B, 1, Hq, hd), ref.reshape(B, 1, Hq, hd))
+
+
+@pytest.mark.parametrize("d", [1, 7, 100, 2303, 2304, 4100, 8192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_at_odd_widths_and_both_scale_types(dev, d, dtype,
+                                                           scale_dtype):
+    """Widths that are not whole 16-byte chunks (one element at a time),
+    one and several warps a row, fp32 and bf16 scales."""
+    x, s = _randn(dev, 44, (37, d), (d,))
+    x = x.to(getattr(torch, dtype))
+    s = (0.1 * s).to(getattr(torch, scale_dtype))
+    out = rn_ops.rmsnorm(x, s)
+    tol = 5e-2 if dtype == "bfloat16" else 1e-5
+    assert out.dtype == x.dtype
+    assert _err(out.float(), rn_ref.rmsnorm(x, s).float()) <= tol
+
+
+@pytest.mark.parametrize("view", ["padded_rows", "offset", "aligned_slice"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_on_strided_rows(dev, view, dtype):
+    """Rows further apart than d, with and without 16-byte alignment."""
+    (buf,) = _randn(dev, 45, (300, 2320))
+    buf = buf.to(getattr(torch, dtype))
+    x = {"padded_rows": buf[:, :2310], "offset": buf[:, 3:2307],
+         "aligned_slice": buf[:, 8:2312]}[view]
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+    assert rn_kernel.vector_route(x) == (view == "aligned_slice")
+    (s,) = _randn(dev, 46, (x.shape[1],))
+    out = rn_ops.rmsnorm(x, 0.1 * s)
+    tol = 5e-2 if dtype == "bfloat16" else 1e-5
+    assert out.is_contiguous()
+    assert _err(out.float(), rn_ref.rmsnorm(x, 0.1 * s).float()) <= tol
 
 
 @pytest.mark.parametrize("shape", [(18432, 2304), (5, 96), (3, 7, 256)])

@@ -99,6 +99,31 @@ def test_dit_matches_both_reference_paths(d, layers, heads, patch, B, null_y):
     assert np.array_equal(out, plain)       # on the CPU both are plain
 
 
+def test_dit_past_the_short_route_matches_the_reference():
+    """image_size 32 at patch 4: S = 65 tokens, past the short kernel's 32,
+    so on the card every attention of this DiT goes to the CUDA-core kernel.
+    Here the port's plain DiT against the reference's naive and fused
+    paths, three layers of 4 heads of 12, at the 2e-5 gate."""
+    dc = dict(d_model=48, num_layers=3, num_heads=4, patch=4)
+    jdc = JDiffusionConfig(**dc)
+    params = perturbed_params(jdc, 32, seed=5)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    t = rng.integers(0, 1000, 2).astype(np.int32)
+    y = rng.standard_normal((2, 512)).astype(np.float32)
+    args = (jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
+    naive = np.asarray(jdit.dit_apply(params, jdc, *args))
+    fused = np.asarray(jdit.dit_apply(params, jdc, *args, use_pallas=True))
+    assert np.max(np.abs(naive)) > 1e-3, "vacuous parity"
+    model = port_model(params, dc, 32)
+    assert model.pos.shape[0] + 1 == 65
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(t),
+                    torch.from_numpy(y)).numpy()
+    assert np.max(np.abs(out - naive)) < TOL
+    assert np.max(np.abs(out - fused)) < TOL
+
+
 def test_bf16_act_is_not_ported():
     model = tdit.DiT(DiffusionConfig(d_model=32, num_layers=1, num_heads=2,
                                      bf16_act=True), 16, 3, device="cpu")
