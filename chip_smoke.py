@@ -6,16 +6,22 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
-  1. card check, build of every kernel (nvcc for the five CUDA sources,
-     all started together; first launch for the Triton kernels), with the
+  1. card check, build of every kernel (nvcc for the six CUDA sources
+     and the empty kernel of the launch floors, all started together;
+     first launch for the Triton kernel), with the
      build seconds and ptxas's report (neither the tensor-core flash kernel
-     nor any of the CUDA-core flash kernel's 14 instances may spill);
+     nor any of the CUDA-core flash kernel's 14 instances nor cfg_fuse.cu
+     may spill);
   2. each kernel against its plain PyTorch version at the main path's
      shapes and at edge shapes, with kernel (per call and on the device),
      plain and library times (per call and, where there is a library
-     call, on the device), the card's lower bound for the same work, and
-     for the DiT's two kernels the launch floor (an empty kernel at the
-     same launch) and what their bindings cost on the host; the DiT's
+     call, on the device), the card's lower bound for the same work (bytes
+     and fp32 or bf16 operations; the keyed cfg rows also print an int32
+     estimate), and the launch floor (``build.empty_launch`` at the same
+     launch); the two cfg kernels in both
+     noise modes (z from memory, z drawn from threefry keys), bit-equal
+     to their plain versions; for the DiT's two kernels and the cfg
+     kernels what their bindings cost on the host; the DiT's
      attention also through the CUDA-core kernel it replaced; the
      CUDA-core kernel at the DiT's 224-px length (4, 3137, 4, 32) beside
      SDPA and its launch floor, at its tile edges in every mode, and its
@@ -31,7 +37,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      waves of at most 128: 15 waves of 120), twice from one
      threefry key, with launch counts checked against the path each time
      (every DiT attention on the short-sequence kernel), then a 4-step
-     wave on the kernel path against the plain DiT on the same draws;
+     wave on the kernel path against the plain DiT on the same draws
+     (every uniform step's noise is drawn in the update kernel, counted in
+     ``cfg_update.launches_keyed``);
   5. one 128-row wave through ``synthesize`` under the profiler: the
      device's busy time in the trace against the wave's wall time;
   6. ragged synthesis at the same width: the same 60 uploads at mixed
@@ -40,7 +48,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and as fully compacted waves, two rounds each, with row-iteration
      and launch counts checked; ragged against compacted D_syn; one wave
      as two windows against the whole wave; a 4-step ragged wave on the
-     kernel path against the plain DiT; the cost of the threefry draws;
+     kernel path against the plain DiT (every rowwise update draws its
+     noise in the kernel); the cost of the threefry draws that stay eager;
   7. mixed guidance modes (the reference benchmark's
      ``_bench_mixed_guidance`` request set): the 60 uploads of phase 6,
      one classifier-guided request per category (guidance 1.0, 25 or 50
@@ -95,6 +104,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
+# H100 SXM int32 outside the tensor cores, an estimate no run has checked:
+# 64 lanes an SM (half the fp32 lanes; Hopper architecture white paper) x
+# 132 SMs x 1.98 GHz.  Used only for the int32 part of the keyed cfg rows'
+# bound split (printed in phase 2); bound_ms comes from the rates above
+INT32_OPS = 64 * 132 * 1.98e9
 TOL_CFG, TOL_ADALN, TOL_ATTN = 1e-6, 1e-5, 2e-5
 TOL_ATTN_BF16, TOL_RMS, TOL_RMS_BF16 = 2e-2, 1e-5, 5e-2
 # bf16 attention, besides the absolute gate: kernel and plain version both
@@ -176,7 +190,8 @@ def host_us(fn, iters: int = 1000) -> float:
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -279,8 +294,10 @@ def main() -> int:
     from repro_torch.kernels.adaln_norm import kernel as an_kernel
     from repro_torch.kernels.adaln_norm import ops as an_ops
     from repro_torch.kernels.adaln_norm import ref as an_ref
-    from repro_torch.kernels.build import (BUILD_DIR, build_log,
-                                           check_cuda_inputs, compile_all)
+    from repro_torch.kernels.build import (BUILD_DIR, EMPTY_SOURCE,
+                                           build_log, check_cuda_inputs,
+                                           compile_all, empty_launch)
+    from repro_torch.kernels.cfg_fuse import kernel as cfg_kernel
     from repro_torch.kernels.cfg_fuse import ops as cfg_ops
     from repro_torch.kernels.cfg_fuse import ref as cfg_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -325,7 +342,8 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     # one nvcc per CUDA source, all started together
     sources = (fa_kernel.SOURCE, fa_kernel.TC_SOURCE, fa_kernel.SHORT_SOURCE,
-               an_kernel.SOURCE, rn_kernel.SOURCE)
+               an_kernel.SOURCE, rn_kernel.SOURCE, cfg_kernel.SOURCE,
+               EMPTY_SOURCE)
     t0 = time.perf_counter()
     nvcc_s = compile_all(sources)
     t_nvcc = time.perf_counter() - t0
@@ -334,9 +352,10 @@ def main() -> int:
     fa_kernel.build_short()
     an_kernel.build()
     rn_kernel.build()
+    cfg_kernel.build()
     for src in sources:
         log = build_log(src)
-        if src == fa_kernel.TC_SOURCE:
+        if src in (fa_kernel.TC_SOURCE, cfg_kernel.SOURCE, EMPTY_SOURCE):
             for line in log.splitlines():
                 if any(w in line for w in ("registers", "spill", "Compiling",
                                            "arning", "Performance Loss")):
@@ -359,6 +378,11 @@ def main() -> int:
           f"flash_attention_tc spills: {tc_spills}")
     check("Performance Loss" not in tc_log, "ptxas serialised the wgmma "
           "instructions of flash_attention_tc")
+    cfg_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", build_log(cfg_kernel.SOURCE))
+    # the four instances: scalar and rowwise, z from memory and keyed
+    check(len(cfg_spills) == 4 and all(a == b == "0" for a, b in cfg_spills),
+          f"cfg_fuse.cu spills: {cfg_spills}")
     cc_instances = ptxas_instances(build_log(fa_kernel.SOURCE),
                                    r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E")
     check(len(cc_instances) == 2 * len(fa_kernel.CUDA_CORE_TILES)
@@ -376,24 +400,33 @@ def main() -> int:
     rn_ops.rmsnorm(small, randn(8))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    say(f"[1] build: nvcc {t_nvcc:.2f} s for all five sources together ("
+    say(f"[1] build: nvcc {t_nvcc:.2f} s for all seven sources together ("
         + ", ".join(f"{src.name} {sec:.2f} s" for src, sec in nvcc_s.items())
-        + f"; flash_attention_tc 4 instances and flash_attention "
-        f"{len(cc_instances)}, 0 spill bytes), first launches of adaln_norm, "
-        f"rmsnorm and the Triton cfg_update + cfg_update_rowwise + "
-        f"cfg_update_mixed {t_triton:.2f} s")
+        + f"; flash_attention_tc 4 instances, flash_attention "
+        f"{len(cc_instances)} and cfg_fuse {len(cfg_spills)}, 0 spill "
+        f"bytes), first launches of adaln_norm, rmsnorm, cfg_update and "
+        f"cfg_update_rowwise and of the Triton cfg_update_mixed "
+        f"{t_triton:.2f} s")
 
     # -- 2. kernels against their plain versions -----------------------------
     kernels = {}
 
     def record(name, route, source, replaces, tol, checks, launch,
                plain, library, nbytes, flops, shape, peak=FP32_FLOPS,
-               iters=100, phase=2, **extra):
+               iters=100, phase=2, int_ops=0, **extra):
         """One row of the kernels line; device times, the library call's
-        too, are graph replays."""
+        too, are graph replays.  The bound is the larger of the bytes over
+        the memory rate and ``flops`` at ``peak``; the say line splits it
+        into bytes, operations and (``int_ops``, an estimate at
+        ``INT32_OPS``) int32 operations."""
         err = max(c["max_abs_err"] for c in checks)
         check(err <= tol, f"{name}: max abs error {err:.3g} > {tol:g}")
         b_ms, b_by = bound(nbytes, flops, peak)
+        split = (f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, operations "
+                 f"{flops / peak * 1e3:.5f} ms"
+                 + (f", int32 operations (estimate) "
+                    f"{int_ops / INT32_OPS * 1e3:.5f} ms" if int_ops
+                    else ""))
         lib_dev = (None if library is None
                    else graph_ms(library, max(2, iters // 5)))
         kernels[name] = dict(
@@ -409,37 +442,151 @@ def main() -> int:
             f"{len(checks)} checks; at {shape}: {k['ms']:.4f} ms per call, "
             f"{k['device_ms']:.4f} ms on the device, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms per call "
-            f"and {lib_dev} ms on the device, bound {b_ms:.4f} ms ({b_by}), "
+            f"and {lib_dev} ms on the device, bound {b_ms:.4f} ms ({b_by}; "
+            f"{split}), "
             f"launch floor {extra.get('launch_floor_ms')} ms, memory phases "
             f"alone {extra.get('memory_only_ms')} ms ({smi})")
 
-    # cfg_update: a wave's 128 x 16 x 16 x 3 and an odd total size, at the
-    # first step of a 4-step (t = 999) and of a 50-step trajectory
+    # cfg_fuse.cu's two kernels in both noise modes.  The checks that the
+    # rows had before this source draw from `g` in their old order, so the
+    # later phases see the same data; the new ones draw from a generator
+    # of their own.  Each check is bit-equal (tol TOL_CFG, expected 0) to
+    # the plain version: z from memory against ref, z drawn from keys
+    # against prng.normal of the same keys and then ref
+    g18 = torch.Generator(dev).manual_seed(18)
+
+    def randn18(*shape):
+        return torch.randn(shape, generator=g18, device=dev)
+
+    def offset_view(*shape):        # contiguous, 4 bytes off alignment
+        return randn18(math.prod(shape) + 1)[1:].view(shape)
+
+    def cfg_binding(wrapper, binding, checks_of, out, args, keyed_args):
+        """What a call costs on the host: the whole wrapper, the binding
+        alone, and its parts (the input checks, the output's allocation,
+        the packed arguments, the ctypes call timed on a block the library
+        refuses before launching)."""
+        return dict(
+            wrapper=host_us(wrapper), binding=host_us(binding),
+            input_checks=host_us(checks_of),
+            output_alloc=host_us(lambda: torch.empty_like(out)),
+            pack_arguments=host_us(args),
+            ctypes_packed=host_us(lambda: cfg_lib.cfg_fuse_fwd(cfg_bad, 0)),
+            keyed=keyed_args)
+
+    cfg_lib = cfg_kernel._lib()
+    cfg_bad = cfg_kernel._ARGS.pack(*[0] * 18, *[0.0] * 8, 0, 0)
+
+    def geometry_of(args):
+        a = cfg_kernel._ARGS.unpack(args)
+        return dict(vector_route=bool(a[14]), blocks=a[15], threads=a[16])
+
+    def floor_of(args, x):
+        """The launch floor of the update launched with ``args``: an empty
+        kernel at its grid and block, replayed in a graph."""
+        geo = geometry_of(args)
+        return graph_ms(lambda: empty_launch(
+            (geo["blocks"], 1), geo["threads"], 0, x.get_device()))
+
+    key2 = prng.split(prng.PRNGKey(18))[1]
+    key2_words = tuple(int(w) for w in key2)
+
+    # cfg_update: a wave's 128 x 16 x 16 x 3, a 120-row wave's, an odd total
+    # size and a view 4 bytes off alignment (one element at a time), at the
+    # first step of a 4-step (t = 999) and of a 50-step trajectory and at
+    # the last (t = 0) step, where the keyed mode's z is 0
     sched = make_schedule(1000, device=dev)
     ab = sched.alpha_bar
     steps = [(float(ab[999]), float(ab[666])), (float(ab[999]), float(ab[979]))]
-    checks = []
+    last = (float(ab[0]), 1.0)
+    checks, keyed_checks = [], []
+
+    def cfg_pair(x, ec, eu, z, abt, abp, live, what):
+        out = cfg_ops.cfg_update(x, ec, eu, 2.0, abt, abp, z)
+        ref = cfg_ref.cfg_update(x, ec, eu, 2.0, abt, abp, z)
+        checks.append(dict(what, ab_t=abt, ab_prev=abp,
+                           max_abs_err=max_err(out, ref)))
+        out = cfg_ops.cfg_update(x, ec, eu, 2.0, abt, abp, None,
+                                 noise_key=key2_words, live=live)
+        ref = cfg_ref.cfg_update_keyed(x, ec, eu, 2.0, abt, abp, key2, live)
+        keyed_checks.append(dict(what, ab_t=abt, ab_prev=abp, live=live,
+                                 max_abs_err=max_err(out, ref)))
+
     for shape in [(128, 16, 16, 3), (3, 5, 7)]:
         x, ec, eu, z = (randn(*shape) for _ in range(4))
         for abt, abp in steps:
-            out = cfg_ops.cfg_update(x, ec, eu, 2.0, abt, abp, z)
-            ref = cfg_ref.cfg_update(x, ec, eu, 2.0, abt, abp, z)
-            checks.append(dict(shape=list(shape), ab_t=abt, ab_prev=abp,
-                               max_abs_err=max_err(out, ref)))
+            cfg_pair(x, ec, eu, z, abt, abp, True, dict(shape=list(shape)))
+        cfg_pair(x, ec, eu, torch.zeros_like(x), *last, False,
+                 dict(shape=list(shape)))
+    for shape, view in (((120, 16, 16, 3), randn18),
+                        ((120, 16, 16, 3), offset_view),
+                        ((128, 16, 16, 3), offset_view)):
+        x, ec, eu, z = (view(*shape) for _ in range(4))
+        what = dict(shape=list(shape), vector_route=cfg_kernel.vector_route(
+            x.numel(), [t.data_ptr() for t in (x, ec, eu, z)], False))
+        for abt, abp in steps:
+            cfg_pair(x, ec, eu, z, abt, abp, True, what)
+        cfg_pair(x, ec, eu, torch.zeros_like(x), *last, False, what)
+    check(sum(c.get("vector_route", True) for c in checks) == len(checks) - 6,
+          "cfg_update: unexpected routes")
     x, ec, eu, z = (randn(128, 16, 16, 3) for _ in range(4))
     abt, abp = steps[1]
     n = x.numel()
-    record("cfg_update", "triton", "src/repro_torch/kernels/cfg_fuse/kernel.py",
+    # the sampler's call: this step's scalars, from the cache after a wave
+    row_sc = cfg_ops.step_scalars(2.0, abt, abp, 1.0)
+    cfg_out = torch.empty_like(x)
+    sc8 = (*row_sc, 1.0)
+    z_args = cfg_kernel._args(x, ec, eu, z, cfg_out, rows=1, scalars=sc8)
+    k_args = cfg_kernel._args(x, ec, eu, None, cfg_out, rows=1, scalars=sc8,
+                              key=key2_words)
+    # the keyed mode's draw, per element, counted from the source and not
+    # measured: ~75 int32 operations (20 threefry rounds of add, rotate and
+    # xor; the key injections; the counter and the uniform's shift and or)
+    # and ~45 fp32 ones (log1pf ~16, the erfinv polynomial's 16, the
+    # uniform and the scaling)
+    draw_int, draw_fp = 75, 45
+    binding = cfg_binding(
+        lambda: cfg_ops.cfg_update(x, ec, eu, 2.0, abt, abp, z),
+        lambda: cfg_kernel.cfg_update_flat(x, ec, eu, z, row_sc),
+        lambda: cfg_ops._check_update_inputs("cfg_update", x, ec, eu, z),
+        x, lambda: cfg_kernel._args(x, ec, eu, z, cfg_out, rows=1,
+                                    scalars=sc8),
+        dict(wrapper=host_us(lambda: cfg_ops.cfg_update(
+            x, ec, eu, 2.0, abt, abp, None, noise_key=key2_words)),
+             step_scalars_cached=host_us(lambda: cfg_ops.step_scalars(
+                 2.0, abt, abp, 1.0)),
+             step_scalars_uncached=host_us(
+                 lambda: cfg_ops.step_scalars.__wrapped__(2.0, abt, abp,
+                                                          1.0))))
+    say(f"[2] cfg_update binding, host us per call ({smi}): "
+        f"{json.dumps(binding)}")
+    record("cfg_update", "cuda",
+           "src/repro_torch/kernels/cfg_fuse/csrc/cfg_fuse.cu",
            "src/repro/kernels/cfg_fuse/kernel.py:155", TOL_CFG, checks,
            lambda: cfg_ops.cfg_update(x, ec, eu, 2.0, abt, abp, z),
            lambda: cfg_ref.cfg_update(x, ec, eu, 2.0, abt, abp, z), None,
-           5 * 4 * n, 13 * n, [128, 16, 16, 3])
+           5 * 4 * n, 13 * n, [128, 16, 16, 3], mode="z from memory",
+           launch_floor_ms=floor_of(z_args, x),
+           host_us_breakdown=binding, geometry=geometry_of(z_args))
+    record("cfg_update_keyed", "cuda",
+           "src/repro_torch/kernels/cfg_fuse/csrc/cfg_fuse.cu",
+           "src/repro/kernels/cfg_fuse/kernel.py:155", TOL_CFG, keyed_checks,
+           lambda: cfg_ops.cfg_update(x, ec, eu, 2.0, abt, abp, None,
+                                      noise_key=key2_words),
+           lambda: cfg_ref.cfg_update_keyed(x, ec, eu, 2.0, abt, abp, key2,
+                                            True), None,
+           4 * 4 * n, (13 + draw_fp) * n, [128, 16, 16, 3],
+           int_ops=draw_int * n, mode="z drawn from the step's threefry key",
+           launch_floor_ms=floor_of(k_args, x),
+           host_us_breakdown=binding["keyed"], geometry=geometry_of(k_args))
 
     # cfg_update_rowwise: a 120-row ragged wave, (120, 16, 16, 3), rows in
     # turn at the t = 999 first step of a 4-step trajectory, the first step
-    # of a 50-step one, a mid step and frozen; then windows at row_offset 0
-    # and > 0 of a wider (240-slot) table; then the refusal of a window
-    # that leaves the table
+    # of a 50-step one, a mid step and frozen; then windows at row_offset 0,
+    # 120 and 37 of a wider (240-slot) table, a 128-row wave and odd rows
+    # (5 x 7 elements, one at a time); then the refusal of a window that
+    # leaves the table.  The keyed mode draws each row's z from its own key
+    # times its live entry, 0 for every fifth row (a row at its t = 0 step)
     def rowwise_table(Bs):
         rows = [(2.0, steps[0][0], steps[0][1], 1.0),
                 (7.5, steps[1][0], steps[1][1], 1.0),
@@ -456,19 +603,42 @@ def main() -> int:
     def on_card(vecs):
         return [torch.as_tensor(v, device=dev) for v in vecs]
 
-    checks = []
-    for B, Bs, off in [(120, 120, 0), (120, 240, 0), (120, 240, 120),
-                       (60, 240, 37)]:
-        vecs = rowwise_table(Bs)
-        x, ec, eu, z = (randn(B, 16, 16, 3) for _ in range(4))
+    def row_keys_of(B):
+        keys = prng.split(prng.PRNGKey(19), B)
+        live = torch.as_tensor(np.arange(B) % 5 != 4, device=dev).float()
+        return keys, cfg_ops.key_table(keys, dev), live
+
+    checks, keyed_checks = [], []
+
+    def rowwise_pair(x, ec, eu, z, vecs, off):
+        B = x.shape[0]
         out = cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], z, vecs[3],
                                          row_offset=off)
         ref = plain_rowwise(x, ec, eu, on_card(vecs), z, off)
         frozen = torch.as_tensor(vecs[3][off:off + B] == 0, device=dev)
         check(torch.equal(out[frozen], x[frozen]),
               "cfg_update_rowwise changed a frozen row")
-        checks.append(dict(shape=[B, 16, 16, 3], slots=Bs, row_offset=off,
-                           max_abs_err=max_err(out, ref)))
+        what = dict(shape=list(x.shape), slots=len(vecs[0]), row_offset=off)
+        checks.append(dict(what, max_abs_err=max_err(out, ref)))
+        keys, dkeys, live = row_keys_of(B)
+        out = cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], None, vecs[3],
+                                         row_offset=off, noise_keys=dkeys,
+                                         live=live)
+        ref = plain_rowwise(x, ec, eu, on_card(vecs), cfg_ref.row_noise(
+            keys, live, x.shape[1:], dev), off)
+        check(torch.equal(out[frozen], x[frozen]),
+              "keyed cfg_update_rowwise changed a frozen row")
+        keyed_checks.append(dict(what, max_abs_err=max_err(out, ref)))
+
+    for B, Bs, off in [(120, 120, 0), (120, 240, 0), (120, 240, 120),
+                       (60, 240, 37)]:
+        vecs = rowwise_table(Bs)
+        x, ec, eu, z = (randn(B, 16, 16, 3) for _ in range(4))
+        rowwise_pair(x, ec, eu, z, vecs, off)
+    for B, Bs, off, row in [(128, 128, 0, (16, 16, 3)), (3, 9, 0, (5, 7)),
+                            (5, 9, 3, (5, 7))]:
+        rowwise_pair(*(randn18(B, *row) for _ in range(4)),
+                     rowwise_table(Bs), off)
     for bad in (-1, len(vecs[0]) - x.shape[0] + 1):
         try:
             cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], z, vecs[3],
@@ -481,14 +651,51 @@ def main() -> int:
     x, ec, eu, z = (randn(120, 16, 16, 3) for _ in range(4))
     table = torch.as_tensor(cfg_ops.rowwise_coeffs(*vecs, 1.0), device=dev)
     dvecs = on_card(vecs)
+    keys, dkeys, live = row_keys_of(120)
     n = x.numel()
-    record("cfg_update_rowwise", "triton",
-           "src/repro_torch/kernels/cfg_fuse/kernel.py",
+    rw_out = torch.empty_like(x)
+    rz_args = cfg_kernel._args(x, ec, eu, z, rw_out, rows=120, coeffs=table)
+    rk_args = cfg_kernel._args(x, ec, eu, None, rw_out, rows=120,
+                               coeffs=table, keys=dkeys, live=live)
+    binding = cfg_binding(
+        lambda: cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], z, vecs[3],
+                                           coeffs=table),
+        lambda: cfg_kernel.cfg_update_rowwise_flat(x, ec, eu, z, table, 0),
+        lambda: cfg_ops._check_update_inputs("cfg_update_rowwise", x, ec, eu,
+                                             z),
+        x, lambda: cfg_kernel._args(x, ec, eu, z, rw_out, rows=120,
+                                    coeffs=table),
+        dict(wrapper=host_us(lambda: cfg_ops.cfg_update_rowwise(
+            x, ec, eu, *vecs[:3], None, vecs[3], coeffs=table,
+            noise_keys=dkeys, live=live))))
+    say(f"[2] cfg_update_rowwise binding, host us per call ({smi}): "
+        f"{json.dumps(binding)}")
+    # 3 in 4 rows are active; a frozen row is read once and written once
+    act_n = n * int((vecs[3] > 0).sum()) // 120
+    record("cfg_update_rowwise", "cuda",
+           "src/repro_torch/kernels/cfg_fuse/csrc/cfg_fuse.cu",
            "src/repro/kernels/cfg_fuse/kernel.py:120", TOL_CFG, checks,
            lambda: cfg_ops.cfg_update_rowwise(x, ec, eu, *vecs[:3], z,
                                               vecs[3], coeffs=table),
            lambda: plain_rowwise(x, ec, eu, dvecs, z, 0), None,
-           5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3])
+           5 * 4 * act_n + 8 * (n - act_n) + 4 * table.numel(), 13 * act_n,
+           [120, 16, 16, 3], mode="z from memory",
+           launch_floor_ms=floor_of(rz_args, x),
+           host_us_breakdown=binding, geometry=geometry_of(rz_args))
+    record("cfg_update_rowwise_keyed", "cuda",
+           "src/repro_torch/kernels/cfg_fuse/csrc/cfg_fuse.cu",
+           "src/repro/kernels/cfg_fuse/kernel.py:120", TOL_CFG, keyed_checks,
+           lambda: cfg_ops.cfg_update_rowwise(
+               x, ec, eu, *vecs[:3], None, vecs[3], coeffs=table,
+               noise_keys=dkeys, live=live),
+           lambda: plain_rowwise(x, ec, eu, dvecs, cfg_ref.row_noise(
+               keys, live, (16, 16, 3), dev), 0), None,
+           4 * 4 * act_n + 8 * (n - act_n) + 4 * table.numel() + 12 * 120,
+           (13 + draw_fp) * act_n, [120, 16, 16, 3], int_ops=draw_int * act_n,
+           mode="z drawn from each row's threefry key",
+           launch_floor_ms=floor_of(rk_args, x),
+           host_us_breakdown=binding["keyed"],
+           geometry=geometry_of(rk_args))
 
     # cfg_update_mixed: the same tables with a mode row, all 0 (bit-equal
     # to cfg_update_rowwise), all 1, and mixed over the inactive rows
@@ -542,7 +749,10 @@ def main() -> int:
                                             vecs[3], coeffs=table),
            lambda: cfg_ref.cfg_update_mixed(x, ec, eu, dmode, *dvecs[:3], z,
                                             dvecs[3]), None,
-           5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3])
+           5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3],
+           # the Triton grid: a program of 4 warps per row
+           launch_floor_ms=graph_ms(lambda: empty_launch(
+               (120, 1), 128, 0, x.get_device())))
 
     # adaln_norm: the block sites (B, S, d), the final site (the strided
     # tok[:, 1:] view), the default d_model and an odd d (one element at a
@@ -945,6 +1155,7 @@ def main() -> int:
     for rnd in (1, 2):
         for fn in fns.values():
             fn.launches = 0
+        cfg_ops.cfg_update.launches_keyed = 0
         fa_ops.flash_attention.launches_short = 0
         fa_ops.flash_attention.launches_cuda_core = 0
         fa_ops.flash_attention.launches_tensor_core = 0
@@ -963,6 +1174,10 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         check(launches == want, f"round {rnd}: launches {launches} != "
               f"expected {want}")
+        # every step's noise drawn in the update kernel
+        keyed4 = cfg_ops.cfg_update.launches_keyed
+        check(keyed4 == wave_steps, f"round {rnd}: {keyed4} keyed "
+              f"cfg_update launches, want {wave_steps}")
         check(routes == {"short": want["flash_attention"], "tensor_core": 0,
                          "cuda_core": 0},
               f"round {rnd}: attention routes {routes}, want all "
@@ -980,8 +1195,9 @@ def main() -> int:
                            wave_walls_s=list(wave_walls)))
         if rnd == 1:
             first_images = images
-            for name in ("cfg_update", "adaln_norm"):
-                kernels[name]["launches"] = launches[name]
+            kernels["adaln_norm"]["launches"] = launches["adaln_norm"]
+            kernels["cfg_update_keyed"]["launches"] = keyed4
+            kernels["cfg_update"]["launches"] = launches["cfg_update"] - keyed4
             kernels["flash_attention_short"]["launches"] = routes["short"]
         else:
             check(torch.equal(images, first_images),
@@ -1003,8 +1219,12 @@ def main() -> int:
     # this trajectory's first step in phase 2)
     rows = torch.as_tensor(enc[present][:8], device=dev)
     x_T, noise = randn(8, 16, 16, 3), randn(4, 8, 16, 16, 3)
+    n0 = cfg_ops.cfg_update.launches
     out, ref = (sample_cfg(m, sched, rows, num_steps=4, x_T=x_T, noise=noise)
                 for m in (model, plain))
+    # z from memory: the x_T= / noise= injection
+    kernels["cfg_update"]["launches_4_step_injected_noise_waves"] = \
+        cfg_ops.cfg_update.launches - n0
     err = max_err(out, ref)
     check(float(ref.abs().max()) > 1e-3, "vacuous 4-step parity")
     check(err <= TOL_E2E, f"4-step wave kernel vs plain {err:.3g}")
@@ -1083,6 +1303,7 @@ def main() -> int:
             eng = mixed_engine(compaction)
             for fn in fns.values():
                 fn.launches = 0
+            cfg_ops.cfg_update_rowwise.launches_keyed = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             wave_walls.clear()
@@ -1112,11 +1333,15 @@ def main() -> int:
                      "adaln_norm": p6["iters"] * (2 * dc.num_layers + 1)}
             check(launches == want6, f"{mode} round {rnd}: launches "
                   f"{launches} != expected {want6}")
+            keyed6 = cfg_ops.cfg_update_rowwise.launches_keyed
+            check(keyed6 == p6["iters"], f"{mode} round {rnd}: {keyed6} "
+                  f"keyed rowwise launches, want {p6['iters']}")
             if rnd == 1:
                 d_syn[mode] = images
                 if mode == "ragged":
+                    kernels["cfg_update_rowwise_keyed"]["launches"] = keyed6
                     kernels["cfg_update_rowwise"]["launches"] = \
-                        launches["cfg_update_rowwise"]
+                        launches["cfg_update_rowwise"] - keyed6
             else:
                 check(torch.equal(images, d_syn[mode]),
                       f"{mode} round {rnd}: D_syn differs from round 1's")
@@ -1184,7 +1409,9 @@ def main() -> int:
 
     # the threefry draws of one 120-row wave of 50 steps: the grouped
     # wave's 51 keys (x_T and the steps) and the ragged wave's 50 x 120
-    # row-step keys, each drawn in one call
+    # row-step keys, each drawn in one call, as the samplers drew them
+    # before the loop until the update kernels drew their own (a mixed
+    # wave still does); and what stays eager on the card: each wave's x_T
     chain, k = [], key6
     for _ in range(51):
         k, sub = prng.split(k)
@@ -1196,10 +1423,19 @@ def main() -> int:
     grouped_ms = cuda_ms(lambda: prng.normal(chain, (120, 16, 16, 3), dev), 10)
     ragged_ms = cuda_ms(lambda: prng.normal(row_step_keys, (16, 16, 3), dev),
                         10)
+    x_T_keys = prng.fold_in(keys4, 0)
     say(json.dumps({"threefry": {
         "grouped_wave_draw_ms": grouped_ms, "ragged_wave_draw_ms": ragged_ms,
         "ragged_host_key_derivation_ms": t_keys * 1e3,
-        "grouped_wave_noise_bytes": 4 * 51 * 120 * 768, "card": smi}}))
+        "grouped_wave_noise_bytes": 4 * 51 * 120 * 768,
+        "still_eager": {
+            "grouped_x_T_ms": cuda_ms(lambda: prng.normal(
+                chain[0], (120, 16, 16, 3), dev), 10),
+            "ragged_x_T_ms": cuda_ms(lambda: prng.normal(
+                x_T_keys, (16, 16, 3), dev), 10),
+            "mixed_wave_step_noise_ms": ragged_ms},
+        "drawn_in_the_update_kernel": "the step noise of uniform, ragged, "
+        "compacted and windowed classifier-free waves", "card": smi}}))
     rates6 = {m: [r["images_per_s"] for r in mixed_rounds if r["mode"] == m]
               for m in ("ragged", "compacted")}
     say(json.dumps({"mixed_synthesis": {
@@ -1616,6 +1852,13 @@ def main() -> int:
            peak=BF16_FLOPS, iters=5, phase=8,
            mode="causal, window 4096, softcap 50, GQA 8/4, bf16 (gemma2 "
                 "local layer, wave A prefill), tensor-core kernel",
+           # flash_attention_tc.cu's launch: a block of 384 threads per
+           # (work item, batch, query head), its ring of 64 x 64 bf16 blocks
+           launch_floor_ms=graph_ms(lambda: empty_launch(
+               (fa_kernel.work_list(Sw, Sw, True, lm_cfg.sliding_window)
+                .shape[0] * Bw * hq, 1), 384,
+               1024 + 6 * (hd // 64) * 64 * 128 + 64,
+               torch.cuda.current_device())),
            library_call=("flex_attention, compiled, score_mod softcap, "
                          "BlockMask causal + window, enable_gqa" if flex
                          else "none (no flex_attention in this PyTorch)"),
@@ -1680,7 +1923,9 @@ def main() -> int:
                          if flex else "none (no flex_attention in this "
                          "PyTorch)"),
            library_max_abs_err=flex32_err if flex else None,
-           library_first_call_s=flex32_compile_s if flex else None)
+           library_first_call_s=flex32_compile_s if flex else None,
+           launch_floor_ms=graph_ms(
+               lambda: fa_kernel.cuda_core_empty_launch(q32, k32, v32)))
     del flex, q32, k32, v32
 
     # rmsnorm at the LM's norm shapes: wave A's 4 x 4608 rows of d 2304,
@@ -1726,6 +1971,10 @@ def main() -> int:
            2 * 2 * xr.numel() + 4 * 2304, 4 * xr.numel(), [18432, 2304],
            peak=BF16_FLOPS, phase=8, dtype="bfloat16",
            library_call="F.rms_norm, weight 1 + scale",
+           # rmsnorm.cu's launch: 8 warps, a two-row ring and 1 + scale
+           launch_floor_ms=graph_ms(lambda: empty_launch(
+               (rn_kernel.grid(xr, sr), 1), 256, 2 * nv * 256 * 16 + 4 * 8200,
+               xr.get_device())),
            geometry=dict(chunks_per_lane=nv, warps_per_row=warps_per_row,
                          blocks=rn_kernel.grid(xr, sr),
                          vector_route=rn_kernel.vector_route(xr)))

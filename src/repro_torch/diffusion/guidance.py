@@ -22,8 +22,12 @@ Randomness comes from threefry keys (``repro_torch.prng``), drawn as the
 JAX package draws them: a uniform wave splits its key for x_T and then
 once per step; row b of a ragged wave draws x_T from
 ``fold_in(row_keys[b], 0)`` and its step-j noise from
-``fold_in(row_keys[b], 1 + j)``, j the row's own step index.  All of a
-wave's noise is drawn in one vectorised call before its loop.
+``fold_in(row_keys[b], 1 + j)``, j the row's own step index.  On the card
+the classifier-free updates of uniform and rowwise waves draw each step's
+noise inside the fused update kernel from those keys; everywhere else
+(the CPU, mixed waves, strategies that give no ε_u, injected noise) all of
+a wave's noise is drawn in one vectorised call before its loop, the same
+values.
 
 Classifier gradients come from ``torch.autograd``.  Samplers that may take
 one run under ``torch.no_grad()`` (no graph can be recorded on inference
@@ -264,8 +268,10 @@ def reverse_sample(model: DiT, sched: NoiseSchedule, strategy, key=None, *,
     loop (its classifier-guided sampler is not jitted); the default is
     its jitted samplers' trajectory.  ``key`` (a threefry key) draws x_T
     from its first split and step i's noise from the chain of splits
-    after it.  ``x_T`` (B, H, W, C) and ``noise`` (num_steps, B, H, W, C)
-    replace those draws when given; with both given ``key`` may be None."""
+    after it; on the card a classifier-free loop hands step i's key to
+    the update kernel, which draws the noise itself.  ``x_T`` (B, H, W,
+    C) and ``noise`` (num_steps, B, H, W, C) replace those draws when
+    given; with both given ``key`` may be None."""
     B = strategy.batch()
     H = image_size or 16
     num_steps = num_steps or model.dc.sample_timesteps
@@ -275,6 +281,9 @@ def reverse_sample(model: DiT, sched: NoiseSchedule, strategy, key=None, *,
     device = model.null_y.device
     shape = (B, H, H, channels)
 
+    # the update kernel draws the noise on the card
+    keyed = (noise is None and device.type == "cuda"
+             and isinstance(strategy, ClassifierFree))
     if x_T is None or noise is None:
         if key is None:
             raise ValueError("reverse_sample needs a key unless both x_T "
@@ -284,13 +293,21 @@ def reverse_sample(model: DiT, sched: NoiseSchedule, strategy, key=None, *,
         for _ in range(num_steps):
             key, kn = prng.split(key)
             step_keys.append(kn)
-        draws = prng.normal(np.stack([k0, *step_keys]), shape, device)
-        x_T = draws[0] if x_T is None else x_T
-        noise = draws[1:] if noise is None else noise
+        if keyed:
+            x_T = prng.normal(k0, shape, device) if x_T is None else x_T
+            step_keys = [(int(k[0]), int(k[1])) for k in step_keys]
+        else:
+            draws = prng.normal(np.stack([k0, *step_keys]), shape, device)
+            x_T = draws[0] if x_T is None else x_T
+            noise = draws[1:] if noise is None else noise
     x = x_T.to(device, torch.float32)
     aux = strategy.prepare(model)
     for i, (t, abt, abp) in enumerate(steps):
         eps_c, eps_u, s = strategy.eps(model, x, t, abt, aux)
+        if keyed:
+            x = cfg_ops.cfg_update(x, eps_c, eps_u, s, abt, abp, None, eta,
+                                   noise_key=step_keys[i], live=t > 0)
+            continue
         z = noise[i].to(device, torch.float32)
         if t == 0:
             z = torch.zeros_like(z)
@@ -400,11 +417,12 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     rows, while ``guidance`` (Bs,) and ``ab_t``/``ab_prev``/``active``
     (Bs, S) may span the whole wave: the fused update reads tensor row b's
     scalars at wave slot ``row_offset + b``.  Row b's step-j noise is
-    ``fold_in(row_keys[b], max(j, 0) + 1)``, zero at t = 0, all drawn
-    before the loop; the update coefficients are formed on the host and
-    uploaded once.  With ``mixed`` the update is ``cfg_update_mixed`` and
-    each iteration first corrects the active classifier-guided rows.
-    Returns x unclipped."""
+    ``fold_in(row_keys[b], max(j, 0) + 1)``, zero at t = 0: on the card
+    the update kernel draws it from the (S, B) key table, uploaded once
+    (a mixed wave's noise, and the CPU's, is drawn before the loop).  The
+    update coefficients are formed on the host and uploaded once.  With
+    ``mixed`` the update is ``cfg_update_mixed`` and each iteration first
+    corrects the active classifier-guided rows.  Returns x unclipped."""
     B, H, W, C = x.shape
     S = ts.shape[1]
     dev = x.device
@@ -412,7 +430,11 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     nk = prng.fold_in(np.asarray(row_keys)[None],
                       np.maximum(jloc.T, 0) + 1)             # (S, B, 2)
     live = torch.as_tensor(ts_steps > 0, device=dev).float()
-    noise = prng.normal(nk, (H, W, C), dev) * live[..., None, None, None]
+    keyed = mixed is None and dev.type == "cuda"
+    if keyed:
+        keys = cfg_ops.key_table(nk, dev)
+    else:
+        noise = prng.normal(nk, (H, W, C), dev) * live[..., None, None, None]
     guidance = np.asarray(guidance, np.float32)
     if mixed is None:
         table = cfg_ops.rowwise_coeffs(guidance, ab_t.T, ab_prev.T, active.T,
@@ -430,6 +452,12 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
         t2 = torch.cat([t_all[i], t_all[i]])
         eps2 = model(torch.cat([x, x], dim=0), t2, y2)
         eps_c, eps_u = eps2[:B], eps2[B:]
+        if keyed:
+            x = cfg_ops.cfg_update_rowwise(
+                x, eps_c, eps_u, guidance, ab_t[:, i], ab_prev[:, i], None,
+                active[:, i], eta, row_offset=row_offset, coeffs=coeffs[i],
+                noise_keys=keys[i], live=live[i])
+            continue
         if mixed is None:
             x = cfg_ops.cfg_update_rowwise(
                 x, eps_c, eps_u, guidance, ab_t[:, i], ab_prev[:, i],

@@ -9,6 +9,7 @@ flags, so an edited source rebuilds and an unchanged one is reused.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,6 +21,7 @@ from pathlib import Path
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+EMPTY_SOURCE = Path(__file__).with_name("csrc") / "empty.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,6 +67,29 @@ def compile_all(sources) -> dict:
 def build_log(src: Path) -> str:
     """The compiler's output from the build of ``src``'s current content."""
     return _library_path(src).with_suffix(".log").read_text()
+
+
+@functools.cache
+def _empty_lib():
+    lib = nvcc_library(EMPTY_SOURCE)
+    lib.empty_launch.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    return lib
+
+
+def empty_launch(grid: tuple[int, int], threads: int, smem: int,
+                 device: int) -> None:
+    """Launch an empty kernel over ``grid`` (x, y) blocks of ``threads``
+    with ``smem`` bytes of dynamic shared memory on the current stream of
+    CUDA device ``device``: the launch floor of any kernel launched at
+    that geometry (and no launch of any kernel's count)."""
+    err = _empty_lib().empty_launch(
+        grid[0], grid[1], threads, smem, device,
+        torch._C._cuda_getCurrentRawStream(device))
+    if err != 0:
+        raise RuntimeError(f"empty_launch failed: CUDA error {err}")
 
 
 def import_triton():

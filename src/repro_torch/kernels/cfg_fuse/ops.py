@@ -1,6 +1,14 @@
-"""Public wrappers for the fused CFG update: the Triton kernels for CUDA
-tensors, the plain versions (``ref.py``) for CPU tensors."""
+"""Public wrappers for the fused CFG update: the kernels (``kernel.py``)
+for CUDA tensors, the plain versions (``ref.py``) for CPU tensors.
+
+``cfg_update`` and ``cfg_update_rowwise`` take the step's noise z from a
+tensor, or (``noise`` None) draw it from threefry keys: on the card inside
+the kernel, on the CPU as their plain versions, ``prng.normal`` of the same
+keys and then the plain update.  Each counts its launches in
+``.launches`` and the keyed ones also in ``.launches_keyed``."""
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -39,15 +47,41 @@ def mixed_coeffs(mode, s, ab_t, ab_prev, active, eta: float) -> np.ndarray:
     return np.concatenate([rows, m[..., None, :]], axis=-2)
 
 
-def step_scalars(s: float, ab_t, ab_prev, eta: float):
-    """(1+s, s, √(1−ᾱ_t), √ᾱ_t, √ᾱ_prev, dir_coef, σ) of one reverse step:
-    ``rowwise_coeffs`` of a single row, except that 1+s is rounded once
-    from the host number, as the plain version rounds a Python scalar."""
-    return (np.float32(1.0 + s),
-            *rowwise_coeffs(s, ab_t, ab_prev, 1, eta)[1:7])
+@functools.lru_cache(maxsize=4096)
+def step_scalars(s: float, ab_t: float, ab_prev: float,
+                 eta: float) -> tuple[float, ...]:
+    """(1+s, s, √(1−ᾱ_t), √ᾱ_t, √ᾱ_prev, dir_coef, σ) of one reverse step,
+    float32 values as Python floats: ``rowwise_coeffs`` of a single row,
+    except that 1+s is rounded once from the host number, as the plain
+    version rounds a Python scalar.  Cached: every wave at one guidance
+    and schedule repeats the same steps, so a step's call does no numpy
+    after the first wave."""
+    return (float(np.float32(1.0 + s)),
+            *(float(v) for v in rowwise_coeffs(s, ab_t, ab_prev, 1,
+                                               eta)[1:7]))
+
+
+def key_table(keys, device) -> torch.Tensor:
+    """Threefry keys (..., 2) uint32 as the int32 tensor on ``device`` that
+    the rowwise kernel reads (the same 32-bit words)."""
+    keys = np.ascontiguousarray(keys, np.uint32)
+    return torch.as_tensor(keys.view(np.int32), device=device)
 
 
 def _check_update_inputs(name, x, *others):
+    """Raise on tensors the kernels do not take.  The common case (fp32,
+    contiguous, one device and shape) costs one pass of four attribute
+    reads a tensor: this runs once per reverse step."""
+    dev, shape, f32 = x.get_device(), x.shape, torch.float32
+    for t in (x, *others):
+        if (t.get_device() != dev or t.dtype != f32 or t.shape != shape
+                or not t.is_contiguous()):
+            break
+    else:
+        if dev >= 0 and x.numel() < 2 ** 31 and not (
+                torch.is_grad_enabled()
+                and any(t.requires_grad for t in (x, *others))):
+            return
     check_cuda_inputs(name, x, *others)
     for t in others:
         if t.shape != x.shape:
@@ -59,31 +93,64 @@ def _check_update_inputs(name, x, *others):
         raise ValueError(f"{name}: more than 2**31 elements")
 
 
+def _one_source(name, noise, keys):
+    if (noise is None) == (keys is None):
+        raise ValueError(f"{name}: give noise or noise keys, not both or "
+                         f"neither")
+
+
 def cfg_update(x, eps_c, eps_u, s: float, ab_t, ab_prev, noise,
-               eta: float = 1.0):
+               eta: float = 1.0, *, noise_key=None, live: bool = True):
     """Fused (1+s)·ε_c − s·ε_u guidance + ancestral update.  x, eps_c,
     eps_u and noise share one arbitrary shape; s, ab_t, ab_prev and eta
-    are scalars (host numbers on the CUDA path)."""
-    if x.device.type == "cpu":
+    are scalars (host numbers on the CUDA path).
+
+    With ``noise`` None, z is ``prng.normal(noise_key, x.shape)`` for the
+    threefry key ``noise_key`` (two uint32 words), or 0 where not ``live``
+    (the t = 0 step)."""
+    _one_source("cfg_update", noise, noise_key)
+    if x.is_cpu:
+        if noise is None:
+            return ref.cfg_update_keyed(x, eps_c, eps_u, s, ab_t, ab_prev,
+                                        noise_key, live, eta)
         return ref.cfg_update(x, eps_c, eps_u, s, ab_t, ab_prev, noise, eta)
-    _check_update_inputs("cfg_update", x, eps_c, eps_u, noise)
-    out = K.cfg_update_flat(x, eps_c, eps_u, noise,
-                            step_scalars(s, ab_t, ab_prev, eta))
+    _check_update_inputs("cfg_update", x, eps_c, eps_u,
+                         *(() if noise is None else (noise,)))
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"cfg_update on CUDA: {x.dtype}; fp32 "
+                                  f"only")
+    scalars = step_scalars(float(s), float(ab_t), float(ab_prev),
+                           float(eta))
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    if noise is None:
+        out = K.cfg_update_flat(x, eps_c, eps_u, None, scalars,
+                                key=noise_key, live=live)
+        cfg_update.launches_keyed += 1
+    else:
+        out = K.cfg_update_flat(x, eps_c, eps_u, noise, scalars)
     cfg_update.launches += 1
     return out
 
 
 cfg_update.launches = 0
+cfg_update.launches_keyed = 0
 
 
 def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,
                        eta: float = 1.0, *, row_offset: int = 0,
-                       coeffs: torch.Tensor | None = None):
+                       coeffs: torch.Tensor | None = None, noise_keys=None,
+                       live=None):
     """Per-row fused update for ragged waves.  ``s``, ``ab_t``, ``ab_prev``
     and ``active`` are host vectors (Bs,) that may span a wider wave than
     ``x``'s batch: tensor row b uses slot ``row_offset + b``, and a row
     whose ``active`` is not > 0 passes through bit-unchanged.  An offset
     whose window leaves the table raises ``ValueError``.
+
+    With ``noise`` None, row b's z is ``prng.normal(noise_keys[b],
+    x.shape[1:])`` times ``live[b]``: ``noise_keys`` is an int32 (B, 2)
+    tensor of the tensor rows' threefry keys (``key_table``) and ``live``
+    a float32 (B,) tensor of 1 and 0, both on x's device.
 
     On CUDA the kernel reads ``coeffs``, the (8, Bs) device table of
     ``rowwise_coeffs`` for these vectors, when the caller uploaded it once
@@ -92,24 +159,48 @@ def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,
     if row_offset < 0 or row_offset + B > Bs:
         raise ValueError(f"rowwise scalars span {Bs} rows; window "
                          f"[{row_offset}, {row_offset + B}) is out of range")
-    if x.device.type == "cpu":
+    _one_source("cfg_update_rowwise", noise, noise_keys)
+    if noise is None and live is None:
+        raise ValueError("cfg_update_rowwise: drawing from noise keys needs "
+                         "the rows' live vector")
+    if x.is_cpu:
+        if noise is None:
+            noise = ref.row_noise(noise_keys, live, x.shape[1:], x.device)
         return ref.cfg_update_rowwise_windowed(
             x, eps_c, eps_u, s, ab_t, ab_prev, noise, active, row_offset, eta)
-    _check_update_inputs("cfg_update_rowwise", x, eps_c, eps_u, noise)
+    _check_update_inputs("cfg_update_rowwise", x, eps_c, eps_u,
+                         *(() if noise is None else (noise,)))
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"cfg_update_rowwise on CUDA: {x.dtype}; "
+                                  f"fp32 only")
+    dev = x.get_device()
     if coeffs is None:
         coeffs = torch.as_tensor(rowwise_coeffs(s, ab_t, ab_prev, active,
                                                 eta), device=x.device)
     if coeffs.shape != (8, Bs) or coeffs.dtype != torch.float32 \
-            or coeffs.device != x.device or not coeffs.is_contiguous():
+            or coeffs.get_device() != dev or not coeffs.is_contiguous():
         raise ValueError(f"cfg_update_rowwise: coeffs must be a contiguous "
                          f"float32 (8, {Bs}) table on {x.device}")
+    if noise is None and (
+            noise_keys.shape != (B, 2) or noise_keys.dtype != torch.int32
+            or live.shape != (B,) or live.dtype != torch.float32
+            or noise_keys.get_device() != dev or live.get_device() != dev
+            or not (noise_keys.is_contiguous() and live.is_contiguous())):
+        raise ValueError(f"cfg_update_rowwise: noise_keys must be a "
+                         f"contiguous int32 ({B}, 2) and live a contiguous "
+                         f"float32 ({B},) tensor on {x.device}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
     out = K.cfg_update_rowwise_flat(x, eps_c, eps_u, noise, coeffs,
-                                    row_offset)
+                                    row_offset, keys=noise_keys, live=live)
     cfg_update_rowwise.launches += 1
+    if noise is None:
+        cfg_update_rowwise.launches_keyed += 1
     return out
 
 
 cfg_update_rowwise.launches = 0
+cfg_update_rowwise.launches_keyed = 0
 
 
 def cfg_update_mixed(x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,

@@ -1,6 +1,6 @@
 """Plain PyTorch version of the fused CFG-guidance + ancestral-update step.
 
-The numerical contract the Triton kernel must match (the JAX package's
+The numerical contract the kernels must match (the JAX package's
 ``kernels/cfg_fuse/ref.py``):
 
     ε̂      = (1+s)·ε_c − s·ε_u                        (paper Eq. 8)
@@ -10,10 +10,17 @@ The numerical contract the Triton kernel must match (the JAX package's
 
 ``ab_t``/``ab_prev`` are scalars (numbers or 0-d tensors), taken as fp32
 like the reference's traced scalars; the rowwise forms take one per row.
+
+The keyed forms are the kernels' draw-in-registers mode: z is
+``prng.normal`` of the given threefry keys, as the samplers draw it, then
+the same update.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
@@ -33,6 +40,26 @@ def ancestral_step(x, eps, ab_t, ab_prev, noise, eta: float = 1.0):
 def cfg_update(x, eps_c, eps_u, s, ab_t, ab_prev, noise, eta: float = 1.0):
     eps = (1.0 + s) * eps_c - s * eps_u
     return ancestral_step(x, eps, ab_t, ab_prev, noise, eta)
+
+
+def cfg_update_keyed(x, eps_c, eps_u, s, ab_t, ab_prev, key, live: bool,
+                     eta: float = 1.0):
+    """``cfg_update`` with z = ``prng.normal(key, x.shape)`` on x's device,
+    or zeros where the step is not ``live`` (t = 0)."""
+    z = (prng.normal(np.asarray(key, np.uint32), x.shape, x.device) if live
+         else torch.zeros_like(x))
+    return cfg_update(x, eps_c, eps_u, s, ab_t, ab_prev, z, eta)
+
+
+def row_noise(keys, live, shape, device) -> torch.Tensor:
+    """Each row's noise: ``prng.normal(keys[b], shape)`` times ``live[b]``.
+    ``keys`` is a (B, 2) int32 tensor of the uint32 key words or a uint32
+    array; ``live`` (B,) holds 1 and 0."""
+    if isinstance(keys, torch.Tensor):
+        keys = keys.cpu().numpy().view(np.uint32)
+    z = prng.normal(np.asarray(keys, np.uint32), shape, device)
+    live = torch.as_tensor(live, dtype=torch.float32, device=device)
+    return z * live.reshape((-1,) + (1,) * len(shape))
 
 
 def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,

@@ -546,8 +546,6 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-__global__ void empty_kernel() {}
-
 typedef void (*KernelFn)(const Params);
 
 constexpr int kClasses[] = {16, 32, 48, 64, 96, 128, 256};
@@ -615,7 +613,7 @@ struct OnDevice {
 
 // cudaFuncSetAttribute for fn's shared memory, once per instance and
 // device (slot: the instance's index; a bit a device)
-std::atomic<unsigned long long> g_smem_set[2 * kNumClasses + 1];
+std::atomic<unsigned long long> g_smem_set[2 * kNumClasses];
 
 template <typename Fn>
 int allow_smem(Fn fn, int slot, int dev, size_t bytes) {
@@ -703,19 +701,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                              (int)g[25], (size_t)g[24]);
   if (err != 0) return err;
   fn<<<(unsigned)g[23], kThreads, (size_t)g[24], stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// An empty kernel at the grid, block and shared memory that
-// flash_attention_fwd would launch with g: the launch floor of that call.
-extern "C" int flash_attention_empty(const long long* g,
-                                     cudaStream_t stream) {
-  if (!geometry_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
-  OnDevice on((int)g[25]);
-  const int err = allow_smem(empty_kernel, 2 * kNumClasses, (int)g[25],
-                             232448);
-  if (err != 0) return err;
-  empty_kernel<<<(unsigned)g[23], kThreads, (size_t)g[24], stream>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -289,8 +289,6 @@ short_fwd_kernel(const Params p) {
   }
 }
 
-__global__ void empty_kernel() {}
-
 typedef void (*KernelFn)(const Params);
 
 template <typename T, int... HDPs>
@@ -410,15 +408,4 @@ extern "C" int flash_attention_short_occupancy(const long long* g) {
                                                     g[23]) != cudaSuccess)
     return -1;
   return blocks;
-}
-
-// An empty kernel at the geometry flash_attention_short_fwd would launch
-// with g: the launch floor of that call.
-extern "C" int flash_attention_short_empty(const long long* g,
-                                           cudaStream_t stream) {
-  if (!geometry_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((g[2] + g[21] - 1) / g[21], g[1]);
-  OnDevice on(g[24]);
-  empty_kernel<<<grid, g[21] * 32, g[23], stream>>>();
-  return static_cast<int>(cudaGetLastError());
 }

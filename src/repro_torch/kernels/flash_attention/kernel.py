@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels.build import nvcc_library, whole_chunks
 
 SOURCE = Path(__file__).with_name("csrc") / "flash_attention.cu"
@@ -131,9 +132,10 @@ def _scale(hd: int) -> float:
     return hd ** -0.5
 
 
-# the CUDA-core kernel (256 threads a block): per head-dim class (hd rounded
-# up to the class, columns past hd zeros) the query rows BM and keys BN of
-# a tile (the source's Tiles)
+# the CUDA-core kernel (CUDA_CORE_THREADS a block, the source's kThreads):
+# per head-dim class (hd rounded up to the class, columns past hd zeros) the
+# query rows BM and keys BN of a tile (the source's Tiles)
+CUDA_CORE_THREADS = 256
 CUDA_CORE_TILES = {16: (128, 64), 32: (128, 64), 48: (128, 32),
                    64: (128, 32), 96: (64, 64), 128: (64, 64), 256: (64, 32)}
 MAX_SMEM = 232448                 # what one block may use on an H100
@@ -202,10 +204,8 @@ def _lib():
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_char_p, ctypes.c_float,
                                  ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_empty.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
     lib.flash_attention_occupancy.argtypes = [ctypes.c_int] * 3
-    for fn in (lib.flash_attention_fwd, lib.flash_attention_empty,
-               lib.flash_attention_occupancy):
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_occupancy):
         fn.restype = ctypes.c_int
     return lib
 
@@ -256,11 +256,8 @@ def cuda_core_empty_launch(q, k, v) -> None:
     ``flash_attention_bshd`` would launch for these inputs: the launch
     floor of the call (not counted as a launch of the kernel)."""
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    err = _lib().flash_attention_empty(
-        _cuda_core_args(q, k, v, ptrs, False, 0),
-        torch._C._cuda_getCurrentRawStream(q.get_device()))
-    if err != 0:
-        raise RuntimeError(f"flash_attention_empty failed: CUDA error {err}")
+    g = _CC_ARGS.unpack(_cuda_core_args(q, k, v, ptrs, False, 0))
+    _build.empty_launch((g[23], 1), CUDA_CORE_THREADS, g[24], g[25])
 
 
 def cuda_core_occupancy(dtype: torch.dtype, hdp: int, device: int) -> int:
@@ -319,12 +316,10 @@ def _short_lib():
     lib.flash_attention_short_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_char_p, ctypes.c_float,
                                  ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_short_empty.argtypes = [ctypes.c_char_p,
-                                                ctypes.c_void_p]
     lib.flash_attention_short_occupancy.argtypes = [ctypes.c_char_p]
     lib.flash_attention_short_memory_only.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_char_p, ctypes.c_void_p])
-    for fn in (lib.flash_attention_short_fwd, lib.flash_attention_short_empty,
+    for fn in (lib.flash_attention_short_fwd,
                lib.flash_attention_short_occupancy,
                lib.flash_attention_short_memory_only):
         fn.restype = ctypes.c_int
@@ -376,12 +371,9 @@ def short_empty_launch(q, k, v) -> None:
     ``flash_attention_short_bshd`` would launch for these inputs: the
     launch floor of the call (not counted as a launch of the kernel)."""
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    err = _short_lib().flash_attention_short_empty(
-        _short_args(q, k, v, ptrs, False, 0),
-        torch._C._cuda_getCurrentRawStream(q.get_device()))
-    if err != 0:
-        raise RuntimeError(f"flash_attention_short_empty failed: CUDA error "
-                           f"{err}")
+    g = _SHORT_ARGS.unpack(_short_args(q, k, v, ptrs, False, 0))
+    # g[21] warps a block, one query head each, over (head groups, batch)
+    _build.empty_launch((-(-g[2] // g[21]), g[1]), g[21] * 32, g[23], g[24])
 
 
 def short_occupancy(q, k, v) -> int:

@@ -19,7 +19,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.oscar import DiffusionConfig
 from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
-                                           sample_classifier_guided)
+                                           sample_classifier_guided,
+                                           sample_mixed)
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.kernels.adaln_norm import ops as an_ops
 from repro_torch.kernels.adaln_norm import ref as an_ref
@@ -131,6 +132,104 @@ def test_cfg_update_mixed_kernel_is_bit_equal_to_plain(dev, B, Bs, off):
         with pytest.raises(ValueError):
             cfg_ops.cfg_update_mixed(x, ec, eu, 0 * s, s, ab_t, ab_prev, z,
                                      act, row_offset=bad)
+
+
+# (ᾱ_t, ᾱ_prev, t): the t = 999 first step of a 4-step trajectory, a mid
+# step and the last (t = 0) step
+CFG_STEPS = [(2.4288882e-09, 0.24600048, 999), (0.3, 0.6, 500),
+             (0.9, 1.0, 0)]
+
+
+def _offset_view(dev, seed, shape):
+    """A contiguous tensor 4 bytes off 16-byte alignment: the kernel reads
+    it one element at a time."""
+    n = int(np.prod(shape))
+    (buf,) = _randn(dev, seed, (n + 1,))
+    return buf[1:].view(shape)
+
+
+@pytest.mark.parametrize("shape,layout", [
+    ((128, 16, 16, 3), "contiguous"), ((120, 16, 16, 3), "contiguous"),
+    ((3, 5, 7), "contiguous"), ((120, 16, 16, 3), "offset")])
+@pytest.mark.parametrize("keyed", [False, True])
+def test_cfg_update_kernel_modes_are_bit_equal_to_plain(dev, shape, layout,
+                                                        keyed):
+    """Both noise sources at the first, a mid and the last step: z from
+    memory against ``ref.cfg_update``, z drawn from the step key against
+    ``prng.normal`` of that key then ``ref.cfg_update`` (zero at t = 0)."""
+    if layout == "offset":
+        x, ec, eu, z = (_offset_view(dev, 20 + i, shape) for i in range(4))
+    else:
+        x, ec, eu, z = _randn(dev, 20, shape, shape, shape, shape)
+    key = prng.split(prng.PRNGKey(6))[1]
+    for ab_t, ab_prev, t in CFG_STEPS:
+        n0 = (cfg_ops.cfg_update.launches, cfg_ops.cfg_update.launches_keyed)
+        if keyed:
+            out = cfg_ops.cfg_update(x, ec, eu, 2.0, ab_t, ab_prev, None,
+                                     noise_key=tuple(int(k) for k in key),
+                                     live=t > 0)
+            zz = (prng.normal(key, shape, dev) if t > 0
+                  else torch.zeros_like(x))
+        else:
+            out, zz = cfg_ops.cfg_update(x, ec, eu, 2.0, ab_t, ab_prev, z), z
+        assert (cfg_ops.cfg_update.launches - n0[0],
+                cfg_ops.cfg_update.launches_keyed - n0[1]) == (1, int(keyed))
+        assert torch.equal(out, cfg_ref.cfg_update(x, ec, eu, 2.0, ab_t,
+                                                   ab_prev, zz))
+
+
+@pytest.mark.parametrize("B,Bs,off,row", [
+    (120, 120, 0, (16, 16, 3)), (128, 128, 0, (16, 16, 3)),
+    (120, 240, 120, (16, 16, 3)), (60, 240, 37, (16, 16, 3)),
+    (3, 9, 0, (5, 7)), (5, 9, 3, (5, 7))])
+@pytest.mark.parametrize("keyed", [False, True])
+def test_cfg_update_rowwise_kernel_modes_are_bit_equal_to_plain(
+        dev, B, Bs, off, row, keyed):
+    """Both noise sources over windows of a wider table, with frozen rows,
+    rows at the t = 999 first step and rows at their t = 0 last step:
+    against the plain version fed z, or ``prng.normal`` of each row's key
+    times its live entry."""
+    s, ab_t, ab_prev, act = _rowwise_table(Bs)
+    x, ec, eu, z = _randn(dev, 21, *[(B, *row)] * 4)
+    keys = prng.split(prng.PRNGKey(7), B)
+    live = torch.as_tensor(np.arange(B) % 5 != 2, device=dev).float()
+    n0 = (cfg_ops.cfg_update_rowwise.launches,
+          cfg_ops.cfg_update_rowwise.launches_keyed)
+    if keyed:
+        out = cfg_ops.cfg_update_rowwise(
+            x, ec, eu, s, ab_t, ab_prev, None, act, row_offset=off,
+            noise_keys=cfg_ops.key_table(keys, dev), live=live)
+        z = prng.normal(keys, row, dev) * live.reshape(-1, *[1] * len(row))
+    else:
+        out = cfg_ops.cfg_update_rowwise(x, ec, eu, s, ab_t, ab_prev, z, act,
+                                         row_offset=off)
+    assert (cfg_ops.cfg_update_rowwise.launches - n0[0],
+            cfg_ops.cfg_update_rowwise.launches_keyed - n0[1]) \
+        == (1, int(keyed))
+    dev_vecs = [torch.as_tensor(v, device=dev) for v in (s, ab_t, ab_prev,
+                                                         act)]
+    ref = cfg_ref.cfg_update_rowwise_windowed(
+        x, ec, eu, *dev_vecs[:3], z, dev_vecs[3], row_offset=off)
+    assert torch.equal(out, ref)
+    frozen = torch.as_tensor(act[off:off + B] == 0, device=dev)
+    assert torch.equal(out[frozen], x[frozen])
+
+
+def test_cfg_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros(4, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        cfg_ops.cfg_update(x, x, x, 1.0, 0.3, 0.6, x)
+    x = torch.zeros(4, 8, device=dev)
+    vec = np.ones(4, np.float32)
+    keys = cfg_ops.key_table(prng.split(prng.PRNGKey(0), 4), dev)
+    with pytest.raises(ValueError):          # keys of the wrong rows
+        cfg_ops.cfg_update_rowwise(x, x, x, vec, vec, vec, None, vec,
+                                   noise_keys=keys[:3],
+                                   live=torch.ones(3, device=dev))
+    with pytest.raises(ValueError):          # keys off the card
+        cfg_ops.cfg_update_rowwise(x, x, x, vec, vec, vec, None, vec,
+                                   noise_keys=keys.cpu(),
+                                   live=torch.ones(4, device=dev))
 
 
 @pytest.mark.parametrize("B,N,d", [(256, 17, 144), (256, 16, 144),
@@ -735,6 +834,59 @@ def test_ragged_wave_kernel_path_matches_plain(dev):
     ref = sample_cfg_ragged(plain, sched, y, keys, g, steps)
     assert float(ref.abs().max()) > 1e-3
     assert _err(out, ref) < 5e-4
+
+
+def _seeded_dit(dev):
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
+    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
+                device=dev)
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
+    return model
+
+
+def test_sample_cfg_draws_its_noise_in_the_kernel(dev):
+    """A uniform wave from a key on the card hands each step's key to the
+    kernel (4 keyed launches, no noise drawn before the loop) and gives
+    the bits of the same wave fed x_T and the step noise drawn by
+    ``prng.normal`` from the same split chain."""
+    model = _seeded_dit(dev)
+    (y,) = _randn(dev, 4, (8, 512))
+    sched = make_schedule(device=dev)
+    key = prng.PRNGKey(5)
+    n0 = (cfg_ops.cfg_update.launches, cfg_ops.cfg_update.launches_keyed)
+    out = sample_cfg(model, sched, y, key, num_steps=4)
+    assert (cfg_ops.cfg_update.launches - n0[0],
+            cfg_ops.cfg_update.launches_keyed - n0[1]) == (4, 4)
+    k, k0 = prng.split(key)
+    chain = []
+    for _ in range(4):
+        k, kn = prng.split(k)
+        chain.append(kn)
+    draws = prng.normal(np.stack([k0, *chain]), (8, 16, 16, 3), dev)
+    ref = sample_cfg(model, sched, y, num_steps=4, x_T=draws[0],
+                     noise=draws[1:])
+    assert torch.equal(out, ref)
+
+
+def test_ragged_wave_draws_its_noise_in_the_kernel(dev):
+    """A ragged wave's rows draw their step noise in the rowwise kernel
+    from their keys; the same rows as a mixed wave of classifier-free
+    rows only (noise drawn before the loop, the mixed kernel, bit-equal
+    to the rowwise one) give the same bits."""
+    model = _seeded_dit(dev)
+    (y,) = _randn(dev, 6, (8, 512))
+    g = np.array([1.5, 4.0, 7.5, 1.5] * 2, np.float32)
+    steps = np.array([4, 4, 2, 2] * 2)
+    keys = prng.split(prng.PRNGKey(3), 8)
+    sched = make_schedule(device=dev)
+    n0 = cfg_ops.cfg_update_rowwise.launches_keyed
+    out = sample_cfg_ragged(model, sched, y, keys, g, steps)
+    assert cfg_ops.cfg_update_rowwise.launches_keyed == n0 + 4
+    ref = sample_mixed(model, sched, y, keys, g, np.zeros(8, np.float32),
+                       None, None, steps)
+    assert torch.equal(out, ref)
 
 
 def test_classifier_gradient_of_a_row_does_not_depend_on_its_batch(dev):

@@ -143,3 +143,10 @@ def test_rmsnorm_vector_route_refuses_padded_or_unaligned_views():
     assert not RK.vector_route(x[:, 1:2305])     # 2 bytes off
     assert not RK.vector_route(
         torch.zeros(6, 2310, dtype=torch.bfloat16)[:, :2304])  # padded rows
+
+
+def test_cuda_core_threads_match_the_source():
+    # the empty launch of the CUDA-core kernel's floor takes its block size
+    # from CUDA_CORE_THREADS
+    src = K.SOURCE.read_text()
+    assert f"constexpr int kThreads = {K.CUDA_CORE_THREADS};" in src

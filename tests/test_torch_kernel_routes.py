@@ -9,8 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.adaln_norm import kernel as AN
+from repro_torch.kernels.cfg_fuse import kernel as CK
 from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.rmsnorm import kernel as RK
 
 
 def _qkv(Sq=17, Sk=17, hd=36, Hq=4, Hkv=4, dtype=torch.float32):
@@ -137,3 +140,15 @@ def test_adaln_geometry_of_the_dit():
     # one block per batch row: 17 (16 for tok[:, 1:]) warps, 256 blocks
     assert AN.geometry(256, 17, 144, True, 4) == (8, 17, 1, 256, 1152)
     assert AN.geometry(256, 16, 144, True, 4) == (8, 16, 1, 256, 1152)
+
+
+def test_launch_floors_share_one_empty_kernel():
+    """Every launch floor is measured through ``build.empty_launch``: the
+    kernels' own sources define no empty kernel, and the helper's source
+    defines the one it launches."""
+    for src in (AN.SOURCE, CK.SOURCE, K.SOURCE, K.SHORT_SOURCE, K.TC_SOURCE,
+                RK.SOURCE):
+        assert "empty_kernel" not in src.read_text(), src.name
+    empty = build.EMPTY_SOURCE.read_text()
+    assert "__global__ void empty_kernel() {}" in empty
+    assert 'extern "C" int empty_launch(' in empty
