@@ -7,18 +7,17 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. card check, build of every kernel (nvcc for the six CUDA sources
-     and the empty kernel of the launch floors, all started together;
-     first launch for the Triton kernel), with the
-     build seconds and ptxas's report (neither the tensor-core flash kernel
-     nor any of the CUDA-core flash kernel's 14 instances nor cfg_fuse.cu
-     may spill);
+     and the empty kernel of the launch floors, all started together),
+     with the build seconds and ptxas's report (neither the tensor-core
+     flash kernel nor any of the CUDA-core flash kernel's 14 instances nor
+     any of cfg_fuse.cu's six may spill), then each kernel's first launch;
   2. each kernel against its plain PyTorch version at the main path's
      shapes and at edge shapes, with kernel (per call and on the device),
      plain and library times (per call and, where there is a library
      call, on the device), the card's lower bound for the same work (bytes
      and fp32 or bf16 operations; the keyed cfg rows also print an int32
      estimate), and the launch floor (``build.empty_launch`` at the same
-     launch); the two cfg kernels in both
+     launch); the three cfg variants (scalar, rowwise, mixed) in both
      noise modes (z from memory, z drawn from threefry keys), bit-equal
      to their plain versions; for the DiT's two kernels and the cfg
      kernels what their bindings cost on the host; the DiT's
@@ -56,9 +55,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      steps by category parity, two seeded ResNet-18 classifiers chosen
      by parity) and four unconditional requests, 30 samples each, served
      as merged ragged and merged compacted waves, with stats and launch
-     counts checked against a plan computed here, merged against
-     isolated-mode D_syn, ragged against compacted, a 4-step mixed wave on
-     the kernel path against the plain DiT, and one traced mixed wave;
+     counts checked against a plan computed here (every step's noise drawn
+     in the update kernels, mixed waves' in the mixed variant, counted in
+     ``launches_keyed``), the SHA-256 of the first ragged round's D_syn,
+     merged against isolated-mode D_syn, ragged against compacted, a
+     4-step mixed wave on the kernel path against the plain DiT, and one
+     traced mixed wave;
      7b. the DiT at the paper's 224 px (S = 3137, the preset's width, 4
      layers, batch 8): kernel path against plain path, every attention on
      the CUDA-core kernel, the call's device time and attention's share;
@@ -90,6 +92,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import math
 import re
@@ -380,8 +383,8 @@ def main() -> int:
           "instructions of flash_attention_tc")
     cfg_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", build_log(cfg_kernel.SOURCE))
-    # the four instances: scalar and rowwise, z from memory and keyed
-    check(len(cfg_spills) == 4 and all(a == b == "0" for a, b in cfg_spills),
+    # the six instances: scalar, rowwise and mixed, z from memory and keyed
+    check(len(cfg_spills) == 6 and all(a == b == "0" for a, b in cfg_spills),
           f"cfg_fuse.cu spills: {cfg_spills}")
     cc_instances = ptxas_instances(build_log(fa_kernel.SOURCE),
                                    r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E")
@@ -399,14 +402,13 @@ def main() -> int:
                              0.7 * one, small, one)
     rn_ops.rmsnorm(small, randn(8))
     torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t0
+    t_first = time.perf_counter() - t0
     say(f"[1] build: nvcc {t_nvcc:.2f} s for all seven sources together ("
         + ", ".join(f"{src.name} {sec:.2f} s" for src, sec in nvcc_s.items())
         + f"; flash_attention_tc 4 instances, flash_attention "
         f"{len(cc_instances)} and cfg_fuse {len(cfg_spills)}, 0 spill "
-        f"bytes), first launches of adaln_norm, rmsnorm, cfg_update and "
-        f"cfg_update_rowwise and of the Triton cfg_update_mixed "
-        f"{t_triton:.2f} s")
+        f"bytes), first launches of adaln_norm, rmsnorm, cfg_update, "
+        f"cfg_update_rowwise and cfg_update_mixed {t_first:.2f} s")
 
     # -- 2. kernels against their plain versions -----------------------------
     kernels = {}
@@ -698,61 +700,126 @@ def main() -> int:
            geometry=geometry_of(rk_args))
 
     # cfg_update_mixed: the same tables with a mode row, all 0 (bit-equal
-    # to cfg_update_rowwise), all 1, and mixed over the inactive rows
+    # to cfg_update_rowwise in the same noise mode), all 1, and mixed over
+    # the inactive rows, in both noise modes; the windows draw x, ε_c, ε_u
+    # and z from `g` in their old order, the 128-row wave and odd rows from
+    # g18 (one element a thread); then the refusal of a window that leaves
+    # the table, in both modes
     def mode_row(kind, Bs):
         i = np.arange(Bs)
         return {"cfg": 0 * i, "clf": 0 * i + 1,
                 "mixed": (i % 3 == 1) * 1}[kind].astype(np.float32)
 
-    checks = []
+    def mixed_pair(x, ec, eu, z, vecs, off):
+        B, Bs = x.shape[0], len(vecs[0])
+        s_, t_, p_, a_ = on_card(vecs)
+        keys, dkeys, live = row_keys_of(B)
+        frozen = torch.as_tensor(vecs[3][off:off + B] == 0, device=dev)
+        sources = (("", z, {}, z, checks),
+                   ("keyed ", None, dict(noise_keys=dkeys, live=live),
+                    cfg_ref.row_noise(keys, live, x.shape[1:], dev),
+                    keyed_checks))
+        for kind in ("cfg", "clf", "mixed"):
+            mode = mode_row(kind, Bs)
+            dmode = on_card([mode])[0]
+            for label, noise, zk, plain_z, into in sources:
+                out = cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3],
+                                               noise, vecs[3],
+                                               row_offset=off, **zk)
+                ref = cfg_ref.cfg_update_mixed_windowed(
+                    x, ec, eu, dmode, s_, t_, p_, plain_z, a_, row_offset=off)
+                check(torch.equal(out[frozen], x[frozen]),
+                      f"{label}cfg_update_mixed changed a frozen row")
+                if kind == "cfg":
+                    check(torch.equal(out, cfg_ops.cfg_update_rowwise(
+                        x, ec, eu, *vecs[:3], noise, vecs[3], row_offset=off,
+                        **zk)), f"all-mode-0 {label}cfg_update_mixed is not "
+                        f"bit-equal to {label}cfg_update_rowwise")
+                into.append(dict(shape=list(x.shape), slots=Bs,
+                                 row_offset=off, modes=kind,
+                                 max_abs_err=max_err(out, ref)))
+        for bad in (-1, Bs - B + 1):
+            for label, noise, zk, _, _ in sources:
+                try:
+                    cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], noise,
+                                             vecs[3], row_offset=bad, **zk)
+                except ValueError:
+                    continue
+                check(False, f"{label}cfg_update_mixed took row_offset {bad} "
+                      f"of {Bs} slots for {B} rows")
+
+    checks, keyed_checks = [], []
     for B, Bs, off in [(120, 120, 0), (120, 240, 0), (120, 240, 120),
                        (60, 240, 37)]:
         vecs = rowwise_table(Bs)
         x, ec, eu, z = (randn(B, 16, 16, 3) for _ in range(4))
-        s_, t_, p_, a_ = on_card(vecs)
-        for kind in ("cfg", "clf", "mixed"):
-            mode = mode_row(kind, Bs)
-            out = cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], z,
-                                           vecs[3], row_offset=off)
-            ref = cfg_ref.cfg_update_mixed_windowed(
-                x, ec, eu, on_card([mode])[0], s_, t_, p_, z, a_,
-                row_offset=off)
-            frozen = torch.as_tensor(vecs[3][off:off + B] == 0, device=dev)
-            check(torch.equal(out[frozen], x[frozen]),
-                  "cfg_update_mixed changed a frozen row")
-            if kind == "cfg":
-                check(torch.equal(out, cfg_ops.cfg_update_rowwise(
-                    x, ec, eu, *vecs[:3], z, vecs[3], row_offset=off)),
-                    "all-mode-0 cfg_update_mixed is not bit-equal to "
-                    "cfg_update_rowwise")
-            checks.append(dict(shape=[B, 16, 16, 3], slots=Bs, row_offset=off,
-                               modes=kind, max_abs_err=max_err(out, ref)))
-    for bad in (-1, len(vecs[0]) - x.shape[0] + 1):
-        try:
-            cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], z, vecs[3],
-                                     row_offset=bad)
-        except ValueError:
-            continue
-        check(False, f"cfg_update_mixed took row_offset {bad} of "
-              f"{len(vecs[0])} slots for {x.shape[0]} rows")
+        mixed_pair(x, ec, eu, z, vecs, off)
+    for B, Bs, off, row in [(128, 128, 0, (16, 16, 3)), (3, 9, 0, (5, 7)),
+                            (5, 9, 3, (5, 7))]:
+        mixed_pair(*(randn18(B, *row) for _ in range(4)),
+                   rowwise_table(Bs), off)
     vecs = rowwise_table(120)
     mode = mode_row("mixed", 120)
     x, ec, eu, z = (randn(120, 16, 16, 3) for _ in range(4))
     table = torch.as_tensor(cfg_ops.mixed_coeffs(mode, *vecs, 1.0),
                             device=dev)
     dvecs, dmode = on_card(vecs), on_card([mode])[0]
+    keys, dkeys, live = row_keys_of(120)
     n = x.numel()
-    record("cfg_update_mixed", "triton",
-           "src/repro_torch/kernels/cfg_fuse/kernel.py",
+    mx_out = torch.empty_like(x)
+    mz_args = cfg_kernel._args(x, ec, eu, z, mx_out, rows=120, coeffs=table,
+                               mixed=True)
+    mk_args = cfg_kernel._args(x, ec, eu, None, mx_out, rows=120,
+                               coeffs=table, mixed=True, keys=dkeys,
+                               live=live)
+    binding = cfg_binding(
+        lambda: cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], z,
+                                         vecs[3], coeffs=table),
+        lambda: cfg_kernel.cfg_update_mixed_flat(x, ec, eu, z, table, 0),
+        lambda: cfg_ops._check_update_inputs("cfg_update_mixed", x, ec, eu,
+                                             z),
+        x, lambda: cfg_kernel._args(x, ec, eu, z, mx_out, rows=120,
+                                    coeffs=table, mixed=True),
+        dict(wrapper=host_us(lambda: cfg_ops.cfg_update_mixed(
+            x, ec, eu, mode, *vecs[:3], None, vecs[3], coeffs=table,
+            noise_keys=dkeys, live=live))))
+    say(f"[2] cfg_update_mixed binding, host us per call ({smi}): "
+        f"{json.dumps(binding)}")
+    # what the data needs: an active classifier-free row reads x, ε_c, ε_u
+    # and z and writes out (13 operations an element), an active
+    # classifier-guided row no ε_u (10 operations: no combine), a frozen
+    # row is read once and written once; keyed, no z but each row's key
+    # and live entry.  90 of the 120 rows are active, 30 of them guided
+    active = vecs[3] > 0
+    n_cfg = n * int((active & (mode < 0.5)).sum()) // 120
+    n_clf = n * int((active & (mode >= 0.5)).sum()) // 120
+    n_frozen = n - n_cfg - n_clf
+    record("cfg_update_mixed", "cuda",
+           "src/repro_torch/kernels/cfg_fuse/csrc/cfg_fuse.cu",
            "src/repro/kernels/cfg_fuse/kernel.py:94", TOL_CFG, checks,
            lambda: cfg_ops.cfg_update_mixed(x, ec, eu, mode, *vecs[:3], z,
                                             vecs[3], coeffs=table),
            lambda: cfg_ref.cfg_update_mixed(x, ec, eu, dmode, *dvecs[:3], z,
                                             dvecs[3]), None,
-           5 * 4 * n + 4 * table.numel(), 13 * n, [120, 16, 16, 3],
-           # the Triton grid: a program of 4 warps per row
-           launch_floor_ms=graph_ms(lambda: empty_launch(
-               (120, 1), 128, 0, x.get_device())))
+           20 * n_cfg + 16 * n_clf + 8 * n_frozen + 4 * table.numel(),
+           13 * n_cfg + 10 * n_clf, [120, 16, 16, 3], mode="z from memory",
+           launch_floor_ms=floor_of(mz_args, x), host_us_breakdown=binding,
+           geometry=geometry_of(mz_args))
+    record("cfg_update_mixed_keyed", "cuda",
+           "src/repro_torch/kernels/cfg_fuse/csrc/cfg_fuse.cu",
+           "src/repro/kernels/cfg_fuse/kernel.py:94", TOL_CFG, keyed_checks,
+           lambda: cfg_ops.cfg_update_mixed(
+               x, ec, eu, mode, *vecs[:3], None, vecs[3], coeffs=table,
+               noise_keys=dkeys, live=live),
+           lambda: cfg_ref.cfg_update_mixed(
+               x, ec, eu, dmode, *dvecs[:3], cfg_ref.row_noise(
+                   keys, live, (16, 16, 3), dev), dvecs[3]), None,
+           16 * n_cfg + 12 * n_clf + 8 * n_frozen + 4 * table.numel()
+           + 12 * 120, (13 + draw_fp) * n_cfg + (10 + draw_fp) * n_clf,
+           [120, 16, 16, 3], int_ops=draw_int * (n_cfg + n_clf),
+           mode="z drawn from each row's threefry key",
+           launch_floor_ms=floor_of(mk_args, x),
+           host_us_breakdown=binding["keyed"], geometry=geometry_of(mk_args))
 
     # adaln_norm: the block sites (B, S, d), the final site (the strided
     # tok[:, 1:] view), the default d_model and an odd d (one element at a
@@ -1410,8 +1477,9 @@ def main() -> int:
     # the threefry draws of one 120-row wave of 50 steps: the grouped
     # wave's 51 keys (x_T and the steps) and the ragged wave's 50 x 120
     # row-step keys, each drawn in one call, as the samplers drew them
-    # before the loop until the update kernels drew their own (a mixed
-    # wave still does); and what stays eager on the card: each wave's x_T
+    # before the loop until the update kernels drew their own (the mixed
+    # waves too, since the mixed variant draws); and what stays eager on
+    # the card: each wave's x_T
     chain, k = [], key6
     for _ in range(51):
         k, sub = prng.split(k)
@@ -1432,10 +1500,10 @@ def main() -> int:
             "grouped_x_T_ms": cuda_ms(lambda: prng.normal(
                 chain[0], (120, 16, 16, 3), dev), 10),
             "ragged_x_T_ms": cuda_ms(lambda: prng.normal(
-                x_T_keys, (16, 16, 3), dev), 10),
-            "mixed_wave_step_noise_ms": ragged_ms},
+                x_T_keys, (16, 16, 3), dev), 10)},
         "drawn_in_the_update_kernel": "the step noise of uniform, ragged, "
-        "compacted and windowed classifier-free waves", "card": smi}}))
+        "compacted and windowed classifier-free waves and of mixed "
+        "guidance-mode waves", "card": smi}}))
     rates6 = {m: [r["images_per_s"] for r in mixed_rounds if r["mode"] == m]
               for m in ("ragged", "compacted")}
     say(json.dumps({"mixed_synthesis": {
@@ -1518,6 +1586,8 @@ def main() -> int:
             eng = engine7(compaction)
             for fn in fns.values():
                 fn.launches = 0
+            cfg_ops.cfg_update_rowwise.launches_keyed = 0
+            cfg_ops.cfg_update_mixed.launches_keyed = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1550,11 +1620,25 @@ def main() -> int:
                      "adaln_norm": iters * (2 * dc.num_layers + 1)}
             check(launches == want7, f"{mode} round {rnd}: launches "
                   f"{launches} != expected {want7}")
+            # every step's noise drawn in the update kernels, mixed waves'
+            # too
+            keyed7 = (cfg_ops.cfg_update_mixed.launches_keyed,
+                      cfg_ops.cfg_update_rowwise.launches_keyed)
+            check(keyed7 == (p7["mixed"], p7["rowwise"]),
+                  f"{mode} round {rnd}: keyed (mixed, rowwise) launches "
+                  f"{keyed7}, want {(p7['mixed'], p7['rowwise'])}")
             if rnd == 1:
                 d_syn7[mode] = out7
                 if mode == "ragged":
+                    kernels["cfg_update_mixed_keyed"]["launches"] = keyed7[0]
                     kernels["cfg_update_mixed"]["launches"] = \
-                        launches["cfg_update_mixed"]
+                        launches["cfg_update_mixed"] - keyed7[0]
+                    # the D_syn's bits, to compare with another tree's run
+                    sha7 = hashlib.sha256(b"".join(
+                        out7[r].float().cpu().numpy().tobytes()
+                        for r in range(74))).hexdigest()
+                    say(f"[7] ragged round 1 D_syn sha256 (rids 0-73 in "
+                        f"order, fp32 bytes): {sha7}")
             else:
                 check(all(torch.equal(out7[r], d_syn7[mode][r])
                           for r in out7),
@@ -1627,6 +1711,7 @@ def main() -> int:
               for m in ("ragged", "compacted")}
     say(json.dumps({"mixed_guidance": {
         "rounds": rounds7, "plan": plan7, "active_iters": active7,
+        "ragged_round_1_d_syn_sha256": sha7,
         "images_per_s": rates7, "ragged_vs_compacted_max_abs_err": err7_pack,
         "merged_vs_isolated_max_abs_err": err7_iso,
         "mixed_4_step_kernel_vs_plain_max_abs_err": err4,

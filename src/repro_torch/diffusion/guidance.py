@@ -419,8 +419,8 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     scalars at wave slot ``row_offset + b``.  Row b's step-j noise is
     ``fold_in(row_keys[b], max(j, 0) + 1)``, zero at t = 0: on the card
     the update kernel draws it from the (S, B) key table, uploaded once
-    (a mixed wave's noise, and the CPU's, is drawn before the loop).  The
-    update coefficients are formed on the host and uploaded once.  With
+    (on the CPU it is drawn before the loop).  The update coefficients
+    are formed on the host and uploaded once.  With
     ``mixed`` the update is ``cfg_update_mixed`` and each iteration first
     corrects the active classifier-guided rows.  Returns x unclipped."""
     B, H, W, C = x.shape
@@ -430,7 +430,7 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     nk = prng.fold_in(np.asarray(row_keys)[None],
                       np.maximum(jloc.T, 0) + 1)             # (S, B, 2)
     live = torch.as_tensor(ts_steps > 0, device=dev).float()
-    keyed = mixed is None and dev.type == "cuda"
+    keyed = dev.type == "cuda"
     if keyed:
         keys = cfg_ops.key_table(nk, dev)
     else:
@@ -453,16 +453,14 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
         eps2 = model(torch.cat([x, x], dim=0), t2, y2)
         eps_c, eps_u = eps2[:B], eps2[B:]
         if keyed:
-            x = cfg_ops.cfg_update_rowwise(
-                x, eps_c, eps_u, guidance, ab_t[:, i], ab_prev[:, i], None,
-                active[:, i], eta, row_offset=row_offset, coeffs=coeffs[i],
-                noise_keys=keys[i], live=live[i])
-            continue
+            z, z_keys = None, dict(noise_keys=keys[i], live=live[i])
+        else:
+            z, z_keys = noise[i], {}
         if mixed is None:
             x = cfg_ops.cfg_update_rowwise(
-                x, eps_c, eps_u, guidance, ab_t[:, i], ab_prev[:, i],
-                noise[i], active[:, i], eta, row_offset=row_offset,
-                coeffs=coeffs[i])
+                x, eps_c, eps_u, guidance, ab_t[:, i], ab_prev[:, i], z,
+                active[:, i], eta, row_offset=row_offset, coeffs=coeffs[i],
+                **z_keys)
             continue
         # frozen rows pass the update unchanged: only active classifier
         # rows need the gradient
@@ -479,8 +477,8 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
                              groups)
         x = cfg_ops.cfg_update_mixed(
             x, eps_c, eps_u, mixed.mode, guidance, ab_t[:, i], ab_prev[:, i],
-            noise[i], active[:, i], eta, row_offset=row_offset,
-            coeffs=coeffs[i])
+            z, active[:, i], eta, row_offset=row_offset, coeffs=coeffs[i],
+            **z_keys)
     return x
 
 

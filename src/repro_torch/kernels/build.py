@@ -1,10 +1,10 @@
 """Building and loading the port's hand-written GPU kernels.
 
 CUDA C++ sources are compiled by ``nvcc`` at first use into a shared
-library with a plain C interface, loaded with ``ctypes``.  Triton kernels
-compile at their first launch.  Both land in ``build/`` at the root of the
-checkout (gitignored): the library is named by a hash of its source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+library with a plain C interface, loaded with ``ctypes``.  The libraries
+land in ``build/`` at the root of the checkout (gitignored), each named by
+a hash of its source and flags, so an edited source rebuilds and an
+unchanged one is reused.
 """
 from __future__ import annotations
 
@@ -90,15 +90,6 @@ def empty_launch(grid: tuple[int, int], threads: int, smem: int,
         torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"empty_launch failed: CUDA error {err}")
-
-
-def import_triton():
-    """Import Triton at first launch (CPU-only installs lack it), with its
-    compile cache kept under ``build/`` unless the caller chose another."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-    return triton, tl
 
 
 def whole_chunks(width: int, strides, ptr: int, size: int) -> bool:

@@ -11,8 +11,13 @@
 // (body _cfg_rowwise_kernel; the "rowwise" variant: tensor row b reads its
 // scalars from column row_offset + b of an (8, slots) table that may span a
 // whole wave, and a row whose `active` entry is not > 0 is stored back
-// unchanged).  The main path runs each 750 times a D_syn round on (120 or
-// 128, 16, 16, 3): 92,160-98,304 elements a launch.
+// unchanged) and ::cfg_update_mixed_3d (body _cfg_mixed_kernel; the "mixed"
+// variant: the rowwise one over a (9, slots) table whose ninth row is the
+// row's mode, and a row whose mode is not < 0.5 takes eps = ε_c, the
+// classifier-corrected ε̂ formed upstream, instead of the combine).  The
+// main path runs the first two 750 times a D_syn round and the mixed one
+// 150 times a mixed-guidance round, on (120 or 128, 16, 16, 3):
+// 92,160-98,304 elements a launch.
 //
 // Each variant takes z, the step's standard normal noise, from one of two
 // sources (the kKeyed template parameter):
@@ -23,11 +28,12 @@
 //     rounds), xors the two words, maps the top 23 bits to a uniform on
 //     [nextafter(-1, 0), 1) and takes √2 · XLA's single-precision erfinv.
 //     The scalar variant draws one key over the whole tensor (n the flat
-//     index; z = 0 where the step is not live, t = 0), the rowwise variant
-//     one key per tensor row (n the index within the row), times the row's
-//     live entry (t > 0), as the samplers draw and mask their noise.  This
-//     keeps the 4 bytes of z a element off the device, and the ~100 eager
-//     int64 torch ops that drew a whole wave's noise before its loop.
+//     index; z = 0 where the step is not live, t = 0), the rowwise and
+//     mixed variants one key per tensor row (n the index within the row),
+//     times the row's live entry (t > 0), as the samplers draw and mask
+//     their noise.  This keeps the 4 bytes of z a element off the device,
+//     and the ~100 eager int64 torch ops that drew a whole wave's noise
+//     before its loop.
 //
 // What bounds it on the H100: at the main path's size, the launch.  A
 // launch moves 20 bytes an element with z from memory (16 drawn from keys),
@@ -52,10 +58,13 @@
 //     that out (192 draws at most);
 //   * past 8 blocks an SM, a grid-stride loop (kernel.py::geometry);
 //   * the step's scalars come in the packed argument block (scalar
-//     variant) or as 8 loads from the row's column of the device table
-//     (rowwise), issued with the operands' loads and the row's key, so
-//     that a thread waits for one round trip to memory, with the draw
-//     (which needs only the key and the counter) in its shadow.
+//     variant) or as 8 loads (rowwise; 9 with the mode, mixed) from the
+//     row's column of the device table, issued with the operands' loads
+//     and the row's key, so that a thread waits for one round trip to
+//     memory, with the draw (which needs only the key and the counter) in
+//     its shadow.  A mixed classifier-guided row reads ε_u all the same:
+//     skipping it would make the load wait for the mode, a second round
+//     trip for every row.
 //
 // Rounding: exactly where the plain versions (ref.py, and prng.normal for
 // the draw) round, so that the output is bit-equal to them.  The update is
@@ -81,14 +90,14 @@ struct Args {
   const float* eu;
   const float* z;          // z from memory, else null
   float* out;
-  const float* coeffs;     // rowwise: the (8, slots) table, else null
-  const uint32_t* keys;    // rowwise keyed: (rows, 2) threefry keys
-  const float* live;       // rowwise keyed: (rows,) 1 or 0
+  const float* coeffs;     // rowwise (8, slots), mixed (9, slots), else null
+  const uint32_t* keys;    // rowwise and mixed keyed: (rows, 2) threefry keys
+  const float* live;       // rowwise and mixed keyed: (rows,) 1 or 0
   long long n_row;         // elements a row (the scalar variant: all)
   long long rows;          // tensor rows (the scalar variant: 1)
   long long slots;         // columns of the coefficient table
   long long row_offset;    // the slot of tensor row 0
-  long long variant;       // 0 scalar, 1 rowwise
+  long long variant;       // 0 scalar, 1 rowwise, 2 mixed
   long long keyed;         // 0 z from memory, 1 drawn from keys
   long long vec;           // 16-byte loads and stores
   long long blocks, threads, device;
@@ -150,11 +159,13 @@ __device__ __forceinline__ float normal_of(uint32_t k0, uint32_t k1,
   return __fmul_rn(kSqrt2, e);
 }
 
-// ref.ancestral_step on eps = (1+s)·ε_c − s·ε_u, c = (1+s, s, √(1−ᾱ_t),
-// √ᾱ_t, √ᾱ_prev, dir, σ)
+// ref.ancestral_step on eps = (1+s)·ε_c − s·ε_u (`combine`; else eps = ε_c,
+// a mixed wave's classifier-guided row), c = (1+s, s, √(1−ᾱ_t), √ᾱ_t,
+// √ᾱ_prev, dir, σ)
 __device__ __forceinline__ float update(float x, float ec, float eu, float z,
-                                        const float* c) {
-  const float eps = __fsub_rn(__fmul_rn(c[0], ec), __fmul_rn(c[1], eu));
+                                        const float* c, bool combine) {
+  const float eps =
+      combine ? __fsub_rn(__fmul_rn(c[0], ec), __fmul_rn(c[1], eu)) : ec;
   float x0 = __fdiv_rn(__fsub_rn(x, __fmul_rn(c[2], eps)), c[3]);
   x0 = fminf(fmaxf(x0, -1.0f), 1.0f);
   return __fadd_rn(__fadd_rn(__fmul_rn(c[4], x0), __fmul_rn(c[5], eps)),
@@ -165,11 +176,14 @@ __device__ __forceinline__ float update(float x, float ec, float eu, float z,
 // i / per_row; thread t of block g takes items g * threads + t, + blocks *
 // threads, ...  A chunk is 4 consecutive elements of one row, read with z
 // from memory; a keyed launch takes one element a thread.  Every load of
-// an item is issued before anything waits on one: the row's scalars, its
-// key and its operands are one round trip, and the draw overlaps it.  A
-// frozen row (rowwise, active not > 0) stores x back.
-template <bool kRowwise, bool kKeyed>
+// an item is issued before anything waits on one: the row's scalars (its
+// mode too), its key and its operands are one round trip, and the draw
+// overlaps it.  A frozen row (rowwise and mixed: active not > 0) stores x
+// back.  kVariant: 0 scalar, 1 rowwise, 2 mixed.
+template <int kVariant, bool kKeyed>
 __global__ void __launch_bounds__(kMaxThreads) cfg_kernel(const Args a) {
+  constexpr bool kRowwise = kVariant != 0;
+  constexpr int kCoeffs = kVariant == 2 ? 9 : 8;
   const bool vec = !kKeyed && a.vec != 0;
   const uint32_t per_row = vec ? (uint32_t)(a.n_row >> 2) : (uint32_t)a.n_row;
   const uint32_t items = per_row * (uint32_t)a.rows;
@@ -180,15 +194,17 @@ __global__ void __launch_bounds__(kMaxThreads) cfg_kernel(const Args a) {
     const uint32_t j = kRowwise ? i - row * per_row : i;
     const uint32_t n = vec ? 4u * j : j;          // counter within the row
     const size_t at = (size_t)row * (size_t)a.n_row + n;
-    float c[8];
+    float c[kCoeffs];
     if (kRowwise) {
       const float* col = a.coeffs + a.row_offset + row;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) c[k] = __ldg(col + k * a.slots);
+      for (int k = 0; k < kCoeffs; ++k) c[k] = __ldg(col + k * a.slots);
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) c[k] = a.sc[k];
     }
+    // a mode-0 row runs exactly the rowwise variant's operations
+    const bool combine = kVariant != 2 || c[kCoeffs - 1] < 0.5f;
     if (vec) {
       const float4 x = __ldg(reinterpret_cast<const float4*>(a.x + at));
       const float4 ec = __ldg(reinterpret_cast<const float4*>(a.ec + at));
@@ -196,10 +212,10 @@ __global__ void __launch_bounds__(kMaxThreads) cfg_kernel(const Args a) {
       const float4 z = __ldg(reinterpret_cast<const float4*>(a.z + at));
       float4 o = x;
       if (!kRowwise || c[7] > 0.0f) {
-        o.x = update(x.x, ec.x, eu.x, z.x, c);
-        o.y = update(x.y, ec.y, eu.y, z.y, c);
-        o.z = update(x.z, ec.z, eu.z, z.z, c);
-        o.w = update(x.w, ec.w, eu.w, z.w, c);
+        o.x = update(x.x, ec.x, eu.x, z.x, c, combine);
+        o.y = update(x.y, ec.y, eu.y, z.y, c, combine);
+        o.z = update(x.z, ec.z, eu.z, z.z, c, combine);
+        o.w = update(x.w, ec.w, eu.w, z.w, c, combine);
       }
       *reinterpret_cast<float4*>(a.out + at) = o;
       continue;
@@ -217,25 +233,30 @@ __global__ void __launch_bounds__(kMaxThreads) cfg_kernel(const Args a) {
     } else {                        // the step's key; t = 0: no noise
       z = c[7] > 0.0f ? normal_of(a.key[0], a.key[1], n) : 0.0f;
     }
-    a.out[at] = !kRowwise || c[7] > 0.0f ? update(x, ec, eu, z, c) : x;
+    a.out[at] =
+        !kRowwise || c[7] > 0.0f ? update(x, ec, eu, z, c, combine) : x;
   }
 }
 
 typedef void (*KernelFn)(const Args);
 
 KernelFn pick(const Args& a) {
-  if (a.variant == 0) return a.keyed ? cfg_kernel<false, true>
-                                     : cfg_kernel<false, false>;
-  return a.keyed ? cfg_kernel<true, true> : cfg_kernel<true, false>;
+  if (a.variant == 0)
+    return a.keyed ? cfg_kernel<0, true> : cfg_kernel<0, false>;
+  if (a.variant == 1)
+    return a.keyed ? cfg_kernel<1, true> : cfg_kernel<1, false>;
+  return a.keyed ? cfg_kernel<2, true> : cfg_kernel<2, false>;
 }
 
 bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The mixed variant, like the rowwise one, needs a table, and keys and
+// live when keyed; the table's row count (8 or 9) is the wrapper's check.
 bool args_ok(const Args& a) {
-  const bool rowwise = a.variant == 1;
-  if ((a.variant != 0 && a.variant != 1) || (a.keyed != 0 && a.keyed != 1))
+  const bool rowwise = a.variant == 1 || a.variant == 2;
+  if (a.variant < 0 || a.variant > 2 || (a.keyed != 0 && a.keyed != 1))
     return false;
   if (a.n_row < 1 || a.rows < 1 || a.n_row * a.rows >= (1LL << 31) ||
       a.blocks < 1 || a.blocks > 0x7fffffffLL || a.threads < 32 ||

@@ -1,32 +1,31 @@
 """The fused CFG guidance-combine + ancestral update kernels.
 
-``cfg_update_flat`` and ``cfg_update_rowwise_flat`` bind the CUDA C++
-kernel ``csrc/cfg_fuse.cu`` (the design notes are in the source), built by
-``nvcc`` for sm_90a at first use into ``build/`` and called through ctypes
-with one packed argument block on PyTorch's current stream.  Its scalar
-variant replaces ``src/repro/kernels/cfg_fuse/kernel.py::cfg_update_2d``
-(body ``_cfg_kernel``), the form that runs once per reverse step of a
-uniform wave; its rowwise variant replaces ``cfg_update_rowwise_3d`` (body
-``_cfg_rowwise_kernel``), the per-row form of ragged, compacted and
-windowed waves: tensor row b reads its step scalars from column
-``row_offset + b`` of an (8, Bs) table that may span a whole wave, and a
-row whose ``active`` entry is not > 0 is stored back unchanged.  Either
-variant takes the step's noise z from memory, as the TPU kernels do, or
-draws it from threefry keys in registers, bit for bit as ``prng.normal``.
+``cfg_update_flat``, ``cfg_update_rowwise_flat`` and
+``cfg_update_mixed_flat`` bind the CUDA C++ kernel ``csrc/cfg_fuse.cu``
+(the design notes are in the source), built by ``nvcc`` for sm_90a at
+first use into ``build/`` and called through ctypes with one packed
+argument block on PyTorch's current stream.  Its three variants replace
+the three TPU kernels of ``src/repro/kernels/cfg_fuse/kernel.py``:
 
-``_cfg_mixed_kernel`` (Triton) replaces ``cfg_update_mixed_3d`` (body
-``_cfg_mixed_kernel``), the form of waves that mix guidance modes: the
-rowwise update reading a (9, Bs) table, the eight rowwise scalars plus the
-row's ``mode``, and a row whose mode is not < 0.5 takes ε_c as its guided
-ε̂ (classifier guidance corrected it upstream) instead of the
-(1+s)·ε_c − s·ε_u combine.  One program per (row, ``BLOCK`` elements of
-that row), masked tail; multiply-add fusion is switched off at launch and
-the division is IEEE-rounded.
+* scalar (0): ``cfg_update_2d`` (body ``_cfg_kernel``), the form that runs
+  once per reverse step of a uniform wave;
+* rowwise (1): ``cfg_update_rowwise_3d`` (body ``_cfg_rowwise_kernel``),
+  the per-row form of ragged, compacted and windowed waves: tensor row b
+  reads its step scalars from column ``row_offset + b`` of an (8, Bs)
+  table that may span a whole wave, and a row whose ``active`` entry is
+  not > 0 is stored back unchanged;
+* mixed (2): ``cfg_update_mixed_3d`` (body ``_cfg_mixed_kernel``), the
+  form of waves that mix guidance modes: the rowwise update over a (9, Bs)
+  table, the eight rowwise scalars plus the row's ``mode``, where a row
+  whose mode is not < 0.5 takes ε_c as its guided ε̂ (classifier guidance
+  corrected it upstream) instead of the (1+s)·ε_c − s·ε_u combine.
 
-All three round exactly where the plain versions (``ref.py``) do: x̂₀
-divides a cancelling difference by √ᾱ_t (~5e-5 at t = 999), so one
-rounding more or less there moves the output by ~1e-3, and the kernels
-match the plain versions bit for bit instead of to a tolerance.
+Each variant takes the step's noise z from memory, as the TPU kernels do,
+or draws it from threefry keys in registers, bit for bit as
+``prng.normal``.  All round exactly where the plain versions (``ref.py``)
+do: x̂₀ divides a cancelling difference by √ᾱ_t (~5e-5 at t = 999), so
+one rounding more or less there moves the output by ~1e-3, and the kernel
+matches the plain versions bit for bit instead of to a tolerance.
 """
 from __future__ import annotations
 
@@ -37,15 +36,12 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import import_triton, nvcc_library, \
-    whole_chunks
+from repro_torch.kernels.build import nvcc_library, whole_chunks
 
 SOURCE = Path(__file__).with_name("csrc") / "cfg_fuse.cu"
 MAX_THREADS = 512                # a block of the CUDA kernel, at most
 ELEMENT_THREADS = 256            # a block, one element a thread
 MAX_BLOCKS_PER_SM = 8
-BLOCK = 1024                     # the Triton mixed kernel's program
-tl = None      # triton.language, bound by _jit_mixed() at first launch
 
 
 @functools.lru_cache(maxsize=1024)
@@ -124,10 +120,12 @@ def build() -> None:
 
 
 def _args(x, eps_c, eps_u, noise, out, *, rows: int, scalars=_NO_SCALARS,
-          key=_NO_KEY, coeffs=None, row_offset: int = 0, keys=None,
-          live=None) -> bytes:
+          key=_NO_KEY, coeffs=None, mixed: bool = False, row_offset: int = 0,
+          keys=None, live=None) -> bytes:
     """The packed ``Args`` block of one launch (see the source), on the
-    route ``vector_route`` picks."""
+    route ``vector_route`` picks: the scalar variant without ``coeffs``,
+    else the rowwise one, or the mixed one for a ``mixed`` (9, Bs)
+    table."""
     n_row = x.numel() // rows
     px, pc, pu, po = (x.data_ptr(), eps_c.data_ptr(), eps_u.data_ptr(),
                       out.data_ptr())
@@ -140,8 +138,8 @@ def _args(x, eps_c, eps_u, noise, out, *, rows: int, scalars=_NO_SCALARS,
         0 if keys is None else keys.data_ptr(),
         0 if live is None else live.data_ptr(), n_row, rows,
         0 if coeffs is None else coeffs.shape[1], row_offset,
-        coeffs is not None, noise is None, vec, blocks, threads, dev,
-        *scalars, *key)
+        0 if coeffs is None else 1 + mixed, noise is None, vec, blocks,
+        threads, dev, *scalars, *key)
 
 
 def _launch(args: bytes, x) -> None:
@@ -180,51 +178,12 @@ def cfg_update_rowwise_flat(x, eps_c, eps_u, noise, coeffs, row_offset: int,
     return out
 
 
-def _cfg_mixed_kernel(x_ptr, ec_ptr, eu_ptr, z_ptr, out_ptr, coef_ptr,
-                      n_row, n_slots, row_offset, BLOCK: "tl.constexpr"):
-    row = tl.program_id(0)
-    offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    m = offs < n_row
-    idx = row * n_row + offs
-    c = coef_ptr + row_offset + row       # column of this row's scalars
-    one_plus_s = tl.load(c)
-    s = tl.load(c + n_slots)
-    sqrt_1mab = tl.load(c + 2 * n_slots)
-    sqrt_ab = tl.load(c + 3 * n_slots)
-    sqrt_ab_prev = tl.load(c + 4 * n_slots)
-    dir_coef = tl.load(c + 5 * n_slots)
-    sigma = tl.load(c + 6 * n_slots)
-    active = tl.load(c + 7 * n_slots)
-    mode = tl.load(c + 8 * n_slots)
-    x = tl.load(x_ptr + idx, mask=m).to(tl.float32)
-    ec = tl.load(ec_ptr + idx, mask=m).to(tl.float32)
-    eu = tl.load(eu_ptr + idx, mask=m).to(tl.float32)
-    z = tl.load(z_ptr + idx, mask=m).to(tl.float32)
-    eps = tl.where(mode < 0.5, one_plus_s * ec - s * eu, ec)
-    x0 = tl.math.div_rn(x - sqrt_1mab * eps, sqrt_ab)
-    x0 = tl.minimum(tl.maximum(x0, -1.0), 1.0)
-    out = sqrt_ab_prev * x0 + dir_coef * eps + sigma * z
-    out = tl.where(active > 0.0, out, x)
-    tl.store(out_ptr + idx, out.to(out_ptr.dtype.element_ty), mask=m)
-
-
-@functools.cache
-def _jit_mixed():
-    global tl
-    triton, tl = import_triton()
-    return triton.jit(_cfg_mixed_kernel, do_not_specialize=["row_offset"])
-
-
-def cfg_update_mixed_flat(x, eps_c, eps_u, noise, coeffs,
-                          row_offset: int) -> torch.Tensor:
+def cfg_update_mixed_flat(x, eps_c, eps_u, noise, coeffs, row_offset: int,
+                          *, keys=None, live=None) -> torch.Tensor:
     """``cfg_update_rowwise_flat`` with a (9, Bs) table: the rowwise
     scalars plus each row's mode."""
-    B = x.shape[0]
-    n_row = x.numel() // max(B, 1)
     out = torch.empty_like(x)
-    block = min(BLOCK, 1 << max(n_row - 1, 0).bit_length())
-    grid = (B, max(1, -(-n_row // block)))
-    _jit_mixed()[grid](x, eps_c, eps_u, noise, out, coeffs, n_row,
-                       coeffs.shape[1], int(row_offset), BLOCK=block,
-                       num_warps=4, enable_fp_fusion=False)
+    _launch(_args(x, eps_c, eps_u, noise, out, rows=x.shape[0],
+                  coeffs=coeffs, mixed=True, row_offset=row_offset,
+                  keys=keys, live=live), x)
     return out

@@ -1,11 +1,12 @@
 """Public wrappers for the fused CFG update: the kernels (``kernel.py``)
 for CUDA tensors, the plain versions (``ref.py``) for CPU tensors.
 
-``cfg_update`` and ``cfg_update_rowwise`` take the step's noise z from a
-tensor, or (``noise`` None) draw it from threefry keys: on the card inside
-the kernel, on the CPU as their plain versions, ``prng.normal`` of the same
-keys and then the plain update.  Each counts its launches in
-``.launches`` and the keyed ones also in ``.launches_keyed``."""
+``cfg_update``, ``cfg_update_rowwise`` and ``cfg_update_mixed`` take the
+step's noise z from a tensor, or (``noise`` None) draw it from threefry
+keys: on the card inside the kernel, on the CPU as their plain versions,
+``prng.normal`` of the same keys and then the plain update.  Each counts
+its launches in ``.launches`` and the keyed ones also in
+``.launches_keyed``."""
 from __future__ import annotations
 
 import functools
@@ -137,6 +138,52 @@ cfg_update.launches = 0
 cfg_update.launches_keyed = 0
 
 
+def _check_rows(name, B, Bs, row_offset, noise, noise_keys, live):
+    """The window and noise-source contract of the per-row wrappers."""
+    if row_offset < 0 or row_offset + B > Bs:
+        raise ValueError(f"{name}: scalars span {Bs} rows; window "
+                         f"[{row_offset}, {row_offset + B}) is out of range")
+    _one_source(name, noise, noise_keys)
+    if noise is None and live is None:
+        raise ValueError(f"{name}: drawing from noise keys needs the rows' "
+                         f"live vector")
+
+
+def _launch_rows(fn, flat, x, eps_c, eps_u, noise, coeffs, make_table,
+                 table_shape, row_offset, noise_keys, live):
+    """The CUDA side of the per-row wrapper ``fn``: check the operands, the
+    ``table_shape`` table (formed by ``make_table()`` when the caller
+    passes none) and the keys, launch ``flat`` and count the launch."""
+    name = fn.__name__
+    _check_update_inputs(name, x, eps_c, eps_u,
+                         *(() if noise is None else (noise,)))
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"{name} on CUDA: {x.dtype}; fp32 only")
+    dev, B = x.get_device(), x.shape[0]
+    if coeffs is None:
+        coeffs = torch.as_tensor(make_table(), device=x.device)
+    if coeffs.shape != table_shape or coeffs.dtype != torch.float32 \
+            or coeffs.get_device() != dev or not coeffs.is_contiguous():
+        raise ValueError(f"{name}: coeffs must be a contiguous float32 "
+                         f"{table_shape} table on {x.device}")
+    if noise is None and (
+            noise_keys.shape != (B, 2) or noise_keys.dtype != torch.int32
+            or live.shape != (B,) or live.dtype != torch.float32
+            or noise_keys.get_device() != dev or live.get_device() != dev
+            or not (noise_keys.is_contiguous() and live.is_contiguous())):
+        raise ValueError(f"{name}: noise_keys must be a contiguous int32 "
+                         f"({B}, 2) and live a contiguous float32 ({B},) "
+                         f"tensor on {x.device}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    out = flat(x, eps_c, eps_u, noise, coeffs, row_offset, keys=noise_keys,
+               live=live)
+    fn.launches += 1
+    if noise is None:
+        fn.launches_keyed += 1
+    return out
+
+
 def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,
                        eta: float = 1.0, *, row_offset: int = 0,
                        coeffs: torch.Tensor | None = None, noise_keys=None,
@@ -155,48 +202,18 @@ def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,
     On CUDA the kernel reads ``coeffs``, the (8, Bs) device table of
     ``rowwise_coeffs`` for these vectors, when the caller uploaded it once
     for many steps; otherwise the wrapper forms and uploads it."""
-    B, Bs = x.shape[0], len(s)
-    if row_offset < 0 or row_offset + B > Bs:
-        raise ValueError(f"rowwise scalars span {Bs} rows; window "
-                         f"[{row_offset}, {row_offset + B}) is out of range")
-    _one_source("cfg_update_rowwise", noise, noise_keys)
-    if noise is None and live is None:
-        raise ValueError("cfg_update_rowwise: drawing from noise keys needs "
-                         "the rows' live vector")
+    Bs = len(s)
+    _check_rows("cfg_update_rowwise", x.shape[0], Bs, row_offset, noise,
+                noise_keys, live)
     if x.is_cpu:
         if noise is None:
             noise = ref.row_noise(noise_keys, live, x.shape[1:], x.device)
         return ref.cfg_update_rowwise_windowed(
             x, eps_c, eps_u, s, ab_t, ab_prev, noise, active, row_offset, eta)
-    _check_update_inputs("cfg_update_rowwise", x, eps_c, eps_u,
-                         *(() if noise is None else (noise,)))
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"cfg_update_rowwise on CUDA: {x.dtype}; "
-                                  f"fp32 only")
-    dev = x.get_device()
-    if coeffs is None:
-        coeffs = torch.as_tensor(rowwise_coeffs(s, ab_t, ab_prev, active,
-                                                eta), device=x.device)
-    if coeffs.shape != (8, Bs) or coeffs.dtype != torch.float32 \
-            or coeffs.get_device() != dev or not coeffs.is_contiguous():
-        raise ValueError(f"cfg_update_rowwise: coeffs must be a contiguous "
-                         f"float32 (8, {Bs}) table on {x.device}")
-    if noise is None and (
-            noise_keys.shape != (B, 2) or noise_keys.dtype != torch.int32
-            or live.shape != (B,) or live.dtype != torch.float32
-            or noise_keys.get_device() != dev or live.get_device() != dev
-            or not (noise_keys.is_contiguous() and live.is_contiguous())):
-        raise ValueError(f"cfg_update_rowwise: noise_keys must be a "
-                         f"contiguous int32 ({B}, 2) and live a contiguous "
-                         f"float32 ({B},) tensor on {x.device}")
-    if x.numel() == 0:
-        return torch.empty_like(x)
-    out = K.cfg_update_rowwise_flat(x, eps_c, eps_u, noise, coeffs,
-                                    row_offset, keys=noise_keys, live=live)
-    cfg_update_rowwise.launches += 1
-    if noise is None:
-        cfg_update_rowwise.launches_keyed += 1
-    return out
+    return _launch_rows(
+        cfg_update_rowwise, K.cfg_update_rowwise_flat, x, eps_c, eps_u,
+        noise, coeffs, lambda: rowwise_coeffs(s, ab_t, ab_prev, active, eta),
+        (8, Bs), row_offset, noise_keys, live)
 
 
 cfg_update_rowwise.launches = 0
@@ -205,31 +222,28 @@ cfg_update_rowwise.launches_keyed = 0
 
 def cfg_update_mixed(x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,
                      eta: float = 1.0, *, row_offset: int = 0,
-                     coeffs: torch.Tensor | None = None):
+                     coeffs: torch.Tensor | None = None, noise_keys=None,
+                     live=None):
     """Per-row fused update for waves that mix guidance modes:
     ``cfg_update_rowwise`` plus a host vector ``mode`` (Bs,).  A row whose
     mode is < 0.5 combines (1+s)·ε_c − s·ε_u; any other row takes ``eps_c``
-    as its guided ε̂.  The window contract is ``cfg_update_rowwise``'s, and
-    ``coeffs`` is the (9, Bs) device table of ``mixed_coeffs``."""
-    B, Bs = x.shape[0], len(s)
-    if row_offset < 0 or row_offset + B > Bs:
-        raise ValueError(f"mixed scalars span {Bs} rows; window "
-                         f"[{row_offset}, {row_offset + B}) is out of range")
-    if x.device.type == "cpu":
+    as its guided ε̂.  The window, noise and key contract is
+    ``cfg_update_rowwise``'s, and ``coeffs`` is the (9, Bs) device table of
+    ``mixed_coeffs``."""
+    Bs = len(s)
+    _check_rows("cfg_update_mixed", x.shape[0], Bs, row_offset, noise,
+                noise_keys, live)
+    if x.is_cpu:
+        if noise is None:
+            noise = ref.row_noise(noise_keys, live, x.shape[1:], x.device)
         return ref.cfg_update_mixed_windowed(
             x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,
             row_offset, eta)
-    _check_update_inputs("cfg_update_mixed", x, eps_c, eps_u, noise)
-    if coeffs is None:
-        coeffs = torch.as_tensor(mixed_coeffs(mode, s, ab_t, ab_prev, active,
-                                              eta), device=x.device)
-    if coeffs.shape != (9, Bs) or coeffs.dtype != torch.float32 \
-            or coeffs.device != x.device or not coeffs.is_contiguous():
-        raise ValueError(f"cfg_update_mixed: coeffs must be a contiguous "
-                         f"float32 (9, {Bs}) table on {x.device}")
-    out = K.cfg_update_mixed_flat(x, eps_c, eps_u, noise, coeffs, row_offset)
-    cfg_update_mixed.launches += 1
-    return out
+    return _launch_rows(
+        cfg_update_mixed, K.cfg_update_mixed_flat, x, eps_c, eps_u, noise,
+        coeffs, lambda: mixed_coeffs(mode, s, ab_t, ab_prev, active, eta),
+        (9, Bs), row_offset, noise_keys, live)
 
 
 cfg_update_mixed.launches = 0
+cfg_update_mixed.launches_keyed = 0

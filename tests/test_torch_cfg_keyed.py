@@ -2,13 +2,14 @@
 CPU.
 
 The keyed plain versions (z = ``prng.normal`` of the step's threefry keys,
-then the plain update) are held against the JAX package's ``cfg_update``
-and ``cfg_update_rowwise`` fed ``jax.random.normal`` noise from the same
-keys, as its oracle and as its Pallas kernel in interpret mode.  The CUDA
-kernel's launch geometry (``kernel.geometry``, ``thread_items``) is
-replayed block by block, its route (``vector_route``) checked, and the
-cached step scalars (``step_scalars``) are held against the arithmetic of
-the rowwise kernel's table bit for bit.  No card and no launch.
+then the plain update) are held against the JAX package's ``cfg_update``,
+``cfg_update_rowwise`` and ``cfg_update_mixed`` fed ``jax.random.normal``
+noise from the same keys, as its oracle and as its Pallas kernel in
+interpret mode.  The CUDA kernel's launch geometry (``kernel.geometry``,
+``thread_items``) is replayed block by block, its route (``vector_route``)
+checked, and the cached step scalars (``step_scalars``) are held against
+the arithmetic of the rowwise kernel's table bit for bit.  No card and no
+launch.
 """
 import jax
 import jax.numpy as jnp
@@ -68,34 +69,81 @@ def test_keyed_cfg_update_matches_reference(shape, s, ab_t, ab_prev, t):
             torch.zeros(shape)))
 
 
-@pytest.mark.parametrize("B,Bs,off", [(5, 5, 0), (5, 9, 3), (4, 9, 0)])
-def test_keyed_rowwise_update_matches_reference(B, Bs, off):
-    """Row b's noise is drawn from its own key, ``fold_in(row_keys[b],
-    max(j, 0) + 1)``, times its live entry (t > 0): one row at t = 0, one
-    frozen, the rest at the t = 999 first step and at mid steps; the
-    scalars span a wider wave at ``row_offset`` 3."""
+def _keyed_rows(B, Bs, seed):
+    """A keyed per-row call's operands: scalars (s, ᾱ_t, ᾱ_prev, active)
+    over Bs slots with one row at the t = 999 first step, mid steps and
+    frozen rows in turn; x, ε_c, ε_u (B, 8, 8, 3); and the noise of row
+    b's key ``fold_in(row_keys[b], max(j, 0) + 1)`` times its live entry
+    (t > 0; row 1 at its t = 0 step), once from ``jax.random`` and once
+    as the port's key table and live vector."""
     table = [(2.0, 2.4288882e-09, 0.24600048, 1), (7.5, 0.3, 0.6, 1),
              (1.5, 0.9, 1.0, 1), (4.0, 0.05, 0.2, 0)]
-    s, ab_t, ab_prev, act = (np.array(c, np.float32) for c in zip(
-        *(table[i % 4] for i in range(Bs))))
-    x, ec, eu = _normal(12, *[(B, 8, 8, 3)] * 3)
+    vecs = [np.array(c, np.float32) for c in zip(
+        *(table[i % 4] for i in range(Bs)))]
+    x, ec, eu = _normal(seed, *[(B, 8, 8, 3)] * 3)
     row_keys = jax.random.split(jax.random.PRNGKey(9), B)
     j_step = np.arange(B) % 3 - 1                 # a frozen row's j < 0
     t = np.where(np.arange(B) == 1, 0, 999)       # row 1 at its t = 0 step
     nk = jax.vmap(jax.random.fold_in)(row_keys, jnp.maximum(j_step, 0) + 1)
     noise = jax.vmap(lambda k: jax.random.normal(k, (8, 8, 3)))(nk)
     noise = noise * (t > 0)[:, None, None, None]
+    keys = cfg_ops.key_table(prng.fold_in(np.asarray(row_keys),
+                                          np.maximum(j_step, 0) + 1), "cpu")
+    live = torch.as_tensor(t > 0).float()
+    return vecs, (x, ec, eu), noise, keys, live
+
+
+@pytest.mark.parametrize("B,Bs,off", [(5, 5, 0), (5, 9, 3), (4, 9, 0)])
+def test_keyed_rowwise_update_matches_reference(B, Bs, off):
+    """Row b's noise is drawn from its own key, ``fold_in(row_keys[b],
+    max(j, 0) + 1)``, times its live entry (t > 0): one row at t = 0, one
+    frozen, the rest at the t = 999 first step and at mid steps; the
+    scalars span a wider wave at ``row_offset`` 3."""
+    (s, ab_t, ab_prev, act), (x, ec, eu), noise, keys, live = _keyed_rows(
+        B, Bs, 12)
     j = [jnp.asarray(a) for a in (x, ec, eu)]
     oracle = j_cfg_ref.cfg_update_rowwise_windowed(
         *j, s, ab_t, ab_prev, noise, act, row_offset=off)
     pallas = j_cfg_ops.cfg_update_rowwise(*j, s, ab_t, ab_prev, noise, act,
                                           row_offset=off, interpret=True)
-    keys = cfg_ops.key_table(prng.fold_in(np.asarray(row_keys),
-                                          np.maximum(j_step, 0) + 1), "cpu")
-    live = torch.as_tensor(t > 0).float()
     port = cfg_ops.cfg_update_rowwise(
         *(torch.from_numpy(a) for a in (x, ec, eu)), s, ab_t, ab_prev, None,
         act, row_offset=off, noise_keys=keys, live=live)
+    assert _max_err(port, oracle) < TOL
+    assert _max_err(port, pallas) < TOL
+    frozen = act[off:off + B] == 0
+    assert torch.equal(port[frozen], torch.from_numpy(x)[frozen])
+
+
+def _modes(kind, Bs):
+    """A mixed wave's mode row: all classifier-free, all classifier-guided,
+    or classifier-guided every third slot from slot 1."""
+    i = np.arange(Bs)
+    return {"cfg": 0 * i, "clf": 0 * i + 1,
+            "mixed": (i % 3 == 1) * 1}[kind].astype(np.float32)
+
+
+@pytest.mark.parametrize("B,Bs,off", [(5, 5, 0), (5, 9, 3), (4, 9, 0)])
+@pytest.mark.parametrize("kind", ["cfg", "clf", "mixed"])
+def test_keyed_mixed_update_matches_reference(kind, B, Bs, off):
+    """The mixed update with each row's noise drawn from its key, as the
+    rowwise one: against the reference's oracle and Pallas kernel fed
+    ``jax.random.normal`` of the same keys times live, for the three mode
+    rows over windows of a wider wave; frozen rows unchanged and no
+    launch counted on the CPU."""
+    (s, ab_t, ab_prev, act), (x, ec, eu), noise, keys, live = _keyed_rows(
+        B, Bs, 13)
+    mode = _modes(kind, Bs)
+    j = [jnp.asarray(a) for a in (x, ec, eu)]
+    oracle = j_cfg_ref.cfg_update_mixed_windowed(
+        *j, mode, s, ab_t, ab_prev, noise, act, row_offset=off)
+    pallas = j_cfg_ops.cfg_update_mixed(*j, mode, s, ab_t, ab_prev, noise,
+                                        act, row_offset=off, interpret=True)
+    fn = cfg_ops.cfg_update_mixed
+    before = (fn.launches, fn.launches_keyed)
+    port = fn(*(torch.from_numpy(a) for a in (x, ec, eu)), mode, s, ab_t,
+              ab_prev, None, act, row_offset=off, noise_keys=keys, live=live)
+    assert (fn.launches, fn.launches_keyed) == before
     assert _max_err(port, oracle) < TOL
     assert _max_err(port, pallas) < TOL
     frozen = act[off:off + B] == 0
@@ -136,6 +184,11 @@ def test_keyed_wrappers_refuse_two_or_no_noise_sources():
     with pytest.raises(ValueError):
         cfg_ops.cfg_update_rowwise(x, x, x, vec, vec, vec, x, vec,
                                    noise_keys=keys, live=torch.ones(2))
+    for z, zk in ((None, {}), (x, dict(noise_keys=keys, live=torch.ones(2))),
+                  (None, dict(noise_keys=keys))):     # the last: no live
+        with pytest.raises(ValueError):
+            cfg_ops.cfg_update_mixed(x, x, x, vec, vec, vec, vec, z, vec,
+                                     **zk)
 
 
 def test_key_table_holds_the_key_words():
@@ -242,14 +295,18 @@ def test_vector_route_only_where_whole_chunks_allow():
 
 @pytest.mark.parametrize("rows,n_row,vec,rowwise", [
     (1, 4 * 6 * 6 * 3, True, False), (1, 3 * 5 * 7, False, False),
-    (4, 6 * 6 * 3, True, True), (3, 5 * 7, False, True)])
+    (4, 6 * 6 * 3, True, True), (3, 5 * 7, False, True),
+    (4, 6 * 6 * 3, False, "mixed"), (3, 5 * 7, False, "mixed")])
 def test_replayed_counters_and_keys_give_the_plain_draw(rows, n_row, vec,
                                                         rowwise):
     """Each element's noise rebuilt from the replay, as the kernel derives
-    it: key = the step's (scalar variant) or the tensor row's (rowwise),
-    counter = the element's index in that key's draw.  The result is the
-    plain draw: ``prng.normal`` of the step key over the whole tensor, or
-    of each row's key over the row."""
+    it: key = the step's (scalar variant) or the tensor row's (rowwise and
+    mixed), counter = the element's index in that key's draw.  The result
+    is the plain draw: ``prng.normal`` of the step key over the whole
+    tensor, or of each row's key over the row.  A mixed window's rows take
+    the keys of the tensor rows and the scalars of slots ``row_offset +
+    b``: the update of the replayed noise is the keyed wrapper's, bit for
+    bit."""
     step_key = prng.split(prng.PRNGKey(4))[1]
     row_keys = prng.split(prng.PRNGKey(5), rows)
     key_of = (lambda r: row_keys[r]) if rowwise else (lambda r: step_key)
@@ -268,6 +325,19 @@ def test_replayed_counters_and_keys_give_the_plain_draw(rows, n_row, vec,
     want = (prng.normal(row_keys, (n_row,)) if rowwise
             else prng.normal(step_key, (rows * n_row,)).reshape(rows, n_row))
     assert np.array_equal(z, want.numpy())
+    if rowwise == "mixed":
+        off, Bs = 2, rows + 3
+        vecs = [np.linspace(a, b, Bs, dtype=np.float32) for a, b in
+                ((1.0, 4.0), (0.05, 0.3), (0.2, 0.6), (1.0, 1.0))]
+        mode = _modes("mixed", Bs)
+        x, ec, eu = (torch.from_numpy(a) for a in _normal(15, *[(rows,
+                                                                n_row)] * 3))
+        live = torch.ones(rows)
+        keyed = cfg_ops.cfg_update_mixed(
+            x, ec, eu, mode, *vecs[:3], None, vecs[3], row_offset=off,
+            noise_keys=cfg_ops.key_table(row_keys, "cpu"), live=live)
+        assert torch.equal(keyed, cfg_ref.cfg_update_mixed_windowed(
+            x, ec, eu, mode, *vecs[:3], torch.from_numpy(z), vecs[3], off))
 
 
 def test_packed_arguments_match_the_kernel_source():
@@ -276,3 +346,9 @@ def test_packed_arguments_match_the_kernel_source():
     assert K._ARGS.size == 184
     src = K.SOURCE.read_text()
     assert "static_assert(sizeof(Args) == 184" in src
+    # the variant field: _args packs 0, 1 or 2, and the source picks an
+    # instance of each, in both noise modes
+    assert "long long variant;       // 0 scalar, 1 rowwise, 2 mixed" in src
+    for variant in (0, 1, 2):
+        for keyed in ("true", "false"):
+            assert f"cfg_kernel<{variant}, {keyed}>" in src

@@ -24,6 +24,7 @@ from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.kernels.adaln_norm import ops as an_ops
 from repro_torch.kernels.adaln_norm import ref as an_ref
+from repro_torch.kernels.cfg_fuse import kernel as cfg_kernel
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
 from repro_torch.kernels.adaln_norm import kernel as an_kernel
@@ -103,35 +104,49 @@ def test_cfg_update_rowwise_kernel_is_bit_equal_to_plain(dev, B, Bs, off):
 
 @pytest.mark.parametrize("B,Bs,off", [(120, 120, 0), (60, 120, 60),
                                       (5, 9, 3)])
-def test_cfg_update_mixed_kernel_is_bit_equal_to_plain(dev, B, Bs, off):
+@pytest.mark.parametrize("keyed", [False, True])
+def test_cfg_update_mixed_kernel_is_bit_equal_to_plain(dev, B, Bs, off,
+                                                       keyed):
     """All classifier-free, all classifier-guided and mixed rows, against
-    the plain version at error 0; the all-mode-0 call is also bit-equal to
-    the rowwise kernel."""
+    the plain version at error 0, with z from memory or drawn from each
+    row's key (the plain version then fed ``prng.normal`` of the row keys
+    times live); the all-mode-0 call is also bit-equal to the rowwise
+    kernel in the same noise mode."""
     s, ab_t, ab_prev, act = _rowwise_table(Bs)
     x, ec, eu, z = _randn(dev, 7, *[(B, 16, 16, 3)] * 4)
+    zk = {}
+    if keyed:
+        keys = prng.split(prng.PRNGKey(8), B)
+        live = torch.as_tensor(np.arange(B) % 5 != 2, device=dev).float()
+        zk = dict(noise_keys=cfg_ops.key_table(keys, dev), live=live)
+        z_in, z = None, cfg_ref.row_noise(keys, live, (16, 16, 3), dev)
+    else:
+        z_in = z
     dev_vecs = [torch.as_tensor(v, device=dev) for v in (s, ab_t, ab_prev,
                                                          act)]
     frozen = torch.as_tensor(act[off:off + B] == 0, device=dev)
     i = np.arange(Bs)
+    fn = cfg_ops.cfg_update_mixed
     for mode in (0 * i, 0 * i + 1, (i % 3 == 1) * 1):
         mode = mode.astype(np.float32)
-        before = cfg_ops.cfg_update_mixed.launches
-        out = cfg_ops.cfg_update_mixed(x, ec, eu, mode, s, ab_t, ab_prev, z,
-                                       act, row_offset=off)
-        assert cfg_ops.cfg_update_mixed.launches == before + 1
+        before = (fn.launches, fn.launches_keyed)
+        out = fn(x, ec, eu, mode, s, ab_t, ab_prev, z_in, act,
+                 row_offset=off, **zk)
+        assert (fn.launches - before[0], fn.launches_keyed - before[1]) \
+            == (1, int(keyed))
         ref = cfg_ref.cfg_update_mixed_windowed(
             x, ec, eu, torch.as_tensor(mode, device=dev), *dev_vecs[:3], z,
             dev_vecs[3], row_offset=off)
         assert torch.equal(out, ref)
         assert torch.equal(out[frozen], x[frozen])
-    out = cfg_ops.cfg_update_mixed(x, ec, eu, 0 * s, s, ab_t, ab_prev, z, act,
-                                   row_offset=off)
+    out = fn(x, ec, eu, 0 * s, s, ab_t, ab_prev, z_in, act, row_offset=off,
+             **zk)
     assert torch.equal(out, cfg_ops.cfg_update_rowwise(
-        x, ec, eu, s, ab_t, ab_prev, z, act, row_offset=off))
+        x, ec, eu, s, ab_t, ab_prev, z_in, act, row_offset=off, **zk))
     for bad in (-1, Bs - B + 1):
         with pytest.raises(ValueError):
-            cfg_ops.cfg_update_mixed(x, ec, eu, 0 * s, s, ab_t, ab_prev, z,
-                                     act, row_offset=bad)
+            fn(x, ec, eu, 0 * s, s, ab_t, ab_prev, z_in, act,
+               row_offset=bad, **zk)
 
 
 # (ᾱ_t, ᾱ_prev, t): the t = 999 first step of a 4-step trajectory, a mid
@@ -217,10 +232,12 @@ def test_cfg_update_rowwise_kernel_modes_are_bit_equal_to_plain(
 
 def test_cfg_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(4, 8, device=dev, dtype=torch.bfloat16)
+    vec = np.ones(4, np.float32)
     with pytest.raises(NotImplementedError):
         cfg_ops.cfg_update(x, x, x, 1.0, 0.3, 0.6, x)
+    with pytest.raises(NotImplementedError):
+        cfg_ops.cfg_update_mixed(x, x, x, vec, vec, vec, vec, x, vec)
     x = torch.zeros(4, 8, device=dev)
-    vec = np.ones(4, np.float32)
     keys = cfg_ops.key_table(prng.split(prng.PRNGKey(0), 4), dev)
     with pytest.raises(ValueError):          # keys of the wrong rows
         cfg_ops.cfg_update_rowwise(x, x, x, vec, vec, vec, None, vec,
@@ -230,6 +247,46 @@ def test_cfg_kernels_refuse_what_they_do_not_take(dev):
         cfg_ops.cfg_update_rowwise(x, x, x, vec, vec, vec, None, vec,
                                    noise_keys=keys.cpu(),
                                    live=torch.ones(4, device=dev))
+    with pytest.raises(ValueError):          # keys off the card, mixed
+        cfg_ops.cfg_update_mixed(x, x, x, vec, vec, vec, vec, None, vec,
+                                 noise_keys=keys.cpu(),
+                                 live=torch.ones(4, device=dev))
+    with pytest.raises(ValueError):          # the table off the card
+        cfg_ops.cfg_update_mixed(
+            x, x, x, vec, vec, vec, vec, x, vec,
+            coeffs=torch.as_tensor(cfg_ops.mixed_coeffs(vec, vec, vec, vec,
+                                                        vec, 1.0)))
+    assert cfg_ops.cfg_update_mixed(x[:0], x[:0], x[:0], vec, vec, vec, vec,
+                                    x[:0], vec).shape == (0, 8)
+
+
+def test_cfg_library_refuses_a_mixed_launch_without_its_operands(dev):
+    """The library's own check, below the wrappers: a mixed (variant 2)
+    block without a table, or keyed without keys or live, is refused
+    before any launch (cudaErrorInvalidValue); with them it launches."""
+    B = 4
+    x = torch.zeros(B, 8, device=dev)
+    out = torch.empty_like(x)
+    table = torch.as_tensor(cfg_ops.mixed_coeffs(np.ones(B), *[np.full(
+        B, v, np.float32) for v in (2.0, 0.3, 0.6, 1.0)], 1.0), device=dev)
+    keys = cfg_ops.key_table(prng.split(prng.PRNGKey(0), B), dev)
+    live = torch.ones(B, device=dev)
+    fields = list(cfg_kernel._ARGS.unpack(cfg_kernel._args(
+        x, x, x, None, out, rows=B, coeffs=table, mixed=True, keys=keys,
+        live=live)))
+    assert fields[12:14] == [2, 1]           # variant 2, keyed
+    lib = cfg_kernel._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for slot in (5, 6, 7):                   # no table, keys or live
+        bad = list(fields)
+        bad[slot] = 0
+        assert lib.cfg_fuse_fwd(cfg_kernel._ARGS.pack(*bad), stream) != 0
+    bad = list(fields)
+    bad[12] = 3                              # no such variant
+    assert lib.cfg_fuse_fwd(cfg_kernel._ARGS.pack(*bad), stream) != 0
+    assert lib.cfg_fuse_fwd(cfg_kernel._ARGS.pack(*fields), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("B,N,d", [(256, 17, 144), (256, 16, 144),
@@ -873,8 +930,8 @@ def test_sample_cfg_draws_its_noise_in_the_kernel(dev):
 def test_ragged_wave_draws_its_noise_in_the_kernel(dev):
     """A ragged wave's rows draw their step noise in the rowwise kernel
     from their keys; the same rows as a mixed wave of classifier-free
-    rows only (noise drawn before the loop, the mixed kernel, bit-equal
-    to the rowwise one) give the same bits."""
+    rows only (the mixed kernel, keyed too, bit-equal to the rowwise one
+    at mode 0) give the same bits."""
     model = _seeded_dit(dev)
     (y,) = _randn(dev, 6, (8, 512))
     g = np.array([1.5, 4.0, 7.5, 1.5] * 2, np.float32)
@@ -886,6 +943,45 @@ def test_ragged_wave_draws_its_noise_in_the_kernel(dev):
     assert cfg_ops.cfg_update_rowwise.launches_keyed == n0 + 4
     ref = sample_mixed(model, sched, y, keys, g, np.zeros(8, np.float32),
                        None, None, steps)
+    assert torch.equal(out, ref)
+
+
+def test_mixed_wave_draws_its_noise_in_the_kernel(dev, monkeypatch):
+    """A mixed wave with classifier-guided rows hands each iteration's row
+    keys to the mixed kernel (one keyed launch an iteration) and gives the
+    bits of the same wave whose updates are fed ``prng.normal`` of those
+    keys times live, drawn outside the kernel."""
+    model = _seeded_dit(dev)
+    (y,) = _randn(dev, 9, (8, 512))
+    clf = classifier_logprob(init_classifier(
+        torch.Generator(dev).manual_seed(3), "resnet18", 10, device=dev))
+    g = np.array([1.5, 4.0, 1.0, 1.0, 0.0, 7.5, 1.0, 0.0], np.float32)
+    mode = np.array([0, 0, 1, 1, 0, 0, 1, 0], np.float32)
+    steps = np.array([4, 4, 2, 4, 2, 2, 4, 4])
+    keys = prng.split(prng.PRNGKey(4), 8)
+    labels = np.arange(8) % 10
+    sched = make_schedule(device=dev)
+
+    def wave():
+        return sample_mixed(model, sched, y, keys, g, mode, np.zeros(8),
+                            labels, steps, clf_fns=(clf,))
+
+    fn = cfg_ops.cfg_update_mixed
+    n0 = (fn.launches, fn.launches_keyed)
+    out = wave()
+    assert (fn.launches - n0[0], fn.launches_keyed - n0[1]) == (4, 4)
+    flat, drawn = cfg_kernel.cfg_update_mixed_flat, []
+
+    def drawn_outside(x, ec, eu, noise, coeffs, row_offset, *, keys=None,
+                      live=None):
+        drawn.append(keys is not None)
+        z = cfg_ref.row_noise(keys, live, x.shape[1:], x.device)
+        return flat(x, ec, eu, z, coeffs, row_offset)
+
+    monkeypatch.setattr(cfg_kernel, "cfg_update_mixed_flat", drawn_outside)
+    ref = wave()
+    assert drawn == [True] * 4
+    assert float(ref.abs().max()) > 1e-3
     assert torch.equal(out, ref)
 
 

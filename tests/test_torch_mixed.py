@@ -145,6 +145,72 @@ def test_cfg_update_mixed_refuses_out_of_range_offsets():
                                      active, row_offset=off)
 
 
+@pytest.fixture
+def launches_recorded(monkeypatch):
+    """The per-row wrappers' CUDA side driven with meta tensors: the input
+    checks that need a card pass, and the kernel bindings record each
+    launch instead of making it."""
+    launched = []
+    monkeypatch.setattr(cfg_ops, "_check_update_inputs", lambda *a: None)
+    for name in ("cfg_update_rowwise_flat", "cfg_update_mixed_flat"):
+        monkeypatch.setattr(
+            cfg_ops.K, name, lambda x, *a, _n=name, **k:
+            launched.append(_n) or torch.empty_like(x))
+    return launched
+
+
+def _per_row(wrapper, x, B=4, Bs=6, **kw):
+    """One call of the rowwise or mixed wrapper over meta tensors shaped
+    like ``x``, with host vectors of ``Bs`` slots."""
+    mode, s, ab_t, ab_prev, active, _ = _mixed_inputs(Bs)
+    if wrapper == "rowwise":
+        return cfg_ops.cfg_update_rowwise(x, x, x, s, ab_t, ab_prev, x,
+                                          active, **kw)
+    return cfg_ops.cfg_update_mixed(x, x, x, mode, s, ab_t, ab_prev, x,
+                                    active, **kw)
+
+
+@pytest.mark.parametrize("wrapper", ["rowwise", "mixed"])
+def test_per_row_wrappers_refuse_other_dtypes_before_launching(
+        launches_recorded, wrapper):
+    """fp32 only on the card: a bf16 call raises before any launch."""
+    x = torch.zeros(4, 8, 8, 3, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="fp32 only"):
+        _per_row(wrapper, x)
+    assert launches_recorded == []
+
+
+@pytest.mark.parametrize("wrapper", ["rowwise", "mixed"])
+def test_per_row_wrappers_launch_nothing_for_an_empty_batch(
+        launches_recorded, wrapper):
+    fn = getattr(cfg_ops, f"cfg_update_{wrapper}")
+    before = fn.launches
+    out = _per_row(wrapper, torch.zeros(0, 8, 8, 3, device="meta"))
+    assert out.shape == (0, 8, 8, 3) and out.device.type == "meta"
+    assert launches_recorded == [] and fn.launches == before
+
+
+@pytest.mark.parametrize("wrapper", ["rowwise", "mixed"])
+def test_per_row_wrappers_check_the_table_before_launching(
+        launches_recorded, wrapper):
+    """The device table must be the wrapper's own shape ((8, Bs) rowwise,
+    (9, Bs) mixed), float32 and contiguous; the one the wrapper forms
+    itself is, and launches once."""
+    x = torch.zeros(4, 8, 8, 3, device="meta")
+    rows = 8 if wrapper == "rowwise" else 9
+    fn = getattr(cfg_ops, f"cfg_update_{wrapper}")
+    for bad in (torch.zeros(17 - rows, 6), torch.zeros(rows, 5),
+                torch.zeros(rows, 6, dtype=torch.float64),
+                torch.zeros(6, rows).T):
+        with pytest.raises(ValueError, match="coeffs"):
+            _per_row(wrapper, x, coeffs=bad.to("meta"))
+    assert launches_recorded == []
+    before = fn.launches
+    _per_row(wrapper, x, row_offset=2)
+    assert launches_recorded == [f"cfg_update_{wrapper}_flat"]
+    assert fn.launches == before + 1
+
+
 def test_mixed_coeffs_are_the_rowwise_table_and_the_mode():
     mode, s, ab_t, ab_prev, active, _ = _mixed_inputs(8)
     table = cfg_ops.mixed_coeffs(mode, s, ab_t, ab_prev, active, 1.0)
