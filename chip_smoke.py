@@ -35,7 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (6 clients × 10 categories × 30 samples, 50 steps, guidance 2.0,
      waves of at most 128: 15 waves of 120), twice from one
      threefry key, with launch counts checked against the path each time
-     (every DiT attention on the short-sequence kernel), then a 4-step
+     (every DiT attention on the short-sequence kernel); the client
+     encodings computed twice here and once in a child process, their
+     SHA-256 digests printed and equal; then a 4-step
      wave on the kernel path against the plain DiT on the same draws
      (every uniform step's noise is drawn in the update kernel, counted in
      ``cfg_update.launches_keyed``);
@@ -83,7 +85,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      8c. one 4608-token request in fp32 through the kernel route (the
          CUDA-core flash kernel, its launches counted) and the plain route
          on the same weights: last-position logits gated, greedy tokens
-         compared.
+         compared;
+  9. the paper's methods end to end at phase 4's preset and DiT:
+     ``run_oscar`` twice from one key (D_syn and the global ResNet-18
+     bit-identical, synthesis and training seconds apart, training
+     steps/s and peak memory, launch counts against phase 4's plan), 20
+     training steps traced, three SGD steps of ``train_classifier`` on the
+     card against the CPU, then Local, FedAvg, FedProx, FedDyn (10 rounds
+     of 20 local steps; FedAvg also at participation 0.5), FedCADO and
+     FedDISC (launch counts against their plans), each with its accuracy,
+     upload (against ``comm.upload_params``) and wall seconds.  The DiT is
+     random, so the DM methods' accuracies mean nothing.
 Phases 4 and 6 run two rounds each, phase 7 two per schedule, phase 8b
 two.
 The last line is the result; the line before it names the card.
@@ -91,10 +103,12 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -134,6 +148,34 @@ TOL_ADALN_BF16_ULP = 2.0 ** -7
 TOL_LM_LOGITS = 1e-3
 TOL_DIT, TOL_E2E, TOL_E2E_DEEP = 2e-5, 5e-4, 2e-2
 TOL_CLF = 1e-4                   # classifier, card against CPU
+# phase 9: three SGD steps of ResNet-18 on 512 D_syn rows, card against
+# CPU, from one init and one key.  Measured 2.4e-7 on the parameters and 0
+# on the loss (H100 80GB HBM3, 700 W: fp32 sums in another order through
+# three forward and backward passes; D_syn, init and batches repeat bit for
+# bit, so the run repeats); a ReLU input crossing 0 between the two runs
+# would move the parameters by ~1e-4
+TOL_TRAIN = 1e-5
+
+
+# benchmarks/common.py's paper preset: 10 categories x 6 domains (one a
+# client), 10 training and 8 test images per (category, domain)
+PAPER_DATA = dict(num_categories=10, train_per_cat_dom=10, test_per_cat_dom=8)
+SRC = Path(__file__).resolve().parent / "src"
+# phase 4's child process: the paper preset's client encodings on the card
+ENC_CHILD = f"""
+import hashlib
+from repro_torch.configs.oscar import DataConfig
+from repro_torch.core.oscar import client_encodings
+from repro_torch.data.federated import make_federated_data
+from repro_torch.encoders.foundation import FrozenFM
+data = make_federated_data(DataConfig(**{PAPER_DATA!r}))
+enc, present = client_encodings(FrozenFM(), data, device="cuda")
+print(hashlib.sha256(enc.tobytes() + present.tobytes()).hexdigest())
+"""
+
+
+def enc_digest(enc, present) -> str:
+    return hashlib.sha256(enc.tobytes() + present.tobytes()).hexdigest()
 
 
 def check(ok: bool, what: str) -> None:
@@ -282,10 +324,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(SRC))
     from repro_torch import prng
     from repro_torch.configs import get_config
-    from repro_torch.configs.oscar import DataConfig, DiffusionConfig
+    from repro_torch.configs.oscar import (DataConfig, DiffusionConfig,
+                                           OscarConfig)
+    from repro_torch.core import classifier_train as ct
+    from repro_torch.core import comm
+    from repro_torch.core import oscar as oscar_mod
+    from repro_torch.core import dm_baselines as dm_mod
+    from repro_torch.core.dm_baselines import run_fedcado, run_feddisc
+    from repro_torch.core.fl import run_fl, run_local_only
     from repro_torch.core.oscar import client_encodings, synthesize
     from repro_torch.data.federated import make_federated_data
     from repro_torch.diffusion import guidance as guid
@@ -317,7 +366,7 @@ def main() -> int:
     from repro_torch.serve.steps import make_serve_step
     from repro_torch.serve import synthesis as serve_synthesis
     from repro_torch.serve.synthesis import SynthesisEngine
-    from repro_torch.utils import default_device
+    from repro_torch.utils import default_device, deterministic_cudnn
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1184,12 +1233,22 @@ def main() -> int:
     # -- 4. the slice: client encodings → D_syn ------------------------------
     # benchmarks/common.py's paper preset; its DM pre-training pool is drawn
     # after the client shards, so leaving it out changes no client image
-    data = make_federated_data(DataConfig(num_categories=10,
-                                          train_per_cat_dom=10,
-                                          test_per_cat_dom=8))
+    data = make_federated_data(DataConfig(**PAPER_DATA))
     t0 = time.perf_counter()
     enc, present = client_encodings(FrozenFM(), data, device=dev)
     t_enc = time.perf_counter() - t0
+    # the encodings are reproducible: twice here and once in a child
+    # process, bit for bit (a fixed-order per-category sum on the card)
+    digests = [enc_digest(enc, present), enc_digest(*client_encodings(
+        FrozenFM(), data, device=dev))]
+    child = subprocess.run(
+        [sys.executable, "-c", ENC_CHILD], capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(child.returncode == 0, f"encodings child process: {child.stderr}")
+    digests.append(child.stdout.strip().splitlines()[-1])
+    say(f"[4] client encodings SHA-256: this process {digests[0]}, again "
+        f"{digests[1]}, child process {digests[2]}")
+    check(len(set(digests)) == 1, f"client encodings differ: {digests}")
     k_samples, wave, num_steps = 30, 128, dc.sample_timesteps
     fns = {"cfg_update": cfg_ops.cfg_update, "adaln_norm": an_ops.adaln_norm,
            "flash_attention": fa_ops.flash_attention,
@@ -2257,6 +2316,286 @@ def main() -> int:
     check(err_lm <= TOL_LM_LOGITS, f"fp32 prefill logits kernel vs plain "
           f"{err_lm:.3g} > {TOL_LM_LOGITS:g}")
     del lm32
+
+    # -- 9. the paper's methods end to end -----------------------------------
+    # benchmarks/common.py's paper preset: phase 4's data and DiT, 30
+    # samples a (client, category), ResNet-18 trained 400 steps of 64
+    t9 = time.perf_counter()
+    ocfg = OscarConfig(data=DataConfig(**PAPER_DATA), diffusion=dc,
+                       samples_per_category=k_samples, classifier_steps=400,
+                       classifier_batch=64)
+    R, C = data.client_images.shape[0], data.num_categories
+    clients = ["avg"] + [f"client{r + 1}" for r in range(R)]
+    stage_s = {"synthesis": [], "training": []}
+    train_peak = []
+
+    def staged(fn, stage):
+        """``fn`` timed by host clock to the end of its device work; the
+        training stage also records its peak device memory above what was
+        allocated when it began."""
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_s[stage].append(time.perf_counter() - t)
+            if stage == "training":
+                train_peak.append(torch.cuda.max_memory_allocated() - base)
+            return out
+        return call
+
+    def zero_counts():
+        for fn in fns.values():
+            fn.launches = 0
+        cfg_ops.cfg_update.launches_keyed = 0
+        fa_ops.flash_attention.launches_short = 0
+        fa_ops.flash_attention.launches_cuda_core = 0
+        fa_ops.flash_attention.launches_tensor_core = 0
+
+    def counts():
+        got = {name: fn.launches for name, fn in fns.items()}
+        got["cfg_update_keyed"] = cfg_ops.cfg_update.launches_keyed
+        got["flash_attention_short"] = fa_ops.flash_attention.launches_short
+        return got
+
+    # phase 4's plan: 15 waves of 120 rows, 50 steps each, the step noise
+    # drawn in the update kernel, every attention on the short kernel
+    L = dc.num_layers
+    want9 = {"cfg_update": wave_steps, "flash_attention": wave_steps * L,
+             "adaln_norm": wave_steps * (2 * L + 1), "cfg_update_rowwise": 0,
+             "cfg_update_mixed": 0, "rmsnorm": 0,
+             "cfg_update_keyed": wave_steps,
+             "flash_attention_short": wave_steps * L}
+    methods, launches9 = {}, {}
+
+    def method_done(name, t, metrics, upload, want_upload, *,
+                    exact_upload=True, **extra):
+        """Check and record one method's run; a partial-participation
+        run uploads at most what ``comm.upload_params`` counts."""
+        accs = {k: metrics[k] for k in clients}
+        check(sorted(metrics.keys() - {"history"}) == sorted(clients),
+              f"{name}: metrics keys {sorted(metrics)}")
+        check(all(0.0 <= a <= 1.0 for a in accs.values()),
+              f"{name}: accuracies {accs}")
+        check(upload == want_upload if exact_upload
+              else 0 < upload <= want_upload,
+              f"{name}: upload {upload}, comm.upload_params {want_upload}")
+        methods[name] = dict(avg_accuracy=metrics["avg"], accuracies=accs,
+                             upload_params=upload,
+                             comm_upload_params=want_upload, wall_s=t,
+                             **extra)
+        say(f"[9] {name}: avg accuracy {metrics['avg']:.4f}, upload "
+            f"{upload} parameters (comm.upload_params {want_upload}), "
+            f"{t:.2f} s ({smi})")
+
+    # 9.1 OSCAR, twice from one key
+    oscar_mod.synthesize = staged(synthesize, "synthesis")
+    oscar_mod.fit_global = staged(ct.fit_global, "training")
+    runs9 = []
+    try:
+        for rnd in (1, 2):
+            zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = oscar_mod.run_oscar(prng.PRNGKey(9), ocfg, data, model,
+                                      sched, FrozenFM())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = counts()
+            check(got == want9, f"9 OSCAR round {rnd}: launches {got} != "
+                  f"phase 4's plan {want9}")
+            runs9.append((res, wall))
+    finally:
+        oscar_mod.synthesize, oscar_mod.fit_global = synthesize, ct.fit_global
+    launches9["oscar"] = got
+    (res, wall), (res2, _) = runs9
+    check(tuple(res.syn_images.shape) == (1800, 16, 16, 3)
+          and bool(torch.isfinite(res.syn_images).all()),
+          f"OSCAR D_syn {tuple(res.syn_images.shape)}")
+    check(torch.equal(res.syn_images, res2.syn_images)
+          and torch.equal(res.syn_labels, res2.syn_labels),
+          "OSCAR D_syn differs between two runs from one key")
+    p1, p2 = res.global_params.state_dict(), res2.global_params.state_dict()
+    check(all(torch.equal(p1[k], p2[k]) for k in p1),
+          "OSCAR global model differs between two runs from one key")
+    clf_steps = ocfg.classifier_steps
+    train_rates = [clf_steps / s_ for s_ in stage_s["training"]]
+    # where a training step's time goes: 20 steps under the profiler,
+    # against the same 20 steps untraced
+    k20 = prng.PRNGKey(15)
+
+    def train20():
+        return ct.train_classifier(ct.init_from_key(k20, "resnet18", C, dev),
+                                   "resnet18", res.syn_images,
+                                   res.syn_labels, k20, steps=20, batch=64)
+
+    train20()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    train20()
+    torch.cuda.synchronize()
+    wall20 = time.perf_counter() - t
+    trace9 = device_busy(train20, BUILD_DIR / "train_trace.json")
+    trace9 = {k: v for k, v in trace9.items() if "flash" not in k}
+    trace9["untraced_wall_s"] = wall20
+    trace9["device_idle_share_of_untraced_wall"] = \
+        1 - trace9["device_busy_s"] / wall20
+    # whether training needs deterministic cuDNN: 20 steps twice with
+    # cuDNN's own choice of algorithms
+    ct.deterministic_cudnn = contextlib.nullcontext
+    try:
+        free9 = [train20().state_dict() for _ in range(2)]
+    finally:
+        ct.deterministic_cudnn = deterministic_cudnn
+    trace9["default_cudnn_training_repeats_bitwise"] = all(
+        torch.equal(free9[0][k], free9[1][k]) for k in free9[0])
+    method_done("oscar", wall, res.metrics, res.upload_per_client,
+                comm.upload_params("oscar", num_categories=C),
+                synthesis_s=list(stage_s["synthesis"]),
+                training_s=list(stage_s["training"]),
+                training_steps_per_s=train_rates,
+                training_peak_mib_above_start=[b / 2 ** 20
+                                               for b in train_peak],
+                training_trace_20_steps=trace9)
+    say(f"[9] OSCAR, two runs from one key: synthesis "
+        f"{stage_s['synthesis'][0]:.3f} / {stage_s['synthesis'][1]:.3f} s, "
+        f"training {stage_s['training'][0]:.3f} / "
+        f"{stage_s['training'][1]:.3f} s ({train_rates[0]:.1f} / "
+        f"{train_rates[1]:.1f} steps/s, peak "
+        f"{train_peak[0] / 2**20:.1f} / {train_peak[1] / 2**20:.1f} MiB above "
+        f"the start); D_syn and global model bit-identical; launches "
+        f"{launches9['oscar']} ({smi})")
+    say(f"[9] 20 training steps traced: device busy "
+        f"{trace9['device_busy_s']:.4f} s of {wall20:.4f} s untraced, "
+        f"{trace9['kernels']} kernels, idle "
+        f"{100 * trace9['device_idle_share_of_untraced_wall']:.1f}%; with "
+        f"cuDNN's own algorithms two runs repeat bit for bit: "
+        f"{trace9['default_cudnn_training_repeats_bitwise']}; top "
+        f"device time (us) {trace9['top_device_us'][:4]} ({smi})")
+
+    # 9.2 three SGD steps of train_classifier, card against CPU: one init,
+    # one key, D_syn's first 512 rows.  ReLU inputs of the CPU run that lie
+    # near 0 are recorded, as in phase 3b
+    kt = prng.PRNGKey(10)
+    xs, ys = res.syn_images[:512], res.syn_labels[:512]
+    card = ct.train_classifier(ct.init_from_key(kt, "resnet18", C, dev),
+                               "resnet18", xs, ys, kt, steps=3, batch=64)
+    relu, margins9 = torch.nn.functional.relu, []
+
+    def recorded_relu9(v, *args, **kwargs):
+        margins9.append(float(v.detach().abs().min()))
+        return relu(v, *args, **kwargs)
+
+    torch.nn.functional.relu = recorded_relu9
+    try:
+        cpu = ct.train_classifier(
+            ct.init_from_key(kt, "resnet18", C, "cpu"), "resnet18",
+            xs.cpu(), ys.cpu(), kt, steps=3, batch=64)
+    finally:
+        torch.nn.functional.relu = relu
+    pc, pg = cpu.state_dict(), card.state_dict()
+    err_train = max(float((pg[k].cpu() - pc[k]).abs().max()) for k in pc)
+    moved = max(float((pc[k] - v).abs().max()) for k, v in ct.init_from_key(
+        kt, "resnet18", C, "cpu").state_dict().items())
+    with torch.no_grad():
+        loss_card = float(ct.xent(card, "resnet18", xs, ys))
+        loss_cpu = float(ct.xent(cpu, "resnet18", xs.cpu(), ys.cpu()))
+    err_loss = abs(loss_card - loss_cpu)
+    say(json.dumps({"train_card_vs_cpu": {
+        "classifier": "resnet18", "steps": 3, "batch": 64,
+        "params_max_abs_err": err_train, "params_moved": moved,
+        "loss_card": loss_card, "loss_cpu": loss_cpu,
+        "loss_abs_err": err_loss, "tol": TOL_TRAIN,
+        "min_relu_margin_cpu": min(margins9), "card": smi}}))
+    check(moved > 1e-2, f"vacuous training check: params moved {moved:.3g}")
+    check(err_train <= TOL_TRAIN and err_loss <= TOL_TRAIN,
+          f"train_classifier card vs CPU: params {err_train:.3g}, loss "
+          f"{err_loss:.3g} (tol {TOL_TRAIN:g})")
+
+    # 9.3 the other methods of Table I
+    n_clf = sum(p.numel() for p in res.global_params.parameters())
+    t = time.perf_counter()
+    _, m_local, up = run_local_only(prng.PRNGKey(11), data, device=dev)
+    method_done("local", time.perf_counter() - t, m_local, up,
+                comm.upload_params("local", num_categories=C))
+    for name, kw in (("fedavg", {}), ("fedprox", {}), ("feddyn", {}),
+                     ("fedavg_participation_0.5",
+                      dict(participation=0.5))):
+        meth = name.split("_")[0]
+        t = time.perf_counter()
+        _, m_fl, up = run_fl(prng.PRNGKey(12), data, method=meth, rounds=10,
+                             local_steps=20, device=dev, **kw)
+        method_done(name, time.perf_counter() - t, m_fl, up,
+                    comm.upload_params(meth, num_categories=C,
+                                       clf_params=n_clf, rounds=10),
+                    exact_upload=not kw)
+    # the DM methods' classifier training (clients' and global), timed
+    # apart from the rest (client statistics, synthesis, evaluation)
+    for k in stage_s:
+        stage_s[k].clear()
+    dm_mod.train_classifier = staged(ct.train_classifier, "training")
+    dm_mod.fit_global = staged(ct.fit_global, "training")
+    zero_counts()
+    t = time.perf_counter()
+    try:
+        _, m_cado, up, (x_cado, _) = run_fedcado(prng.PRNGKey(13), ocfg,
+                                                 data, model, sched)
+    finally:
+        dm_mod.train_classifier = ct.train_classifier
+    t_cado = time.perf_counter() - t
+    cado_train = sum(stage_s["training"])
+    launches9["fedcado"] = counts()
+    # FedCADO's grouped classifier-guided waves take the plain ancestral
+    # step (as the reference does): one DiT call a step and no cfg kernel;
+    # a client's 300 rows make 3 waves of 104
+    cado_steps = R * 3 * num_steps
+    want_cado = dict(want9, cfg_update=0, cfg_update_keyed=0,
+                     flash_attention=cado_steps * L,
+                     flash_attention_short=cado_steps * L,
+                     adaln_norm=cado_steps * (2 * L + 1))
+    check(launches9["fedcado"] == want_cado, f"FedCADO launches "
+          f"{launches9['fedcado']} != plan {want_cado}")
+    check(tuple(x_cado.shape) == (1800, 16, 16, 3)
+          and bool(torch.isfinite(x_cado).all()), "FedCADO D_syn")
+    method_done("fedcado", t_cado, m_cado, up,
+                comm.upload_params("fedcado", num_categories=C,
+                                   clf_params=n_clf),
+                training_s=cado_train, other_s=t_cado - cado_train)
+    stage_s["training"].clear()
+    zero_counts()
+    t = time.perf_counter()
+    try:
+        _, m_disc, up, (x_disc, _) = run_feddisc(prng.PRNGKey(14), ocfg,
+                                                 data, model, sched,
+                                                 FrozenFM())
+    finally:
+        dm_mod.fit_global = ct.fit_global
+    t_disc = time.perf_counter() - t
+    disc_train = sum(stage_s["training"])
+    launches9["feddisc"] = counts()
+    # 60 2-D requests of 30 distinct rows: phase 4's 15 waves of 120
+    check(launches9["feddisc"] == want9, f"FedDISC launches "
+          f"{launches9['feddisc']} != plan {want9}")
+    check(tuple(x_disc.shape) == (1800, 16, 16, 3)
+          and bool(torch.isfinite(x_disc).all()), "FedDISC D_syn")
+    method_done("feddisc", t_disc, m_disc, up,
+                comm.upload_params("feddisc", num_categories=C),
+                training_s=disc_train, other_s=t_disc - disc_train)
+    for name, got in launches9.items():
+        for kname, key9 in (("adaln_norm", "adaln_norm"),
+                            ("cfg_update_keyed", "cfg_update_keyed"),
+                            ("flash_attention_short",
+                             "flash_attention_short")):
+            kernels[kname].setdefault("launches_phase9", {})[name] = \
+                got[key9]
+    t9 = time.perf_counter() - t9
+    say(json.dumps({"methods": {
+        "preset": "paper", "classifier": "resnet18", "dit": "random, seeded",
+        "methods": methods, "launches": launches9, "phase_s": t9,
+        "card": smi}}))
+    say(f"[9] the paper's methods end to end: {t9:.1f} s ({smi})")
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(smi)

@@ -38,7 +38,6 @@ whatever wave a row rides in; the denoiser stays outside it.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Callable
@@ -51,6 +50,7 @@ from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
+from repro_torch.utils import deterministic_cudnn
 
 # The reference's float32 linspace computes (T-1) * (1 - i * fl(1/div)),
 # and XLA's CPU backend fuses ``1 - i * c`` into one rounding (FMA) only
@@ -197,17 +197,6 @@ def _with_null(model: DiT, y: torch.Tensor) -> torch.Tensor:
     return torch.cat([y.float(), null], dim=0)
 
 
-@contextlib.contextmanager
-def _deterministic_cudnn():
-    cudnn = torch.backends.cudnn
-    prev = cudnn.deterministic
-    cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        cudnn.deterministic = prev
-
-
 # rows per classifier call: see _logprob_grad
 CLF_CHUNK = 128
 
@@ -231,7 +220,7 @@ def _logprob_grad(logprob_fn, x0, labels) -> torch.Tensor:
         if real < CLF_CHUNK:
             z = torch.cat([z, z.new_zeros((CLF_CHUNK - real, *z.shape[1:]))])
             lab = torch.cat([lab, lab.new_zeros(CLF_CHUNK - real)])
-        with torch.enable_grad(), _deterministic_cudnn():
+        with torch.enable_grad(), deterministic_cudnn():
             z = z.detach().clone().requires_grad_(True)
             (grad,) = torch.autograd.grad(logprob_fn(z, lab).sum(), z)
         grads.append(grad[:real])

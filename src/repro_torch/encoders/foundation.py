@@ -75,11 +75,14 @@ def category_encodings(fm: FrozenFM, images, labels, num_categories: int):
     zero for absent categories.  ȳ is exactly what a client uploads."""
     z = fm(images)
     labels = torch.as_tensor(labels, dtype=torch.int64, device=z.device)
-    C = num_categories
-    out = torch.zeros((C, z.shape[-1]), dtype=torch.float32, device=z.device)
-    cnt = torch.zeros((C,), dtype=torch.float32, device=z.device)
-    out.index_add_(0, labels, z)
-    cnt.index_add_(0, labels, torch.ones_like(labels, dtype=torch.float32))
+    # per-category sums as a one-hot (C, B) by (B, 512) product in fp32
+    # (TF32 off): a GEMM adds each output in an order fixed by its shape,
+    # so one input gives the same bits in every process.  index_add_ on
+    # the card adds with float atomics, in whatever order they land.
+    onehot = (labels[None, :] == torch.arange(
+        num_categories, device=z.device)[:, None]).to(torch.float32)
+    out = onehot @ z
+    cnt = onehot.sum(dim=1)
     present = cnt > 0
     mean = out / torch.clamp(cnt[:, None], min=1.0)
     # re-project the mean onto the unit sphere: the DM is conditioned on

@@ -105,7 +105,7 @@ def random_bits(keys, shape, device=None) -> torch.Tensor:
               for k in (k1, k2))
     lo = torch.arange(size, dtype=torch.int64, device=device)
     b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return (b1 ^ b2).reshape(*batch, *shape)
+    return (b1 ^ b2).reshape(tuple(batch) + shape)
 
 
 def uniform_bits_to_float(bits: torch.Tensor, lo: float, hi: float):
@@ -141,3 +141,42 @@ def normal(keys, shape, device=None) -> torch.Tensor:
     u = uniform_bits_to_float(random_bits(keys, shape, device),
                               _UNIFORM_LO, 1.0)
     return _SQRT2 * erfinv(u)
+
+
+def randint(keys, shape, minval: int, maxval: int, device=None):
+    """``jax.random.randint(key, shape, minval, maxval)`` in int32 for every
+    key of the batch ``keys`` (..., 2): an int32 tensor (..., *shape) on
+    ``device``, bit for bit as jax 0.9 draws it.
+
+    jax splits each key in two, draws 32 bits from each half and maps the
+    pair onto the span in uint32 arithmetic: ``(hi % span) · multiplier +
+    lo % span``, wrapped to 32 bits, then ``% span``, where ``multiplier =
+    (2**16 % span)**2 % span`` (the square wraps too, so it is 0 for a span
+    above 2**16).  A span of 0 or less gives ``minval``."""
+    i32_min, i32_max = -2 ** 31, 2 ** 31 - 1
+    out_of_range = maxval > i32_max
+    lo_v = min(max(int(minval), i32_min), i32_max)
+    hi_v = min(max(int(maxval), i32_min), i32_max)
+    span = (hi_v - lo_v) & MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & MASK
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span if span else 0
+    halves = split(keys)
+    higher = random_bits(halves[..., 0, :], shape, device)
+    lower = random_bits(halves[..., 1, :], shape, device)
+    if span:
+        offset = (((higher % span) * mult) + lower % span) & MASK
+        offset = offset % span
+    else:                       # XLA's unsigned remainder by 0 is the dividend
+        offset = (higher * mult + lower) & MASK
+    val = (lo_v + offset) & MASK
+    return torch.where(val > i32_max, val - 2 ** 32, val).to(torch.int32)
+
+
+def torch_seed(key) -> int:
+    """A ``torch.Generator`` seed fixed by one threefry key: its two uint32
+    words as one 64-bit integer, ``key[0] << 32 | key[1]``."""
+    k = np.asarray(key, np.uint32).reshape(2)
+    return int(k[0]) << 32 | int(k[1])

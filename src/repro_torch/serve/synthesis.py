@@ -2,7 +2,9 @@
 
 ``SynthesisEngine`` turns queued requests into sampler waves and hands
 every request its rows back.  A request is classifier-free (``submit``:
-an encoding, paper Eq. 8/9), classifier-guided (``submit_classifier_guided``:
+an encoding, paper Eq. 8/9, or one distinct conditioning row per sample
+as a 2-D ``(count, cond_dim)`` encoding, FedDISC's resampled statistics),
+classifier-guided (``submit_classifier_guided``:
 a client classifier's log p(y|x) and a category, Eq. 4 / FedCADO) or
 unconditional (``submit_unconditional``: draws through the null
 embedding, FedDISC-style).  A ``run`` drains the queue as it stands (a
@@ -39,7 +41,8 @@ run against those a real row needed.
 The engine has no row cache: a request that repeats the cache key of
 one already taken by this engine raises ``NotImplementedError``, since a
 caching engine would serve it from the first one's rows.  The key is
-(encoding, guidance, steps) for a classifier-free request and
+(digest of the encoding's rows, guidance, steps) for a classifier-free
+request and
 (``"uncond:<category>"``, 0.0, steps) for an unconditional one;
 classifier-guided requests have none and are never refused.  Streaming
 admission, stores, tracing, fault handling and host topologies are not
@@ -73,6 +76,14 @@ GRANULE = 8               # wave rows round up to a multiple of this
 COMPILE_COST = 256        # "auto" compaction's price of a new segment shape
 
 
+def _check_compaction(compaction) -> None:
+    if compaction is not None and compaction not in ("full", "auto") and (
+            not isinstance(compaction, int) or isinstance(compaction, bool)
+            or compaction < 1):
+        raise ValueError(f"compaction={compaction!r}: expected 'full', "
+                         f"'auto', or an int K >= 1")
+
+
 @dataclass
 class SynthesisRequest:
     rid: int
@@ -81,7 +92,7 @@ class SynthesisRequest:
     category: int
     guidance: float
     num_steps: int
-    cond: np.ndarray | None = None         # (cond_dim,) for mode "cfg"
+    cond: np.ndarray | None = None         # (cond_dim,) or (count, cond_dim)
     logprob_fn: Callable | None = None     # for mode "clf"
     group: Any = None                      # wave affinity for mode "clf"
 
@@ -113,11 +124,7 @@ class SynthesisEngine:
                  compaction: int | str | None = None):
         """``compaction`` is ``"full"``, ``"auto"`` or an int K >= 1 (see
         ``plan_epochs``), and implies ``ragged``."""
-        if compaction is not None and compaction not in ("full", "auto") and (
-                not isinstance(compaction, int) or isinstance(compaction, bool)
-                or compaction < 1):
-            raise ValueError(f"compaction={compaction!r}: expected 'full', "
-                             f"'auto', or an int K >= 1")
+        _check_compaction(compaction)
         self.model, self.sched = model, sched
         self.image_size, self.channels = image_size, channels
         self.wave_size = max(-(-wave_size // GRANULE) * GRANULE, GRANULE)
@@ -137,19 +144,39 @@ class SynthesisEngine:
         self._clf_fns: list = []
         self._null_row = model.null_y.detach().cpu().numpy()
 
-    def submit(self, encoding, category: int, count: int, *,
+    def submit(self, encoding, category: int, count: int | None = None, *,
                guidance: float | None = None,
                num_steps: int | None = None) -> int:
-        """Queue ``count`` samples of one classifier-free conditioning row
-        (paper Eq. 8/9).  Returns the request id; ids count up in
-        submission order."""
+        """Queue a classifier-free request (paper Eq. 8/9): ``count``
+        samples of one conditioning row (a 1-D encoding), or one sample of
+        each row of a 2-D ``(count, cond_dim)`` encoding (FedDISC's
+        resampled statistics), one request and one identity.  Returns the
+        request id; ids count up in submission order."""
         enc = np.ascontiguousarray(encoding, np.float32)
-        if enc.ndim != 1:
-            raise ValueError(f"encoding must be one (cond_dim,) row, got "
-                             f"shape {enc.shape}")
+        if enc.ndim == 2:
+            if count is not None and count != len(enc):
+                raise ValueError(f"2-D encoding carries {len(enc)} rows; "
+                                 f"count={count}")
+            count = len(enc)
+        elif enc.ndim != 1:
+            raise ValueError(f"encoding must be a (cond_dim,) row or "
+                             f"(count, cond_dim) rows, got shape {enc.shape}")
+        elif count is None:
+            raise ValueError("count is required for a 1-D encoding")
         g, steps = self._resolve(guidance, num_steps)
         return self._push(mode="cfg", count=count, category=category,
                           guidance=g, num_steps=steps, cond=enc)
+
+    def opt_in(self, *, ragged: bool = False,
+               compaction: int | str | None = None) -> "SynthesisEngine":
+        """Switch this engine to ragged waves (``ragged=True``) or to
+        compacted ones (``compaction``), never back: ``ragged=False`` and
+        ``compaction=None`` leave it as it is.  Returns the engine."""
+        _check_compaction(compaction)
+        if compaction is not None:
+            self.compaction = compaction
+        self.ragged = self.ragged or ragged or compaction is not None
+        return self
 
     def submit_classifier_guided(self, logprob_fn, category: int, count: int,
                                  *, guidance: float | None = None,
@@ -230,10 +257,12 @@ class SynthesisEngine:
         self._clf_fns.append(fn)
         return len(self._clf_fns) - 1
 
-    def _cond_rows(self, r: SynthesisRequest, t: int) -> np.ndarray:
-        """``t`` conditioning rows of ``r`` in a ragged wave: its encoding,
-        or the null embedding for classifier-guided and unconditional
-        rows."""
+    def _cond_rows(self, r: SynthesisRequest, start: int, t: int):
+        """Conditioning rows ``start:start + t`` of ``r``: a 2-D encoding's
+        own rows, a 1-D encoding repeated, or (in a ragged wave) the null
+        embedding for classifier-guided and unconditional rows."""
+        if r.mode == "cfg" and r.cond.ndim == 2:
+            return r.cond[start:start + t]
         row = r.cond if r.mode == "cfg" else self._null_row
         return np.repeat(row[None], t, axis=0)
 
@@ -267,8 +296,8 @@ class SynthesisEngine:
                     for r, s, t in parts for i in range(t)]
             meta += [meta[-1]] * room
             if self.ragged:
-                cond = np.concatenate([self._cond_rows(r, t)
-                                       for r, _, t in parts])
+                cond = np.concatenate([self._cond_rows(r, s, t)
+                                       for r, s, t in parts])
                 cond = np.concatenate([cond, np.repeat(cond[-1:], room,
                                                        axis=0)])
                 smax = max(smax, max(m[1] for m in meta))
@@ -301,8 +330,8 @@ class SynthesisEngine:
         kw = dict(image_size=self.image_size, channels=self.channels,
                   num_steps=head.num_steps)
         if head.mode == "cfg":
-            cond = np.concatenate([np.repeat(r.cond[None], t, axis=0)
-                                   for r, _, t in parts])
+            cond = np.concatenate([self._cond_rows(r, s, t)
+                                   for r, s, t in parts])
             cond = np.concatenate([cond, np.repeat(cond[-1:], room, axis=0)])
             return sample_cfg(self.model, self.sched, cond, key,
                               guidance=head.guidance, **kw)

@@ -1,4 +1,5 @@
-"""Device selection, parameter initialisers and the logit soft cap.
+"""Device selection, deterministic cuDNN, parameter initialisers and the
+logit soft cap.
 
 The initialisers draw from an explicit ``torch.Generator``; their values
 are the port's own and do not reproduce the JAX package's threefry draws.
@@ -7,6 +8,7 @@ Parameters that must equal the reference's come through
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -34,6 +36,20 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda":
         default_device()
     return device
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms inside the block:
+    the card's default choice for a convolution's backward may add in no
+    fixed order, so one input would give different gradient bits."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = prev
 
 
 def normal_init(shape, generator: torch.Generator | None = None,

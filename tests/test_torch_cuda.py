@@ -1028,3 +1028,140 @@ def test_classifier_guided_on_the_card_matches_the_cpu_run(dev):
     assert out.device.type == "cuda" and out.shape == (8, 16, 16, 3)
     assert float(ref.abs().max()) > 1e-3
     assert _err(out.cpu(), ref) < 5e-4
+
+
+def test_category_encodings_repeat_bit_for_bit(dev):
+    """The per-category sum has a fixed order on the card (a one-hot
+    product, not float atomics): repeated calls give the same bits, and
+    the CPU's values within the reference gate."""
+    from repro_torch.encoders.foundation import FrozenFM, category_encodings
+    rng = np.random.default_rng(0)
+    images = rng.uniform(-1, 1, (100, 16, 16, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 100)
+    labels[labels == 7] = 3                     # category 7 absent
+    fm = FrozenFM()
+    runs = [category_encodings(fm, torch.as_tensor(images, device=dev),
+                               labels, 10) for _ in range(3)]
+    for mean, present in runs[1:]:
+        assert torch.equal(mean, runs[0][0])
+        assert torch.equal(present, runs[0][1])
+    cpu_mean, cpu_present = category_encodings(FrozenFM(),
+                                               torch.from_numpy(images),
+                                               labels, 10)
+    assert torch.equal(runs[0][1].cpu(), cpu_present) and not cpu_present[7]
+    assert _err(runs[0][0].cpu(), cpu_mean) < 1e-5
+
+
+def _relu_margin(fn):
+    """``fn()`` with the smallest |ReLU input| it computed."""
+    relu, margins = torch.nn.functional.relu, [np.inf]
+
+    def recorded(v, *args, **kwargs):
+        margins.append(float(v.detach().abs().min()))
+        return relu(v, *args, **kwargs)
+
+    torch.nn.functional.relu = recorded
+    try:
+        return fn(), min(margins)
+    finally:
+        torch.nn.functional.relu = relu
+
+
+@pytest.mark.parametrize("name", ["resnet18", "vit_b16"])
+def test_train_classifier_on_the_card_matches_the_cpu(dev, name):
+    """Three SGD steps from one init and one key, card against CPU, within
+    the classifier's card-against-CPU gate.  A ReLU input within ~2e-7 of
+    0 moves a ResNet-18's gradient by ~0.09, and where that happens
+    depends on the CPU's own rounding (data seed 5 is clear of kinks on
+    one CPU and not on the card's host), so the test takes the first data
+    seed whose CPU run keeps every ReLU input at least 1e-6 from 0, and
+    says which."""
+    from repro_torch.core import classifier_train as ct
+    key = prng.PRNGKey(5)
+    for seed in range(16):
+        rng = np.random.default_rng(seed)
+        x = rng.uniform(-1, 1, (32, 16, 16, 3)).astype(np.float32)
+        y = rng.integers(0, 10, 32)
+        cpu, margin = _relu_margin(lambda: ct.train_classifier(
+            ct.init_from_key(key, name, 10, "cpu"), name, x, y, key,
+            steps=3, batch=16))
+        if margin > 1e-6:
+            break
+    assert margin > 1e-6, "every data seed puts a ReLU input at a kink"
+    card = ct.train_classifier(ct.init_from_key(key, name, 10, dev), name,
+                               x, y, key, steps=3, batch=16)
+    pc, pg = cpu.state_dict(), card.state_dict()
+    assert all(v.device.type == dev.type for v in pg.values())
+    assert max(_err(pg[k].cpu(), pc[k]) for k in pc) < 1e-4, f"seed {seed}"
+    with torch.no_grad():
+        assert abs(float(ct.xent(card, name, x, y))
+                   - float(ct.xent(cpu, name, x, y))) < 1e-4
+    # the same key on the card gives the same bits
+    again = ct.train_classifier(ct.init_from_key(key, name, 10, dev), name,
+                                x, y, key, steps=3, batch=16)
+    assert all(torch.equal(v, again.state_dict()[k]) for k, v in pg.items())
+
+
+def _smoke_oscar(dev):
+    from repro_torch.configs.oscar import DataConfig, OscarConfig
+    from repro_torch.data.federated import make_federated_data
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4,
+                         sample_timesteps=4)
+    data_cfg = DataConfig(num_categories=3, num_domains=2,
+                          train_per_cat_dom=3, test_per_cat_dom=4)
+    ocfg = OscarConfig(data=data_cfg, diffusion=dc, samples_per_category=3,
+                       classifier_steps=2, classifier_batch=8)
+    return ocfg, make_federated_data(data_cfg), _seeded_dit(dev).eval()
+
+
+def test_run_oscar_repeats_bit_for_bit_from_one_key(dev):
+    from repro_torch.core.oscar import run_oscar
+    from repro_torch.encoders.foundation import FrozenFM
+    ocfg, data, model = _smoke_oscar(dev)
+    sched = make_schedule(device=dev)
+    runs = [run_oscar(prng.PRNGKey(3), ocfg, data, model, sched, FrozenFM())
+            for _ in range(2)]
+    a, b = runs
+    assert a.syn_images.device.type == dev.type
+    assert a.syn_images.shape == (18, 16, 16, 3)
+    assert torch.equal(a.syn_images, b.syn_images)
+    assert np.array_equal(a.encodings, b.encodings)
+    pa, pb = a.global_params.state_dict(), b.global_params.state_dict()
+    assert all(torch.equal(pa[k], pb[k]) for k in pa)
+    assert a.metrics == b.metrics and 0 <= a.metrics["avg"] <= 1
+
+
+def test_2d_requests_give_their_rows_in_grouped_and_ragged_waves(dev):
+    """FedDISC's 2-D requests on the card: a grouped wave is
+    ``sample_cfg`` over the wave's rows in order from the wave key, a
+    ragged wave ``sample_cfg_ragged`` over the same rows with each row's
+    own key, bit for bit."""
+    from repro_torch.serve.synthesis import SynthesisEngine
+    model = _seeded_dit(dev).eval()
+    sched = make_schedule(device=dev)
+    rng = np.random.default_rng(6)
+    enc = rng.standard_normal((10, 512)).astype(np.float32)
+    one = rng.standard_normal(512).astype(np.float32)
+    key = prng.PRNGKey(8)
+    cond = np.concatenate([enc, np.repeat(one[None], 4, 0)])
+    waves = [cond[:8], np.concatenate([cond[8:], cond[-1:].repeat(2, 0)])]
+    outs = {}
+    for name, ragged in (("grouped", False), ("ragged", True)):
+        eng = SynthesisEngine(model, sched, image_size=16, wave_size=8,
+                              ragged=ragged)
+        eng.submit(enc, 0, num_steps=3)
+        eng.submit(one, 1, 4, num_steps=3)
+        out = eng.run(key)
+        outs[name] = torch.cat([out[0], out[1]])
+    want = torch.cat([sample_cfg(model, sched, w, prng.fold_in(key, i),
+                                 num_steps=3) for i, w in enumerate(waves)])
+    assert torch.equal(outs["grouped"], want[:14])
+    rids = np.array([0] * 10 + [1] * 6)
+    ridx = np.concatenate([np.arange(10), np.arange(4), [3, 3]])
+    row_keys = prng.fold_in(prng.fold_in(key[None], rids), ridx)
+    want = torch.cat([sample_cfg_ragged(
+        model, sched, w, row_keys[8 * i:8 * i + 8],
+        np.full(8, 2.0, np.float32), np.full(8, 3, np.int32))
+        for i, w in enumerate(waves)])
+    assert torch.equal(outs["ragged"], want[:14])
+    assert float((outs["ragged"][0] - outs["ragged"][1]).abs().max()) > 1e-3
