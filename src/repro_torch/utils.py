@@ -52,6 +52,27 @@ def deterministic_cudnn():
         cudnn.deterministic = prev
 
 
+@contextlib.contextmanager
+def recorded_relu(record):
+    """``record(v)`` with the detached input ``v`` of every ``F.relu``
+    call inside the block.  ReLU is the classifiers' only kink: an input
+    that lies on one side of 0 in one run and on the other in a run that
+    rounds otherwise moves a gradient by a step, not by rounding, so the
+    checks that compare two devices' gradients read these inputs."""
+    fn = torch.nn.functional
+    relu = fn.relu
+
+    def recorded(v, *args, **kwargs):
+        record(v.detach())
+        return relu(v, *args, **kwargs)
+
+    fn.relu = recorded
+    try:
+        yield
+    finally:
+        fn.relu = relu
+
+
 def normal_init(shape, generator: torch.Generator | None = None,
                 stddev: float = 0.02, device=None) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=device) * stddev

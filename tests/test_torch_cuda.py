@@ -38,6 +38,7 @@ from repro_torch.models.classifiers import classifier_logprob, init_classifier
 from repro_torch.models.moe import Parallel
 from repro_torch.models.transformer import LM
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.utils import recorded_relu
 
 pytestmark = pytest.mark.cuda
 
@@ -1054,17 +1055,9 @@ def test_category_encodings_repeat_bit_for_bit(dev):
 
 def _relu_margin(fn):
     """``fn()`` with the smallest |ReLU input| it computed."""
-    relu, margins = torch.nn.functional.relu, [np.inf]
-
-    def recorded(v, *args, **kwargs):
-        margins.append(float(v.detach().abs().min()))
-        return relu(v, *args, **kwargs)
-
-    torch.nn.functional.relu = recorded
-    try:
+    margins = [np.inf]
+    with recorded_relu(lambda v: margins.append(float(v.abs().min()))):
         return fn(), min(margins)
-    finally:
-        torch.nn.functional.relu = relu
 
 
 @pytest.mark.parametrize("name", ["resnet18", "vit_b16"])

@@ -46,6 +46,7 @@ from repro_torch.diffusion import schedule as tsched
 from repro_torch.encoders.foundation import FrozenFM
 from repro_torch.models import classifiers as tclf
 from repro_torch.optim import optimizers as topt
+from repro_torch.utils import recorded_relu
 from test_torch_classifiers import random_classifier
 from test_torch_dit import perturbed_params, port_model
 
@@ -97,16 +98,11 @@ def max_param_err(ref_tree, model, name) -> float:
 
 
 @pytest.fixture
-def relu_margin(monkeypatch):
+def relu_margin():
     """The smallest |ReLU input| the port computes while the test runs."""
-    relu, margins = torch.nn.functional.relu, [np.inf]
-
-    def recorded(v, *args, **kwargs):
-        margins.append(float(v.detach().abs().min()))
-        return relu(v, *args, **kwargs)
-
-    monkeypatch.setattr(torch.nn.functional, "relu", recorded)
-    return lambda: min(margins)
+    margins = [np.inf]
+    with recorded_relu(lambda v: margins.append(float(v.abs().min()))):
+        yield lambda: min(margins)
 
 
 def _data(seed=1, n=24, size=16, classes=5):
@@ -217,6 +213,23 @@ def test_clip_by_global_norm_and_cosine_schedule_match_reference():
 
 
 # -- xent, training, evaluation -------------------------------------------------
+
+def test_recorded_relu_sees_every_input_and_restores_relu():
+    relu = torch.nn.functional.relu
+    model = tclf.init_classifier(torch.Generator().manual_seed(0),
+                                 "resnet18", 5, device="cpu")
+    x = torch.from_numpy(_data(n=2)[0])
+    seen = []
+    with recorded_relu(seen.append):
+        out = model(x)
+    assert torch.nn.functional.relu is relu
+    assert len(seen) == 13 and seen[0].shape == (2, 16, 16, 16)
+    assert not any(v.requires_grad for v in seen)
+    assert torch.equal(out, model(x))
+    with pytest.raises(ValueError), recorded_relu(seen.append):
+        raise ValueError
+    assert torch.nn.functional.relu is relu
+
 
 @pytest.mark.parametrize("l2", [0.0, 1e-3])
 def test_xent_and_its_gradients_match_reference(l2, relu_margin):
