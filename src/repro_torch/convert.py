@@ -33,6 +33,30 @@ def dit_state_from_jax(tree) -> dict:
     return state
 
 
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _dense_node(state: dict, name: str) -> dict:
+    node = {"w": _np(state[f"{name}.weight"]).T.copy()}
+    if f"{name}.bias" in state:
+        node["b"] = _np(state[f"{name}.bias"])
+    return node
+
+
+def dit_tree_from_state(state: dict) -> dict:
+    """The inverse of ``dit_state_from_jax``: a ``DiT.state_dict()`` as
+    the reference's ``init_dit`` tree of float32 numpy arrays, Dense ``w``
+    (in, out), ``blocks`` a list."""
+    tree = {"pos": _np(state["pos"]), "null_y": _np(state["null_y"])}
+    for name in _DENSE:
+        tree[name] = _dense_node(state, name)
+    n_blocks = len({k.split(".")[1] for k in state if k.startswith("blocks.")})
+    tree["blocks"] = [{name: _dense_node(state, f"blocks.{i}.{name}")
+                       for name in _BLOCK_DENSE} for i in range(n_blocks)]
+    return tree
+
+
 def classifier_state_from_jax(tree, name: str) -> dict:
     """``init_classifier(key, name, ...)`` tree → the port's module of the
     same ``name`` (``load_state_dict`` input).  Convolutions are HWIO there

@@ -10,9 +10,9 @@ they were given as it was.
 Keys, as in the reference: step ``i`` trains on the batch
 ``randint(fold_in(key, i), (batch,), 0, N)``, bit for bit jax's indices;
 all steps' indices are drawn in one call before the loop.  A model
-initialised from a key (``init_from_key``) draws its weights from a CPU
-``torch.Generator`` seeded with ``prng.torch_seed(key)``, so its values
-are the port's own, the same on every device, and fixed by the key alone.
+initialised from a key (``init_from_key``) holds the weights the
+reference's ``init_classifier`` draws from that key (within a few ulps),
+drawn on the CPU, so they are the same on every device.
 
 Two runs from one key give the same bits on the card: cuDNN is held to
 its deterministic algorithms while gradients are taken, and the loss is
@@ -35,10 +35,9 @@ from repro_torch.utils import deterministic_cudnn, resolve_device
 
 
 def init_from_key(key, name: str, num_classes: int, device) -> torch.nn.Module:
-    """The classifier ``name`` with weights fixed by the threefry ``key``
-    (drawn on the CPU, then moved to ``device``)."""
-    gen = torch.Generator().manual_seed(prng.torch_seed(key))
-    return init_classifier(gen, name, num_classes, device="cpu").to(device)
+    """The classifier ``name`` initialised from the threefry ``key`` as the
+    reference's ``init_classifier`` draws it, on ``device``."""
+    return init_classifier(key, name, num_classes, device=device)
 
 
 def param_dict(model: torch.nn.Module) -> dict:

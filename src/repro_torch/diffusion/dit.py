@@ -15,11 +15,14 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.configs.oscar import DiffusionConfig
+from repro_torch.convert import dit_state_from_jax
 from repro_torch.kernels.adaln_norm import ops as adaln_ops
 from repro_torch.kernels.adaln_norm import ref as adaln_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -48,17 +51,10 @@ def unpatchify(tok, p: int, H: int, W: int, C: int):
     return x.reshape(B, H, W, C)
 
 
-def _dense(d_in: int, d_out: int, generator, device, *, bias: bool = True,
-           zero: bool = False) -> nn.Linear:
-    lin = nn.Linear(d_in, d_out, bias=bias, device=device)
-    with torch.no_grad():
-        if zero:
-            lin.weight.zero_()
-        else:   # LeCun on the (in, out) matrix, stored transposed
-            lin.weight.copy_(lecun_init((d_in, d_out), generator, device).T)
-        if bias:
-            lin.bias.zero_()
-    return lin
+def _dense(d_in: int, d_out: int, device, *, bias: bool = True) -> nn.Linear:
+    """An ``nn.Linear`` allocated, not drawn: ``init_dit`` fills it."""
+    return nn.utils.skip_init(nn.Linear, d_in, d_out, bias=bias,
+                              device=device)
 
 
 def _kernel_attention(q, k, v):
@@ -71,13 +67,13 @@ def _plain_attention(q, k, v):
 
 
 class DiTBlock(nn.Module):
-    def __init__(self, d: int, generator, device):
+    def __init__(self, d: int, device):
         super().__init__()
-        self.wqkv = _dense(d, 3 * d, generator, device, bias=False)
-        self.wo = _dense(d, d, generator, device, bias=False)
-        self.w_up = _dense(d, 4 * d, generator, device)
-        self.w_down = _dense(4 * d, d, generator, device)
-        self.mod = _dense(d, 6 * d, generator, device, zero=True)  # adaLN-zero
+        self.wqkv = _dense(d, 3 * d, device, bias=False)
+        self.wo = _dense(d, d, device, bias=False)
+        self.w_up = _dense(d, 4 * d, device)
+        self.w_down = _dense(4 * d, d, device)
+        self.mod = _dense(d, 6 * d, device)   # adaLN-zero
 
 
 class DiT(nn.Module):
@@ -90,10 +86,15 @@ class DiT(nn.Module):
     kernel wrappers (``kernels/adaln_norm``, ``kernels/flash_attention``),
     which launch the hand-written kernels on CUDA tensors.  A model whose
     ``plain`` attribute is set runs the plain PyTorch versions instead, on
-    any device: it is the reference the kernel path is held against."""
+    any device: it is the reference the kernel path is held against.
+
+    The constructor allocates the parameters and draws nothing:
+    ``init_dit`` draws the reference's initial weights from a key, and
+    ``dit_from_tree`` loads a reference-layout tree (a checkpoint, or
+    ``repro_torch.convert``'s input)."""
 
     def __init__(self, dc: DiffusionConfig, image_size: int, channels: int,
-                 *, generator: torch.Generator | None = None, device=None):
+                 *, device=None):
         super().__init__()
         d, p = dc.d_model, dc.patch
         if d % dc.num_heads:
@@ -103,18 +104,17 @@ class DiT(nn.Module):
         device = resolve_device(device)
         n_tok = (image_size // p) ** 2
         patch_dim = p * p * channels
-        g = generator
-        self.patch_in = _dense(patch_dim, d, g, device)
-        self.pos = nn.Parameter(normal_init((n_tok, d), g, 0.02, device))
-        self.t_mlp1 = _dense(d, d, g, device)
-        self.t_mlp2 = _dense(d, d, g, device)
-        self.y_proj = _dense(dc.cond_dim, d, g, device)
-        self.null_y = nn.Parameter(normal_init((dc.cond_dim,), g, 0.5, device))
-        self.out_mod = _dense(d, 2 * d, g, device, zero=True)
-        self.patch_out = _dense(d, patch_dim, g, device, zero=True)
+        self.patch_in = _dense(patch_dim, d, device)
+        self.pos = nn.Parameter(torch.empty((n_tok, d), device=device))
+        self.t_mlp1 = _dense(d, d, device)
+        self.t_mlp2 = _dense(d, d, device)
+        self.y_proj = _dense(dc.cond_dim, d, device)
+        self.null_y = nn.Parameter(torch.empty((dc.cond_dim,), device=device))
+        self.out_mod = _dense(d, 2 * d, device)
+        self.patch_out = _dense(d, patch_dim, device)
         # conditioning token: gives attention direct access to y
-        self.cond_tok = _dense(dc.cond_dim, d, g, device)
-        self.blocks = nn.ModuleList(DiTBlock(d, g, device)
+        self.cond_tok = _dense(dc.cond_dim, d, device)
+        self.blocks = nn.ModuleList(DiTBlock(d, device)
                                     for _ in range(dc.num_layers))
         self.plain = False
 
@@ -152,3 +152,62 @@ class DiT(nn.Module):
         tok = norm(tok[:, 1:], scale, shift)   # drop the conditioning token
         return unpatchify(self.patch_out(tok), p, H, W, C)
 
+
+def _dense_tree(key, d_in: int, d_out: int, *, bias: bool = True,
+                zero: bool = False) -> dict:
+    w = (torch.zeros((d_in, d_out)) if zero
+         else lecun_init(key, (d_in, d_out)))
+    return {"w": w, "b": torch.zeros((d_out,))} if bias else {"w": w}
+
+
+def init_dit_tree(key, dc: DiffusionConfig, image_size: int,
+                  channels: int) -> dict:
+    """The reference's ``init_dit(key, ...)`` tree, drawn from the same
+    keys on the CPU: ``ks = split(key, 8 + 6·L)``, block i from
+    ``ks[8 + 6i : 14 + 6i]``, ``cond_tok`` from ``fold_in(key, 99)``; the
+    zero-initialised leaves ignore their keys.  Dense ``w`` is (in, out)."""
+    d, p = dc.d_model, dc.patch
+    n_tok = (image_size // p) ** 2
+    patch_dim = p * p * channels
+    key = np.asarray(key, np.uint32)
+    ks = prng.split(key, 8 + 6 * dc.num_layers)
+    tree = {
+        "patch_in": _dense_tree(ks[0], patch_dim, d),
+        "pos": normal_init(ks[1], (n_tok, d), 0.02),
+        "t_mlp1": _dense_tree(ks[2], d, d),
+        "t_mlp2": _dense_tree(ks[3], d, d),
+        "y_proj": _dense_tree(ks[4], dc.cond_dim, d),
+        "null_y": normal_init(ks[5], (dc.cond_dim,), 0.5),
+        "out_mod": _dense_tree(ks[6], d, 2 * d, zero=True),
+        "patch_out": _dense_tree(ks[7], d, patch_dim, zero=True),
+        "cond_tok": _dense_tree(prng.fold_in(key, 99), dc.cond_dim, d),
+        "blocks": [],
+    }
+    for i in range(dc.num_layers):
+        k6 = ks[8 + 6 * i: 14 + 6 * i]
+        tree["blocks"].append({
+            "wqkv": _dense_tree(k6[0], d, 3 * d, bias=False),
+            "wo": _dense_tree(k6[1], d, d, bias=False),
+            "w_up": _dense_tree(k6[2], d, 4 * d),
+            "w_down": _dense_tree(k6[3], 4 * d, d),
+            "mod": _dense_tree(k6[4], d, 6 * d, zero=True),   # adaLN-zero
+        })
+    return tree
+
+
+def dit_from_tree(tree, dc: DiffusionConfig, image_size: int,
+                  channels: int, *, device=None) -> DiT:
+    """A ``DiT`` holding the reference-layout ``tree`` (numpy arrays or CPU
+    tensors), on ``device`` (the card unless the caller passes ``"cpu"``)."""
+    device = resolve_device(device)
+    model = DiT(dc, image_size, channels, device="meta")
+    model.load_state_dict(dit_state_from_jax(tree), assign=True)
+    return model.to(device)
+
+
+def init_dit(key, dc: DiffusionConfig, image_size: int, channels: int, *,
+             device=None) -> DiT:
+    """The DiT the reference's ``init_dit(key, ...)`` initialises, drawn on
+    the CPU and moved to ``device``: the bits depend on the key alone."""
+    return dit_from_tree(init_dit_tree(key, dc, image_size, channels), dc,
+                         image_size, channels, device=device)

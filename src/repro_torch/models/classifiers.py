@@ -4,7 +4,8 @@ The JAX package's ``models/classifiers.py`` as ``nn.Module``s: 16×16
 analogues of ResNet-18/50/101, VGG-16, DenseNet-121 and ViT-B/16, with
 GroupNorm in place of BatchNorm.  Each module takes NHWC images, as the
 reference does, and runs NCHW inside (``F.conv2d`` and ``F.group_norm``);
-parameters load from the reference's ``init_classifier`` tree through
+``init_classifier`` draws their initial weights from a threefry key as
+the reference's does, and a reference tree loads through
 ``repro_torch.convert.classifier_state_from_jax``.  The reference runs
 these outside any Pallas kernel, so the port leaves them to PyTorch's
 library operators.
@@ -23,10 +24,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import prng
+from repro_torch.convert import classifier_state_from_jax
 from repro_torch.utils import lecun_init, normal_init, resolve_device
 
 
@@ -38,11 +42,10 @@ def _same_pads(n: int, k: int, stride: int) -> tuple[int, int]:
 class _Conv(nn.Module):
     """Bias-free convolution with XLA's ``"SAME"`` padding, on NCHW."""
 
-    def __init__(self, k: int, cin: int, cout: int, generator, device):
+    def __init__(self, k: int, cin: int, cout: int, device):
         super().__init__()
-        w = torch.empty((cout, cin, k, k), device=device)
-        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        self.weight = nn.Parameter(w / math.sqrt(k * k * cin))
+        self.weight = nn.Parameter(torch.empty((cout, cin, k, k),
+                                               device=device))
 
     def forward(self, x, stride: int = 1):
         k = self.weight.shape[-1]
@@ -59,12 +62,8 @@ def _gn(ch: int, device) -> nn.GroupNorm:
     return nn.GroupNorm(g, ch, eps=1e-5, device=device)
 
 
-def _fc(d_in: int, d_out: int, generator, device) -> nn.Linear:
-    lin = nn.Linear(d_in, d_out, device=device)
-    with torch.no_grad():
-        lin.weight.copy_(lecun_init((d_in, d_out), generator, device).T)
-        lin.bias.zero_()
-    return lin
+def _fc(d_in: int, d_out: int, device) -> nn.Linear:
+    return nn.utils.skip_init(nn.Linear, d_in, d_out, device=device)
 
 
 def _nchw(x):
@@ -87,10 +86,9 @@ class _Block(nn.Module):
     """A basic (two 3×3) or bottleneck (1×1, 3×3, 1×1) residual block; the
     stride sits on the first 3×3 convolution."""
 
-    def __init__(self, kind: str, cin: int, cout: int, stride: int,
-                 generator, device):
+    def __init__(self, kind: str, cin: int, cout: int, stride: int, device):
         super().__init__()
-        g, d = generator, device
+        d = device
         self.stride = stride
         if kind == "basic":
             widths = [(3, cin, cout), (3, cout, cout)]
@@ -100,10 +98,10 @@ class _Block(nn.Module):
             widths = [(1, cin, mid), (3, mid, mid), (1, mid, cout)]
             self.strided = 1
         for i, (k, a, b) in enumerate(widths, 1):
-            setattr(self, f"c{i}", _Conv(k, a, b, g, d))
+            setattr(self, f"c{i}", _Conv(k, a, b, d))
             setattr(self, f"n{i}", _gn(b, d))
         self.depth = len(widths)
-        self.proj = (_Conv(1, cin, cout, g, d)
+        self.proj = (_Conv(1, cin, cout, d)
                      if stride != 1 or cin != cout else None)
 
     def forward(self, x):
@@ -119,21 +117,20 @@ class _Block(nn.Module):
 
 
 class ResNet(nn.Module):
-    def __init__(self, name: str, num_classes: int, in_ch: int, generator,
-                 device):
+    def __init__(self, name: str, num_classes: int, in_ch: int, device):
         super().__init__()
         kind, reps, widths = _RESNETS[name]
-        g, d = generator, device
-        self.stem = _Conv(3, in_ch, widths[0], g, d)
+        d = device
+        self.stem = _Conv(3, in_ch, widths[0], d)
         self.stem_n = _gn(widths[0], d)
         blocks, cin = [], widths[0]
         for s, (rep, w) in enumerate(zip(reps, widths)):
             for b in range(rep):
                 blocks.append(_Block(kind, cin, w,
-                                     2 if (b == 0 and s > 0) else 1, g, d))
+                                     2 if (b == 0 and s > 0) else 1, d))
                 cin = w
         self.blocks = nn.ModuleList(blocks)
-        self.fc = _fc(cin, num_classes, g, d)
+        self.fc = _fc(cin, num_classes, d)
 
     def forward(self, x):
         h = F.relu(self.stem_n(self.stem(_nchw(x))))
@@ -150,24 +147,23 @@ _VGG_CFG = [(16, 2), (32, 2), (64, 3)]
 
 
 class _ConvNorm(nn.Module):
-    def __init__(self, k: int, cin: int, cout: int, norm_ch: int, generator,
-                 device):
+    def __init__(self, k: int, cin: int, cout: int, norm_ch: int, device):
         super().__init__()
-        self.c = _Conv(k, cin, cout, generator, device)
+        self.c = _Conv(k, cin, cout, device)
         self.n = _gn(norm_ch, device)
 
 
 class VGG(nn.Module):
-    def __init__(self, num_classes: int, in_ch: int, generator, device):
+    def __init__(self, num_classes: int, in_ch: int, device):
         super().__init__()
         layers, cin = [], in_ch
         for w, rep in _VGG_CFG:
             for _ in range(rep):
-                layers.append(_ConvNorm(3, cin, w, w, generator, device))
+                layers.append(_ConvNorm(3, cin, w, w, device))
                 cin = w
         self.layers = nn.ModuleList(layers)
-        self.fc1 = _fc(cin * 2 * 2, 128, generator, device)
-        self.fc2 = _fc(128, num_classes, generator, device)
+        self.fc1 = _fc(cin * 2 * 2, 128, device)
+        self.fc2 = _fc(128, num_classes, device)
 
     def forward(self, x):
         h, i = _nchw(x), 0
@@ -186,26 +182,26 @@ class VGG(nn.Module):
 # ---------------------------------------------------------------------------
 
 class DenseNet(nn.Module):
-    def __init__(self, num_classes: int, in_ch: int, generator, device,
+    def __init__(self, num_classes: int, in_ch: int, device,
                  growth: int = 8, blocks=(4, 4, 4)):
         super().__init__()
-        g, d = generator, device
-        self.stem = _Conv(3, in_ch, 2 * growth, g, d)
+        d = device
+        self.stem = _Conv(3, in_ch, 2 * growth, d)
         ch = 2 * growth
         dense, trans = [], []
         for bi, nl in enumerate(blocks):
             layers = []
             for _ in range(nl):
-                layers.append(_ConvNorm(3, ch, growth, ch, g, d))
+                layers.append(_ConvNorm(3, ch, growth, ch, d))
                 ch += growth
             dense.append(nn.ModuleList(layers))
             if bi < len(blocks) - 1:
-                trans.append(_ConvNorm(1, ch, ch // 2, ch, g, d))
+                trans.append(_ConvNorm(1, ch, ch // 2, ch, d))
                 ch //= 2
         self.dense = nn.ModuleList(dense)
         self.trans = nn.ModuleList(trans)
         self.final_n = _gn(ch, d)
-        self.fc = _fc(ch, num_classes, g, d)
+        self.fc = _fc(ch, num_classes, d)
 
     def forward(self, x):
         h = self.stem(_nchw(x))
@@ -224,31 +220,28 @@ class DenseNet(nn.Module):
 # ---------------------------------------------------------------------------
 
 class _ViTBlock(nn.Module):
-    def __init__(self, d: int, generator, device):
+    def __init__(self, d: int, device):
         super().__init__()
-        g = generator
-        self.qkv = _fc(d, 3 * d, g, device)
-        self.proj = _fc(d, d, g, device)
-        self.up = _fc(d, 4 * d, g, device)
-        self.down = _fc(4 * d, d, g, device)
+        self.qkv = _fc(d, 3 * d, device)
+        self.proj = _fc(d, d, device)
+        self.up = _fc(d, 4 * d, device)
+        self.down = _fc(4 * d, d, device)
         self.n1 = nn.LayerNorm(d, eps=1e-6, device=device)
         self.n2 = nn.LayerNorm(d, eps=1e-6, device=device)
 
 
 class ViT(nn.Module):
-    def __init__(self, num_classes: int, in_ch: int, generator, device,
-                 d: int = 96, layers: int = 4, heads: int = 4,
-                 patch: int = 4):
+    def __init__(self, num_classes: int, in_ch: int, device, d: int = 96,
+                 layers: int = 4, heads: int = 4, patch: int = 4):
         super().__init__()
-        g = generator
         self.d, self.heads, self.p = d, heads, patch
-        self.patch = _fc(patch * patch * in_ch, d, g, device)
-        self.pos = nn.Parameter(normal_init((1 + (16 // patch) ** 2, d), g,
-                                            0.02, device))
-        self.cls = nn.Parameter(normal_init((d,), g, 0.02, device))
-        self.blocks = nn.ModuleList(_ViTBlock(d, g, device)
+        self.patch = _fc(patch * patch * in_ch, d, device)
+        self.pos = nn.Parameter(torch.empty((1 + (16 // patch) ** 2, d),
+                                            device=device))
+        self.cls = nn.Parameter(torch.empty((d,), device=device))
+        self.blocks = nn.ModuleList(_ViTBlock(d, device)
                                     for _ in range(layers))
-        self.fc = _fc(d, num_classes, g, device)
+        self.fc = _fc(d, num_classes, device)
 
     def forward(self, x):
         d, heads, p = self.d, self.heads, self.p
@@ -276,22 +269,154 @@ CLASSIFIERS = ["resnet18", "vgg16", "resnet50", "resnet101", "densenet121",
                "vit_b16"]
 
 
-def init_classifier(generator: torch.Generator | None, name: str,
-                    num_classes: int, in_ch: int = 3, *,
-                    device=None) -> nn.Module:
-    """A classifier of the zoo with its own initial weights drawn from
-    ``generator``, on ``device`` (the card unless the caller passes
-    ``"cpu"``).  The draws are the port's own, not the reference's."""
+def classifier_module(name: str, num_classes: int, in_ch: int = 3, *,
+                      device=None) -> nn.Module:
+    """The classifier ``name`` with its parameters allocated on ``device``
+    and not drawn: the module ``init_classifier`` fills, or a reference
+    tree loads into (``repro_torch.convert.classifier_state_from_jax``)."""
     device = resolve_device(device)
     if name in _RESNETS:
-        return ResNet(name, num_classes, in_ch, generator, device)
+        return ResNet(name, num_classes, in_ch, device)
     if name == "vgg16":
-        return VGG(num_classes, in_ch, generator, device)
+        return VGG(num_classes, in_ch, device)
     if name == "densenet121":
-        return DenseNet(num_classes, in_ch, generator, device)
+        return DenseNet(num_classes, in_ch, device)
     if name == "vit_b16":
-        return ViT(num_classes, in_ch, generator, device)
+        return ViT(num_classes, in_ch, device)
     raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
+# initial weights from a key, as the reference's init_classifier draws them
+# ---------------------------------------------------------------------------
+
+def _conv_tree(key, k: int, cin: int, cout: int) -> dict:
+    # the reference divides by sqrt(fan_in) here (lecun_init multiplies)
+    w = prng.truncated_normal(key, -2.0, 2.0, (k, k, cin, cout))
+    return {"w": w / float(np.float32(math.sqrt(k * k * cin)))}
+
+
+def _gn_tree(ch: int) -> dict:
+    return {"scale": torch.ones((ch,)), "bias": torch.zeros((ch,))}
+
+
+def _fc_tree(key, d_in: int, d_out: int) -> dict:
+    return {"w": lecun_init(key, (d_in, d_out)), "b": torch.zeros((d_out,))}
+
+
+def _block_tree(key, kind: str, cin: int, cout: int, stride: int) -> dict:
+    if kind == "basic":
+        widths = [(3, cin, cout), (3, cout, cout)]
+    else:
+        mid = cout // 4
+        widths = [(1, cin, mid), (3, mid, mid), (1, mid, cout)]
+    ks = prng.split(key, 2 * len(widths) + 1)
+    tree = {}
+    for i, (k, a, b) in enumerate(widths):
+        tree[f"c{i + 1}"] = _conv_tree(ks[2 * i], k, a, b)
+        tree[f"n{i + 1}"] = _gn_tree(b)
+    if stride != 1 or cin != cout:
+        tree["proj"] = _conv_tree(ks[-1], 1, cin, cout)
+    return tree
+
+
+def _resnet_tree(key, name: str, num_classes: int, in_ch: int) -> dict:
+    kind, reps, widths = _RESNETS[name]
+    layout, cin = [], widths[0]
+    for s, (rep, w) in enumerate(zip(reps, widths)):
+        for b in range(rep):
+            layout.append((cin, w, 2 if (b == 0 and s > 0) else 1))
+            cin = w
+    ks = prng.split(key, 3)
+    bk = prng.split(ks[2], len(layout))
+    return {"stem": _conv_tree(ks[0], 3, in_ch, widths[0]),
+            "stem_n": _gn_tree(widths[0]),
+            "blocks": [_block_tree(bk[i], kind, *lay)
+                       for i, lay in enumerate(layout)],
+            "fc": _fc_tree(prng.fold_in(key, 7), cin, num_classes)}
+
+
+def _vgg_tree(key, num_classes: int, in_ch: int) -> dict:
+    layers, cin = [], in_ch
+    for w, rep in _VGG_CFG:
+        for _ in range(rep):
+            key, k1, _ = prng.split(key, 3)
+            layers.append({"c": _conv_tree(k1, 3, cin, w), "n": _gn_tree(w)})
+            cin = w
+    _, k1, k2 = prng.split(key, 3)
+    return {"layers": layers, "fc1": _fc_tree(k1, cin * 2 * 2, 128),
+            "fc2": _fc_tree(k2, 128, num_classes)}
+
+
+def _densenet_tree(key, num_classes: int, in_ch: int, growth: int = 8,
+                   blocks=(4, 4, 4)) -> dict:
+    key, k1 = prng.split(key)
+    tree = {"stem": _conv_tree(k1, 3, in_ch, 2 * growth), "dense": [],
+            "trans": []}
+    ch = 2 * growth
+    for bi, nl in enumerate(blocks):
+        layers = []
+        for _ in range(nl):
+            key, _, k2 = prng.split(key, 3)
+            layers.append({"n": _gn_tree(ch), "c": _conv_tree(k2, 3, ch,
+                                                              growth)})
+            ch += growth
+        tree["dense"].append(layers)
+        if bi < len(blocks) - 1:
+            key, _, k2 = prng.split(key, 3)
+            tree["trans"].append({"n": _gn_tree(ch),
+                                  "c": _conv_tree(k2, 1, ch, ch // 2)})
+            ch //= 2
+    _, _, k2 = prng.split(key, 3)
+    tree["final_n"] = _gn_tree(ch)
+    tree["fc"] = _fc_tree(k2, ch, num_classes)
+    return tree
+
+
+def _vit_tree(key, num_classes: int, in_ch: int, d: int = 96,
+              layers: int = 4, patch: int = 4) -> dict:
+    key, k1, k2, k3 = prng.split(key, 4)
+    tree = {"patch": _fc_tree(k1, patch * patch * in_ch, d),
+            "pos": normal_init(k2, (1 + (16 // patch) ** 2, d), 0.02),
+            "cls": normal_init(k3, (d,), 0.02), "blocks": []}
+    for _ in range(layers):
+        key, k1, k2, k3, k4 = prng.split(key, 5)
+        tree["blocks"].append({
+            "qkv": _fc_tree(k1, d, 3 * d), "proj": _fc_tree(k2, d, d),
+            "up": _fc_tree(k3, d, 4 * d), "down": _fc_tree(k4, 4 * d, d),
+            "n1": _gn_tree(d), "n2": _gn_tree(d)})
+    _, k1 = prng.split(key)
+    tree["fc"] = _fc_tree(k1, d, num_classes)
+    return tree
+
+
+def _classifier_tree(key, name: str, num_classes: int,
+                         in_ch: int = 3) -> dict:
+    """The reference's ``init_classifier(key, name, ...)`` tree (HWIO
+    convolutions, (in, out) dense weights), drawn from the same keys on
+    the CPU."""
+    key = np.asarray(key, np.uint32)
+    if name in _RESNETS:
+        return _resnet_tree(key, name, num_classes, in_ch)
+    if name == "vgg16":
+        return _vgg_tree(key, num_classes, in_ch)
+    if name == "densenet121":
+        return _densenet_tree(key, num_classes, in_ch)
+    if name == "vit_b16":
+        return _vit_tree(key, num_classes, in_ch)
+    raise ValueError(name)
+
+
+def init_classifier(key, name: str, num_classes: int, in_ch: int = 3, *,
+                    device=None) -> nn.Module:
+    """The classifier the reference's ``init_classifier(key, ...)``
+    initialises, drawn on the CPU and moved to ``device`` (the card unless
+    the caller passes ``"cpu"``): the bits depend on the key alone."""
+    device = resolve_device(device)
+    tree = _classifier_tree(key, name, num_classes, in_ch)
+    model = classifier_module(name, num_classes, in_ch, device="meta")
+    model.load_state_dict(classifier_state_from_jax(tree, name), assign=True)
+    return model.to(device)
 
 
 def classifier_apply(model: nn.Module, x) -> torch.Tensor:

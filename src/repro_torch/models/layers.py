@@ -9,12 +9,36 @@ MLP's gelu is the tanh form (``jax.nn.gelu``'s default).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.rmsnorm.ref import rmsnorm
-from repro_torch.utils import lecun_init, normal_init
+
+# ---------------------------------------------------------------------------
+# Initialisers of the LM
+# ---------------------------------------------------------------------------
+# The LM's layers draw their initial weights from a ``torch.Generator``:
+# the reference's key-drawn ``init_lm`` is not ported yet, so these values
+# are the port's own.  Parameters that must equal the reference's load
+# through ``repro_torch.convert``.  The DiT and the classifiers draw from
+# threefry keys instead (``repro_torch.utils.lecun_init``/``normal_init``).
+
+
+def seeded_normal_init(shape, generator: torch.Generator | None = None,
+                       stddev: float = 0.02, device=None) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=device) * stddev
+
+
+def seeded_lecun_init(shape, generator: torch.Generator | None = None,
+                      device=None) -> torch.Tensor:
+    """Truncated normal on [-2, 2], scaled by 1/sqrt(fan_in = shape[0])."""
+    w = torch.empty(shape, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w / math.sqrt(max(shape[0], 1))
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -56,7 +80,8 @@ class Dense(nn.Linear):
                  generator=None, device=None, dtype=torch.float32):
         super().__init__(d_in, d_out, bias=bias, device=device, dtype=dtype)
         with torch.no_grad():
-            self.weight.copy_(lecun_init((d_in, d_out), generator, device).T)
+            self.weight.copy_(
+                seeded_lecun_init((d_in, d_out), generator, device).T)
             if bias:
                 self.bias.zero_()
 
@@ -72,8 +97,8 @@ class Dense(nn.Linear):
 
 def init_embedding(vocab: int, dim: int, generator=None, device=None,
                    dtype=torch.float32):
-    return nn.Parameter(normal_init((vocab, dim), generator, 0.02, device)
-                        .to(dtype))
+    return nn.Parameter(
+        seeded_normal_init((vocab, dim), generator, 0.02, device).to(dtype))
 
 
 def embed(table, ids, dtype):

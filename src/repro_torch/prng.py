@@ -30,6 +30,14 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                -0.00367342844, 0.00573950773, -0.0076224613,
                0.00943887047, 1.00167406, 2.83297682)
+# XLA's float32 erf: an odd rational function of x (Eigen's), saturating
+# to ±1 past the last float32 whose erf rounds below 1
+_ERF_P = (0.00022905065861350646, 0.0034082910107109506,
+          0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_Q = (-1.1791602954361697e-7, 0.000023547966471313185,
+          0.0010179625278914885, 0.014070470171167667,
+          0.11098505178285362, 0.49746925110067538, 1.0)
+_ERF_SATURATE = 3.832506856900711
 
 
 def _rotl(v, r: int):
@@ -132,6 +140,67 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
+def erf_f32(x) -> np.ndarray:
+    """XLA's float32 ``erf`` of the float32 array ``x``, on the host: the
+    polynomials evaluated with fused multiply-adds (each emulated in
+    float64, where a float32 product is exact, then rounded once).  Equal
+    to ``jax.lax.erf`` at the truncation bounds the initialisers use and
+    within a few ulps elsewhere."""
+    x = np.asarray(x, np.float32)
+    x2 = x * x
+
+    def poly(coeffs):
+        acc = np.full_like(x, coeffs[0])
+        for c in coeffs[1:]:
+            acc = (x2.astype(np.float64) * acc + np.float32(c)).astype(
+                np.float32)
+        return acc
+
+    r = (x * poly(_ERF_P)) / poly(_ERF_Q)
+    return np.where(np.abs(x) <= np.float32(_ERF_SATURATE), r,
+                    np.copysign(np.float32(1), x)).astype(np.float32)
+
+
+def uniform(keys, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` for every
+    key of the batch ``keys`` (..., 2): a float32 tensor (..., *shape) on
+    ``device``.
+
+    XLA contracts jax's ``floats · (maxval − minval) + minval`` into one
+    fused multiply-add, so the map runs in float64 (a float32 product is
+    exact there) and rounds once to float32.  Bit for bit as jax on
+    [0, 1) (exact either way) and on the initialisers' truncation span."""
+    bits = random_bits(keys, shape, device)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(lo))
+    u = (floats.double() * span + lo).float()
+    return torch.clamp(u, min=lo)
+
+
+def bernoulli(keys, p: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` with a float32 ``p``: a bool
+    tensor (..., *shape), ``uniform(key, shape) < p``, bit for bit."""
+    return uniform(keys, shape, device=device) < float(np.float32(p))
+
+
+def truncated_normal(keys, lower: float, upper: float, shape,
+                     device=None) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` in float32
+    for every key of the batch ``keys`` (..., 2), as jax 0.9 builds it: u
+    uniform on [erf(lower/√2), erf(upper/√2)) (XLA's float32 ``erf``), then
+    √2·erfinv(u), clipped into the open interval (lower, upper).  Within a
+    few ulps of jax (``erfinv`` is within 3)."""
+    lo, hi = np.float32(lower), np.float32(upper)
+    a, b = erf_f32(np.array([lo, hi]) / np.float32(_SQRT2))
+    u = uniform(keys, shape, float(a), float(b), device)
+    out = _SQRT2 * erfinv(u)
+    return torch.clamp(out, float(np.nextafter(lo, np.float32(np.inf))),
+                       float(np.nextafter(hi, np.float32(-np.inf))))
+
+
 def normal(keys, shape, device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` in float32 for every key of the
     batch ``keys`` (..., 2): a tensor (..., *shape) on ``device``.
@@ -174,9 +243,3 @@ def randint(keys, shape, minval: int, maxval: int, device=None):
     val = (lo_v + offset) & MASK
     return torch.where(val > i32_max, val - 2 ** 32, val).to(torch.int32)
 
-
-def torch_seed(key) -> int:
-    """A ``torch.Generator`` seed fixed by one threefry key: its two uint32
-    words as one 64-bit integer, ``key[0] << 32 | key[1]``."""
-    k = np.asarray(key, np.uint32).reshape(2)
-    return int(k[0]) << 32 | int(k[1])

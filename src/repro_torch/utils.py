@@ -1,17 +1,20 @@
 """Device selection, deterministic cuDNN, parameter initialisers and the
 logit soft cap.
 
-The initialisers draw from an explicit ``torch.Generator``; their values
-are the port's own and do not reproduce the JAX package's threefry draws.
-Parameters that must equal the reference's come through
-``repro_torch.convert`` instead.
+``lecun_init`` and ``normal_init`` take a threefry key and draw what the
+JAX package's initialisers of the same names draw from it (within a few
+ulps: ``prng.truncated_normal`` and ``prng.normal``), on the CPU, so an
+init's bits depend on the key alone on any device.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 
+import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 def default_device() -> torch.device:
@@ -73,17 +76,19 @@ def recorded_relu(record):
         fn.relu = relu
 
 
-def normal_init(shape, generator: torch.Generator | None = None,
-                stddev: float = 0.02, device=None) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=device) * stddev
+def normal_init(key, shape, stddev: float = 0.02) -> torch.Tensor:
+    """``normal(key, shape) · stddev`` in float32 on the CPU, as the
+    reference's ``normal_init`` (``stddev`` rounded to float32 first)."""
+    return prng.normal(key, shape) * float(np.float32(stddev))
 
 
-def lecun_init(shape, generator: torch.Generator | None = None,
-               device=None) -> torch.Tensor:
-    """Truncated normal on [-2, 2], scaled by 1/sqrt(fan_in = shape[0])."""
-    w = torch.empty(shape, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return w / math.sqrt(max(shape[0], 1))
+def lecun_init(key, shape, fan_in_axes=(0,)) -> torch.Tensor:
+    """Truncated normal on [-2, 2] *times* 1/sqrt(fan_in), in float32 on
+    the CPU, as the reference's ``lecun_init`` (the reference's
+    convolutions divide instead, which rounds otherwise)."""
+    fan_in = math.prod(shape[a] for a in fan_in_axes)
+    std = float(np.float32(1.0 / math.sqrt(max(fan_in, 1))))
+    return prng.truncated_normal(key, -2.0, 2.0, shape) * std
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from repro.models import classifiers as jclf
+from repro_torch import prng
 from repro_torch.convert import classifier_state_from_jax
 from repro_torch.diffusion import guidance as tguid
 from repro_torch.models import classifiers as tclf
@@ -55,7 +56,7 @@ def random_classifier(name, seed=0, num_classes=10):
             return 0.05 * a
         return 0.02 * a                               # pos, cls
     params = jax.tree_util.tree_map_with_path(leaf, shapes)
-    model = tclf.init_classifier(None, name, num_classes, device="cpu")
+    model = tclf.classifier_module(name, num_classes, device="cpu")
     model.load_state_dict(classifier_state_from_jax(params, name))
     return params, model
 
@@ -111,8 +112,7 @@ def test_classifier_logits_and_guidance_gradient_match_reference(
 @pytest.mark.parametrize("name", jclf.CLASSIFIERS)
 def test_param_count_and_state_match_reference(name):
     params, _ = random_classifier(name, num_classes=7)
-    model = tclf.init_classifier(torch.Generator().manual_seed(0), name, 7,
-                                 device="cpu")
+    model = tclf.init_classifier(prng.PRNGKey(0), name, 7, device="cpu")
     assert tclf.classifier_param_count(model) == \
         jclf.classifier_param_count(params)
     state = classifier_state_from_jax(params, name)
@@ -128,7 +128,8 @@ def test_same_padding_splits_like_xla():
     assert tclf._same_pads(16, 3, 1) == (1, 1)
     assert tclf._same_pads(16, 1, 2) == (0, 0)
     x = torch.randn(1, 1, 8, 8)
-    conv = tclf._Conv(3, 1, 1, torch.Generator().manual_seed(0), "cpu")
+    conv = tclf._Conv(3, 1, 1, "cpu")
+    torch.nn.init.normal_(conv.weight)
     out = conv(x, 2)
     want = torch.nn.functional.conv2d(
         torch.nn.functional.pad(x, (0, 1, 0, 1)), conv.weight, stride=2)
@@ -136,8 +137,8 @@ def test_same_padding_splits_like_xla():
 
 
 def test_init_is_seeded_and_logprob_freezes_weights():
-    a, b, c = (tclf.init_classifier(torch.Generator().manual_seed(s),
-                                    "resnet18", 10, device="cpu")
+    a, b, c = (tclf.init_classifier(prng.PRNGKey(s), "resnet18", 10,
+                                    device="cpu")
                for s in (3, 3, 4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
@@ -149,7 +150,7 @@ def test_init_is_seeded_and_logprob_freezes_weights():
     assert grad.shape == x.shape and float(grad.abs().max()) > 0
     assert all(p.grad is None for p in a.parameters())
     with pytest.raises(ValueError):
-        tclf.init_classifier(None, "resnet9", 10, device="cpu")
+        tclf.init_classifier(prng.PRNGKey(0), "resnet9", 10, device="cpu")
     with pytest.raises(ValueError):
         classifier_state_from_jax({}, "resnet9")
 
@@ -157,15 +158,15 @@ def test_init_is_seeded_and_logprob_freezes_weights():
 def test_init_classifier_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tclf.init_classifier(None, "resnet18", 10)
+        tclf.init_classifier(prng.PRNGKey(0), "resnet18", 10)
 
 
 def test_guidance_gradient_of_a_row_does_not_depend_on_the_rows_beside_it():
     """``_logprob_grad`` calls the classifier on fixed-size chunks, so a
     row's gradient is the same bits whether it shares the call with 4 rows
     or with 129, and on either side of a chunk boundary."""
-    model = tclf.init_classifier(torch.Generator().manual_seed(5), "resnet18",
-                                 10, device="cpu")
+    model = tclf.init_classifier(prng.PRNGKey(5), "resnet18", 10,
+                                 device="cpu")
     fn = tclf.classifier_logprob(model)
     gen = torch.Generator().manual_seed(6)
     x = torch.rand((130, 16, 16, 3), generator=gen) * 2 - 1

@@ -17,7 +17,7 @@ import torch
 from repro_torch import prng
 from repro_torch.configs import get_config
 from repro_torch.configs.oscar import DiffusionConfig
-from repro_torch.diffusion.dit import DiT
+from repro_torch.diffusion.dit import init_dit
 from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
                                            sample_classifier_guided,
                                            sample_mixed)
@@ -849,8 +849,7 @@ def test_sample_cfg_kernel_path_matches_plain(dev):
     bit-equal to its plain version (``test_cfg_update_kernel_matches_plain``
     at the first step of this trajectory)."""
     dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
-    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
-                device=dev)
+    model = init_dit(prng.PRNGKey(0), dc, 16, 3, device=dev)
     with torch.no_grad():
         for i, p in enumerate(model.parameters()):
             p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
@@ -874,8 +873,7 @@ def test_ragged_wave_kernel_path_matches_plain(dev):
     against a copy of the model that runs the plain DiT, from the same row
     keys; the rowwise update kernel runs once per iteration."""
     dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
-    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
-                device=dev)
+    model = init_dit(prng.PRNGKey(0), dc, 16, 3, device=dev)
     with torch.no_grad():
         for i, p in enumerate(model.parameters()):
             p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
@@ -896,8 +894,7 @@ def test_ragged_wave_kernel_path_matches_plain(dev):
 
 def _seeded_dit(dev):
     dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
-    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
-                device=dev)
+    model = init_dit(prng.PRNGKey(0), dc, 16, 3, device=dev)
     with torch.no_grad():
         for i, p in enumerate(model.parameters()):
             p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
@@ -954,8 +951,7 @@ def test_mixed_wave_draws_its_noise_in_the_kernel(dev, monkeypatch):
     keys times live, drawn outside the kernel."""
     model = _seeded_dit(dev)
     (y,) = _randn(dev, 9, (8, 512))
-    clf = classifier_logprob(init_classifier(
-        torch.Generator(dev).manual_seed(3), "resnet18", 10, device=dev))
+    clf = classifier_logprob(init_classifier(prng.PRNGKey(3), "resnet18", 10, device=dev))
     g = np.array([1.5, 4.0, 1.0, 1.0, 0.0, 7.5, 1.0, 0.0], np.float32)
     mode = np.array([0, 0, 1, 1, 0, 0, 1, 0], np.float32)
     steps = np.array([4, 4, 2, 4, 2, 2, 4, 4])
@@ -991,8 +987,7 @@ def test_classifier_gradient_of_a_row_does_not_depend_on_its_batch(dev):
     the classifier on fixed-size chunks, so a row's gradient is the same
     bits in a call of 5 rows, of 120, or across a chunk boundary."""
     from repro_torch.diffusion.guidance import _logprob_grad
-    clf = init_classifier(torch.Generator(dev).manual_seed(3), "resnet18", 10,
-                          device=dev)
+    clf = init_classifier(prng.PRNGKey(3), "resnet18", 10, device=dev)
     fn = classifier_logprob(clf)
     (x,) = _randn(dev, 8, (200, 16, 16, 3))
     labels = torch.arange(200, device=dev) % 10
@@ -1002,33 +997,56 @@ def test_classifier_gradient_of_a_row_does_not_depend_on_its_batch(dev):
                            full[rows])
 
 
+def _relu_signs(fn):
+    """``fn()`` with the sign of every ReLU input it computed, on the
+    host."""
+    signs = []
+    with recorded_relu(lambda v: signs.append((v > 0).cpu())):
+        return fn(), signs
+
+
 def test_classifier_guided_on_the_card_matches_the_cpu_run(dev):
     """Four classifier-guided steps (a ResNet-18's gradient at each) on the
     card against the same model, classifier, x_T and noise on the CPU, at
-    T = 16, the CPU tests' smoke depth and gate."""
+    T = 16, the CPU tests' smoke depth and gate.  A ReLU input of the
+    classifier on one side of 0 on the card and on the other on the CPU
+    moves a guidance gradient by a step, not by rounding, so the test
+    takes the first classifier key whose two runs put every ReLU input on
+    the same side of 0, as ``test_train_classifier_on_the_card_matches_
+    the_cpu`` takes its data seed, and says which."""
     dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4,
                          train_timesteps=16)
-    model = DiT(dc, 16, 3, generator=torch.Generator(dev).manual_seed(0),
-                device=dev)
+    model = init_dit(prng.PRNGKey(0), dc, 16, 3, device=dev)
     with torch.no_grad():
         for i, p in enumerate(model.parameters()):
             p.add_(0.05 * _randn(dev, 10 + i, p.shape)[0])
-    clf = init_classifier(torch.Generator(dev).manual_seed(1), "resnet18", 10,
-                          device=dev)
-    cpu_model, cpu_clf = copy.deepcopy(model).cpu(), copy.deepcopy(clf).cpu()
+    cpu_model = copy.deepcopy(model).cpu()
     gen = torch.Generator().manual_seed(2)
     x_T = torch.randn((8, 16, 16, 3), generator=gen)
     noise = torch.randn((4, 8, 16, 16, 3), generator=gen)
     labels = np.arange(8) % 10
-    out = sample_classifier_guided(
-        model, make_schedule(16, device=dev), classifier_logprob(clf), labels,
-        num_steps=4, guidance=1.0, x_T=x_T.to(dev), noise=noise.to(dev))
-    ref = sample_classifier_guided(
-        cpu_model, make_schedule(16, device="cpu"), classifier_logprob(cpu_clf),
-        labels, num_steps=4, guidance=1.0, x_T=x_T, noise=noise)
+
+    def guided(m, clf, where):
+        return sample_classifier_guided(
+            m, make_schedule(16, device=where), classifier_logprob(clf),
+            labels, num_steps=4, guidance=1.0, x_T=x_T.to(where),
+            noise=noise.to(where))
+
+    crossed = {}
+    for ck in range(1, 9):
+        clf = init_classifier(prng.PRNGKey(ck), "resnet18", 10, device=dev)
+        cpu_clf = copy.deepcopy(clf).cpu()
+        (out, s_card), (ref, s_cpu) = (
+            _relu_signs(lambda: guided(model, clf, dev)),
+            _relu_signs(lambda: guided(cpu_model, cpu_clf, "cpu")))
+        assert len(s_card) == len(s_cpu)
+        crossed[ck] = sum(int((a != b).sum()) for a, b in zip(s_card, s_cpu))
+        if crossed[ck] == 0:
+            break
+    assert crossed[ck] == 0, f"ReLU inputs crossing 0 by key: {crossed}"
     assert out.device.type == "cuda" and out.shape == (8, 16, 16, 3)
     assert float(ref.abs().max()) > 1e-3
-    assert _err(out.cpu(), ref) < 5e-4
+    assert _err(out.cpu(), ref) < 5e-4, f"classifier key {ck}"
 
 
 def test_category_encodings_repeat_bit_for_bit(dev):
@@ -1053,36 +1071,33 @@ def test_category_encodings_repeat_bit_for_bit(dev):
     assert _err(runs[0][0].cpu(), cpu_mean) < 1e-5
 
 
-def _relu_margin(fn):
-    """``fn()`` with the smallest |ReLU input| it computed."""
-    margins = [np.inf]
-    with recorded_relu(lambda v: margins.append(float(v.abs().min()))):
-        return fn(), min(margins)
-
-
 @pytest.mark.parametrize("name", ["resnet18", "vit_b16"])
 def test_train_classifier_on_the_card_matches_the_cpu(dev, name):
     """Three SGD steps from one init and one key, card against CPU, within
-    the classifier's card-against-CPU gate.  A ReLU input within ~2e-7 of
-    0 moves a ResNet-18's gradient by ~0.09, and where that happens
-    depends on the CPU's own rounding (data seed 5 is clear of kinks on
-    one CPU and not on the card's host), so the test takes the first data
-    seed whose CPU run keeps every ReLU input at least 1e-6 from 0, and
-    says which."""
+    the classifier's card-against-CPU gate.  A ReLU input that lies on one
+    side of 0 on the card and on the other on the CPU moves a ResNet-18's
+    gradient by a step (~0.09), not by rounding, and which inputs cross
+    depends on the data, the init and each device's rounding (a CPU margin
+    of 1e-6 did not rule it out), so the test takes the first data seed
+    whose two runs put every ReLU input on the same side of 0, as
+    ``chip_smoke.py`` phase 9.2 takes its key, and says which."""
     from repro_torch.core import classifier_train as ct
     key = prng.PRNGKey(5)
+    crossed = {}
     for seed in range(16):
         rng = np.random.default_rng(seed)
         x = rng.uniform(-1, 1, (32, 16, 16, 3)).astype(np.float32)
         y = rng.integers(0, 10, 32)
-        cpu, margin = _relu_margin(lambda: ct.train_classifier(
-            ct.init_from_key(key, name, 10, "cpu"), name, x, y, key,
-            steps=3, batch=16))
-        if margin > 1e-6:
+        runs = [_relu_signs(lambda: ct.train_classifier(
+            ct.init_from_key(key, name, 10, d), name, x, y, key, steps=3,
+            batch=16)) for d in ("cpu", dev)]
+        (cpu, s_cpu), (card, s_card) = runs
+        assert len(s_cpu) == len(s_card)
+        crossed[seed] = sum(int((a != b).sum()) for a, b in zip(s_cpu,
+                                                                 s_card))
+        if crossed[seed] == 0:
             break
-    assert margin > 1e-6, "every data seed puts a ReLU input at a kink"
-    card = ct.train_classifier(ct.init_from_key(key, name, 10, dev), name,
-                               x, y, key, steps=3, batch=16)
+    assert crossed[seed] == 0, f"ReLU inputs crossing 0 by seed: {crossed}"
     pc, pg = cpu.state_dict(), card.state_dict()
     assert all(v.device.type == dev.type for v in pg.values())
     assert max(_err(pg[k].cpu(), pc[k]) for k in pc) < 1e-4, f"seed {seed}"
@@ -1158,3 +1173,63 @@ def test_2d_requests_give_their_rows_in_grouped_and_ragged_waves(dev):
         for i, w in enumerate(waves)])
     assert torch.equal(outs["ragged"], want[:14])
     assert float((outs["ragged"][0] - outs["ragged"][1]).abs().max()) > 1e-3
+
+
+def test_inits_from_a_key_on_the_card_equal_the_cpu_draws(dev):
+    from repro_torch.core.classifier_train import init_from_key
+    key = prng.PRNGKey(5)
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
+    pairs = [[init_dit(key, dc, 16, 3, device=d).state_dict()
+              for d in (dev, "cpu")]]
+    pairs += [[init_from_key(key, name, 10, d).state_dict()
+               for d in (dev, "cpu")] for name in ("resnet18", "vit_b16")]
+    for on_card, on_cpu in pairs:
+        assert sorted(on_card) == sorted(on_cpu)
+        for k, v in on_card.items():
+            assert v.device.type == "cuda"
+            assert torch.equal(v.cpu(), on_cpu[k]), k
+
+
+def test_pretraining_repeats_bit_for_bit_on_the_card(dev):
+    from repro_torch.diffusion.ddpm import pretrain_dm
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4,
+                         batch_size=32)
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1, 1, (64, 16, 16, 3)).astype(np.float32)
+    y = rng.standard_normal((64, 512)).astype(np.float32)
+    groups = np.arange(64) % 6
+    fns = (an_ops.adaln_norm, fa_ops.flash_attention)
+    before = [f.launches for f in fns]
+    runs = [pretrain_dm(prng.PRNGKey(9), dc, x, y, image_size=16,
+                        channels=3, steps=5, groups=groups, device=dev)
+            for _ in range(2)]
+    # training runs the plain route: no kernel launched
+    assert [f.launches for f in fns] == before
+    (a, _, la), (b, _, lb) = runs
+    assert la == lb and len(la) == 5
+    assert not a.plain and a.null_y.device.type == "cuda"
+    sa, sb = a.state_dict(), b.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert float(sa["patch_out.weight"].abs().max()) > 0
+    # the trained model samples through the kernels: 2L + 1 adaLN sites
+    # and L attentions a call
+    (x_t,) = _randn(dev, 5, (4, 16, 16, 3))
+    with torch.inference_mode():
+        a(x_t, torch.arange(4, device=dev), torch.as_tensor(y[:4],
+                                                            device=dev))
+    assert [f.launches - n for f, n in zip(fns, before)] == [5, 2]
+
+
+def test_grad_through_the_kernel_route_still_raises(dev):
+    """Pretraining runs the plain route because the kernels have no
+    backward: a DiT on the kernel route refuses a loss with grad."""
+    from repro_torch.diffusion.ddpm import diffusion_loss
+    dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
+    model = init_dit(prng.PRNGKey(2), dc, 16, 3, device=dev)
+    x, y = _randn(dev, 3, (4, 16, 16, 3), (4, 512))
+    sched = make_schedule(device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        diffusion_loss(model, dc, sched, x, y, prng.PRNGKey(1))
+    model.plain = True
+    loss = diffusion_loss(model, dc, sched, x, y, prng.PRNGKey(1))
+    assert loss.requires_grad and torch.isfinite(loss)

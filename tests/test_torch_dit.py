@@ -13,6 +13,7 @@ import torch
 
 from repro.configs.oscar import DiffusionConfig as JDiffusionConfig
 from repro.diffusion import dit as jdit
+from repro_torch import prng
 from repro_torch.configs.oscar import DiffusionConfig
 from repro_torch.convert import dit_state_from_jax
 from repro_torch.diffusion import dit as tdit
@@ -132,9 +133,9 @@ def test_bf16_act_is_not_ported():
 
 
 def test_port_init_is_adaln_zero():
-    model = tdit.DiT(DiffusionConfig(d_model=32, num_layers=1, num_heads=2),
-                     16, 3, generator=torch.Generator().manual_seed(0),
-                     device="cpu")
+    model = tdit.init_dit(prng.PRNGKey(0),
+                          DiffusionConfig(d_model=32, num_layers=1,
+                                          num_heads=2), 16, 3, device="cpu")
     with torch.no_grad():
         out = model(torch.randn(2, 16, 16, 3),
                     torch.tensor([3, 900]), torch.randn(2, 512))

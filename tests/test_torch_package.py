@@ -21,9 +21,12 @@ from repro.diffusion import guidance as jguid
 from repro.diffusion import schedule as jsched
 from repro_torch import utils
 from repro_torch.configs import oscar as tcfg
+from repro_torch.core.experiment import Experiment
+from repro_torch.diffusion.ddpm import pretrain_dm
 from repro_torch.diffusion import dit as tdit
 from repro_torch.diffusion import guidance as tguid
 from repro_torch.diffusion import schedule as tsched
+from repro_torch.models.classifiers import init_classifier
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -36,7 +39,8 @@ def test_every_module_imports_without_jax_or_reference():
     code = ("import importlib, json, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))))")
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+            "or m.split('.')[0] == 'ml_dtypes')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(SRC)})
@@ -84,12 +88,20 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """With no device given, the model and the schedule go to the card, so
-    without one they raise instead of running on the CPU."""
+    """With no device given, the models, the schedule, pretraining and the
+    ``Experiment`` go to the card, so without one they raise instead of
+    running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     dc = tcfg.DiffusionConfig(d_model=32, num_layers=1, num_heads=2)
+    key = np.array([0, 1], np.uint32)
+    images, conds = np.zeros((2, 16, 16, 3)), np.zeros((2, 512))
     for build in (lambda: tdit.DiT(dc, 16, 3), tsched.make_schedule,
-                  lambda: tdit.DiT(dc, 16, 3, device="cuda")):
+                  lambda: tdit.DiT(dc, 16, 3, device="cuda"),
+                  lambda: tdit.init_dit(key, dc, 16, 3),
+                  lambda: init_classifier(key, "vit_b16", 3),
+                  lambda: pretrain_dm(key, dc, images, conds, image_size=16,
+                                      channels=3, steps=1),
+                  lambda: Experiment(verbose=False)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert tsched.make_schedule(device="cpu").betas.device.type == "cpu"

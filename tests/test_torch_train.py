@@ -3,11 +3,12 @@ the JAX package: ``prng.randint``, the optimizers, ``xent``,
 ``train_classifier``, ``fit_global``, evaluation, ``run_oscar`` and the
 communication accounting, on the same seeded numpy inputs.
 
-The port draws a classifier's initial weights from a torch generator,
-the reference from threefry, so the parity tests hand both sides the
-same seeded weights: each package's ``init_classifier`` is replaced by
-one that builds ``random_classifier``'s values from the key's 64 bits
-(``prng.torch_seed``; the port's generator carries them as its seed).
+Both packages draw a classifier's initial weights from its key, the port
+within a few ulps of the reference (``test_torch_init.py``).  The parity
+tests of the training arithmetic hand both sides the same seeded weights
+all the same: each package's key-taking init is replaced by one that
+builds ``random_classifier``'s values from the key's 64 bits, so those
+tests hold the arithmetic apart from the init.
 
 The gradient of a ReLU network jumps where a ReLU input crosses 0, and
 the packages round a ReLU input differently by up to ~2e-7, so one
@@ -67,22 +68,23 @@ def _seeded(name, seed, num_classes):
 
 
 def _seed_of_key(key) -> int:
-    return prng.torch_seed(np.asarray(key, np.uint32)) % 2 ** 32
+    k = np.asarray(key, np.uint32).reshape(2)
+    return (int(k[0]) << 32 | int(k[1])) % 2 ** 32
 
 
 def inject_init(monkeypatch, *ref_modules):
-    """Both packages' ``init_classifier`` give ``random_classifier``'s
-    weights, seeded by the key."""
+    """Both packages' key-taking inits (the reference's
+    ``init_classifier``, the port's ``init_classifier``) give
+    ``random_classifier``'s weights, seeded by the key."""
     def ref_init(key, name, num_classes, in_ch=3):
         return jax.tree.map(jnp.asarray,
                             _seeded(name, _seed_of_key(key), num_classes)[0])
 
-    def port_init(generator, name, num_classes, in_ch=3, *, device=None):
-        seed = generator.initial_seed() % 2 ** 32
-        _, state = _seeded(name, seed, num_classes)
-        model = tclf.init_classifier(None, name, num_classes, device="cpu")
+    def port_init(key, name, num_classes, in_ch=3, *, device=None):
+        _, state = _seeded(name, _seed_of_key(key), num_classes)
+        model = tclf.classifier_module(name, num_classes, device="cpu")
         model.load_state_dict(state)
-        return model
+        return model.to(device)
 
     for mod in ref_modules:
         monkeypatch.setattr(mod, "init_classifier", ref_init)
@@ -216,8 +218,8 @@ def test_clip_by_global_norm_and_cosine_schedule_match_reference():
 
 def test_recorded_relu_sees_every_input_and_restores_relu():
     relu = torch.nn.functional.relu
-    model = tclf.init_classifier(torch.Generator().manual_seed(0),
-                                 "resnet18", 5, device="cpu")
+    model = tclf.init_classifier(prng.PRNGKey(0), "resnet18", 5,
+                                 device="cpu")
     x = torch.from_numpy(_data(n=2)[0])
     seen = []
     with recorded_relu(seen.append):
@@ -289,7 +291,6 @@ def test_init_from_key_is_fixed_by_the_key():
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not all(torch.equal(sa[k], sc[k]) for k in sa)
-    assert prng.torch_seed(np.array([1, 2], np.uint32)) == 2 ** 32 + 2
 
 
 def test_evaluate_per_domain_gives_the_references_accuracies():
@@ -337,11 +338,19 @@ def oscar_server():
             make_federated_data(DataConfig(**DATA)))
 
 
-@pytest.mark.parametrize("degenerate", [False, True],
-                         ids=["dsyn", "no-dsyn"])
-def test_run_oscar_matches_reference(oscar_server, monkeypatch, degenerate):
+@pytest.mark.parametrize("degenerate,injected", [
+    (False, True), (True, True), (False, False)],
+    ids=["dsyn", "no-dsyn", "from-key"])
+def test_run_oscar_matches_reference(oscar_server, monkeypatch, degenerate,
+                                     injected):
+    """``run_oscar`` from one key, the port against the reference.  The
+    injected cases hand both packages ``random_classifier``'s weights for
+    the global ViT; "from-key" injects nothing, so each package draws the
+    ViT's initial weights from ``kclf`` itself (``test_torch_init.py``
+    holds those draws within a few ulps)."""
     jocfg, params, jsch, tocfg, model, sched, data = oscar_server
-    inject_init(monkeypatch, jct, joscar)
+    if injected:
+        inject_init(monkeypatch, jct, joscar)
     if degenerate:
         # nothing present anywhere: no D_syn, the broadcast model is the init
         def nothing(fm, data, **kw):
