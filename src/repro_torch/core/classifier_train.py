@@ -10,7 +10,7 @@ they were given as it was.
 Keys, as in the reference: step ``i`` trains on the batch
 ``randint(fold_in(key, i), (batch,), 0, N)``, bit for bit jax's indices;
 all steps' indices are drawn in one call before the loop.  A model
-initialised from a key (``init_from_key``) holds the weights the
+initialised from a key (``init_classifier``) holds the weights the
 reference's ``init_classifier`` draws from that key (within a few ulps),
 drawn on the CPU, so they are the same on every device.
 
@@ -32,12 +32,6 @@ from repro_torch import prng
 from repro_torch.models.classifiers import init_classifier
 from repro_torch.optim.optimizers import apply_updates, init_sgdm, sgdm
 from repro_torch.utils import deterministic_cudnn, resolve_device
-
-
-def init_from_key(key, name: str, num_classes: int, device) -> torch.nn.Module:
-    """The classifier ``name`` initialised from the threefry ``key`` as the
-    reference's ``init_classifier`` draws it, on ``device``."""
-    return init_classifier(key, name, num_classes, device=device)
 
 
 def param_dict(model: torch.nn.Module) -> dict:
@@ -171,6 +165,6 @@ def fit_global(key, name, num_classes, images, labels, *, steps=400,
     global model, on ``device`` (the card unless the caller passes
     ``"cpu"``)."""
     device = resolve_device(device)
-    params = init_from_key(key, name, num_classes, device)
+    params = init_classifier(key, name, num_classes, device=device)
     return train_classifier(params, name, images, labels, key, steps=steps,
                             batch=batch, lr=lr)

@@ -23,13 +23,13 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.oscar import OscarConfig
 from repro_torch.core.classifier_train import (evaluate_per_domain,
-                                               fit_global, init_from_key,
-                                               train_classifier)
+                                               fit_global, train_classifier)
 from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.encoders.foundation import FrozenFM
 from repro_torch.models.classifiers import (classifier_logprob,
-                                            classifier_param_count)
+                                            classifier_param_count,
+                                            init_classifier)
 from repro_torch.serve.synthesis import SynthesisEngine
 
 
@@ -62,7 +62,7 @@ def run_fedcado(key, ocfg: OscarConfig, data, model: DiT,
     client_models = []
     for r in range(R):
         kr = prng.fold_in(kloop, r)
-        p = init_from_key(kr, classifier, C, device)
+        p = init_classifier(kr, classifier, C, device=device)
         client_models.append(train_classifier(
             p, classifier, data.client_images[r], data.client_labels[r], kr,
             steps=local_steps))
@@ -159,7 +159,7 @@ def run_feddisc(key, ocfg: OscarConfig, data, model: DiT,
     key, kclf = prng.split(key)
     if len(syn_x) == 0:
         # all-absent present mask: no D_syn, so broadcast the untrained init
-        gp = init_from_key(kclf, classifier, C, device)
+        gp = init_classifier(kclf, classifier, C, device=device)
     else:
         gp = fit_global(kclf, classifier, C, syn_x, syn_y,
                         steps=ocfg.classifier_steps,

@@ -28,7 +28,7 @@ from repro_torch.core.fl import run_fl, run_local_only
 from repro_torch.core.oscar import run_oscar
 from repro_torch.data.federated import make_federated_data
 from repro_torch.diffusion.ddpm import pretrain_dm
-from repro_torch.diffusion.dit import dit_from_tree, init_dit_tree
+from repro_torch.diffusion.dit import DiT, dit_from_tree
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.encoders.foundation import FrozenFM
 from repro_torch.utils import resolve_device
@@ -94,7 +94,11 @@ class Experiment:
         self.sched = make_schedule(dc.train_timesteps, dc.schedule,
                                    device=self.device)
         if ckpt.exists(cpath):
-            tree = ckpt.load_pytree(init_dit_tree(kdm, dc, size, ch), cpath)
+            # the template gives load_pytree the tree's shapes, no values
+            shapes = DiT(dc, size, ch, device="meta").state_dict()
+            template = dit_tree_from_state(
+                {k: torch.empty(v.shape) for k, v in shapes.items()})
+            tree = ckpt.load_pytree(template, cpath)
             self.dm = dit_from_tree(tree, dc, size, ch, device=self.device)
             self.dm_losses = []
             self._say(f"[exp] frozen DM loaded from cache {self.tag}")

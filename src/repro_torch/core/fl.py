@@ -25,9 +25,10 @@ import torch
 from repro_torch import prng
 from repro_torch.core.classifier_train import (as_data, batch_indices,
                                                evaluate, evaluate_per_domain,
-                                               functional_xent, init_from_key,
-                                               param_dict, sgd_steps,
+                                               functional_xent, param_dict,
+                                               sgd_steps,
                                                train_classifier, with_params)
+from repro_torch.models.classifiers import init_classifier
 from repro_torch.utils import resolve_device
 
 
@@ -75,7 +76,7 @@ def run_fl(key, data, *, name="resnet18", method="fedavg", rounds=10,
     C = data.num_categories
     key = np.asarray(key, np.uint32)
     kinit, kloop = prng.split(key)
-    model = init_from_key(kinit, name, C, device)
+    model = init_classifier(kinit, name, C, device=device)
     global_params = param_dict(model)
     n_params = sum(p.numel() for p in global_params.values())
 
@@ -148,7 +149,7 @@ def run_local_only(key, data, *, name="resnet18", steps=200, batch=32,
     metrics, accs = {}, []
     for r in range(R):
         kr = prng.fold_in(key, r)
-        params = init_from_key(kr, name, C, device)
+        params = init_classifier(kr, name, C, device=device)
         params = train_classifier(params, name, data.client_images[r],
                                   data.client_labels[r], kr, steps=steps,
                                   batch=batch, lr=lr)

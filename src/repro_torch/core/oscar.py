@@ -20,10 +20,11 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.oscar import OscarConfig
 from repro_torch.core.classifier_train import (evaluate_per_domain,
-                                               fit_global, init_from_key)
+                                               fit_global)
 from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.encoders.foundation import FrozenFM, category_encodings
+from repro_torch.models.classifiers import init_classifier
 from repro_torch.serve.synthesis import SynthesisEngine
 from repro_torch.utils import resolve_device
 
@@ -134,7 +135,7 @@ def run_oscar(key, ocfg: OscarConfig, data, model: DiT, sched: NoiseSchedule,
     if len(syn_x) == 0:
         # degenerate round: no (client, category) present anywhere, so no
         # D_syn, and the broadcast model is the untrained init
-        gp = init_from_key(kclf, classifier, C, device)
+        gp = init_classifier(kclf, classifier, C, device=device)
     else:
         gp = fit_global(kclf, classifier, C, syn_x, syn_y,
                         steps=classifier_steps or ocfg.classifier_steps,

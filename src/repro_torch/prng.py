@@ -118,11 +118,19 @@ def random_bits(keys, shape, device=None) -> torch.Tensor:
 
 def uniform_bits_to_float(bits: torch.Tensor, lo: float, hi: float):
     """jax's ``_uniform`` map of uint32 bits to float32 in [lo, hi): the top
-    23 bits become the mantissa of a float in [1, 2), shifted and scaled."""
-    one = (bits >> 9) | 0x3F800000
-    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    23 bits become the mantissa of a float in [1, 2), less 1, then scaled
+    and shifted.
+
+    XLA contracts jax's ``floats · (hi − lo) + lo`` into one fused
+    multiply-add, so the map runs in float64 (a float32 product is exact
+    there) and rounds once to float32: bit for bit as jax on [0, 1), on
+    ``normal``'s span (a product by 2, exact either way) and on the
+    initialisers' truncation span."""
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+    lo = float(np.float32(lo))
     span = float(np.float32(hi) - np.float32(lo))     # rounded as in float32
-    return torch.clamp(floats * span + lo, min=lo)
+    return torch.clamp((floats.double() * span + lo).float(), min=lo)
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
@@ -165,19 +173,9 @@ def uniform(keys, shape, minval: float = 0.0, maxval: float = 1.0,
             device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` for every
     key of the batch ``keys`` (..., 2): a float32 tensor (..., *shape) on
-    ``device``.
-
-    XLA contracts jax's ``floats · (maxval − minval) + minval`` into one
-    fused multiply-add, so the map runs in float64 (a float32 product is
-    exact there) and rounds once to float32.  Bit for bit as jax on
-    [0, 1) (exact either way) and on the initialisers' truncation span."""
-    bits = random_bits(keys, shape, device)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
-        torch.float32) - 1.0
-    lo = float(np.float32(minval))
-    span = float(np.float32(maxval) - np.float32(lo))
-    u = (floats.double() * span + lo).float()
-    return torch.clamp(u, min=lo)
+    ``device`` (see ``uniform_bits_to_float``)."""
+    return uniform_bits_to_float(random_bits(keys, shape, device), minval,
+                                 maxval)
 
 
 def bernoulli(keys, p: float, shape, device=None) -> torch.Tensor:

@@ -35,6 +35,7 @@ from repro_torch.data.federated import make_federated_data
 from repro_torch.diffusion import sampler as tsampler
 from repro_torch.diffusion import schedule as tsched
 from repro_torch.encoders.foundation import FrozenFM
+from repro_torch.models import classifiers as tclf
 from repro_torch.serve.synthesis import SynthesisEngine
 from test_torch_dit import perturbed_params, port_model
 from test_torch_train import inject_init, max_param_err
@@ -108,7 +109,7 @@ def test_run_local_only_matches_reference(data, monkeypatch):
 def test_local_sgd_pairs_h_and_global_by_name(data):
     """FedDyn's h update pairs each parameter with its own h and global
     value; handing the dicts in another order changes nothing."""
-    model = tct.init_from_key(prng.PRNGKey(0), NAME, 3, "cpu")
+    model = tclf.init_classifier(prng.PRNGKey(0), NAME, 3, device="cpu")
     g = tct.param_dict(model)
     h = {k: 0.01 * torch.ones_like(v) for k, v in g.items()}
     images, labels = tct.as_data(data.client_images[0],

@@ -1089,7 +1089,7 @@ def test_train_classifier_on_the_card_matches_the_cpu(dev, name):
         x = rng.uniform(-1, 1, (32, 16, 16, 3)).astype(np.float32)
         y = rng.integers(0, 10, 32)
         runs = [_relu_signs(lambda: ct.train_classifier(
-            ct.init_from_key(key, name, 10, d), name, x, y, key, steps=3,
+            init_classifier(key, name, 10, device=d), name, x, y, key, steps=3,
             batch=16)) for d in ("cpu", dev)]
         (cpu, s_cpu), (card, s_card) = runs
         assert len(s_cpu) == len(s_card)
@@ -1105,8 +1105,8 @@ def test_train_classifier_on_the_card_matches_the_cpu(dev, name):
         assert abs(float(ct.xent(card, name, x, y))
                    - float(ct.xent(cpu, name, x, y))) < 1e-4
     # the same key on the card gives the same bits
-    again = ct.train_classifier(ct.init_from_key(key, name, 10, dev), name,
-                                x, y, key, steps=3, batch=16)
+    again = ct.train_classifier(init_classifier(key, name, 10, device=dev),
+                                name, x, y, key, steps=3, batch=16)
     assert all(torch.equal(v, again.state_dict()[k]) for k, v in pg.items())
 
 
@@ -1176,12 +1176,11 @@ def test_2d_requests_give_their_rows_in_grouped_and_ragged_waves(dev):
 
 
 def test_inits_from_a_key_on_the_card_equal_the_cpu_draws(dev):
-    from repro_torch.core.classifier_train import init_from_key
     key = prng.PRNGKey(5)
     dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)
     pairs = [[init_dit(key, dc, 16, 3, device=d).state_dict()
               for d in (dev, "cpu")]]
-    pairs += [[init_from_key(key, name, 10, d).state_dict()
+    pairs += [[init_classifier(key, name, 10, device=d).state_dict()
                for d in (dev, "cpu")] for name in ("resnet18", "vit_b16")]
     for on_card, on_cpu in pairs:
         assert sorted(on_card) == sorted(on_cpu)

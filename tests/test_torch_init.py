@@ -124,7 +124,7 @@ def test_classifier_init_matches_the_reference(name):
     # jitted: an eager init_classifier compiles each draw for seconds
     ref = jax.jit(jclf.init_classifier, static_argnums=(1, 2))(key, name, 7)
     want = classifier_state_from_jax(jax.tree.map(np.asarray, ref), name)
-    got = tct.init_from_key(np.asarray(key), name, 7, "cpu")
+    got = tclf.init_classifier(np.asarray(key), name, 7, device="cpu")
     assert_states_within_rounding(want, got.state_dict())
     assert type(got) is type(tclf.classifier_module(name, 7,
                                                     device="meta"))

@@ -41,6 +41,8 @@ from repro_torch.configs.oscar import DataConfig, DiffusionConfig, OscarConfig
 from repro_torch.convert import classifier_state_from_jax
 from repro_torch.core import classifier_train as tct
 from repro_torch.core import comm as tcomm
+from repro_torch.core import dm_baselines as tdm
+from repro_torch.core import fl as tfl
 from repro_torch.core import oscar as toscar
 from repro_torch.data.federated import make_federated_data
 from repro_torch.diffusion import schedule as tsched
@@ -73,8 +75,8 @@ def _seed_of_key(key) -> int:
 
 
 def inject_init(monkeypatch, *ref_modules):
-    """Both packages' key-taking inits (the reference's
-    ``init_classifier``, the port's ``init_classifier``) give
+    """Both packages' key-taking inits (``init_classifier`` as the
+    reference's ``ref_modules`` and the port's trainers call it) give
     ``random_classifier``'s weights, seeded by the key."""
     def ref_init(key, name, num_classes, in_ch=3):
         return jax.tree.map(jnp.asarray,
@@ -88,7 +90,8 @@ def inject_init(monkeypatch, *ref_modules):
 
     for mod in ref_modules:
         monkeypatch.setattr(mod, "init_classifier", ref_init)
-    monkeypatch.setattr(tct, "init_classifier", port_init)
+    for mod in (tct, tfl, toscar, tdm):
+        monkeypatch.setattr(mod, "init_classifier", port_init)
 
 
 def max_param_err(ref_tree, model, name) -> float:
@@ -286,7 +289,8 @@ def test_fit_global_matches_reference_with_the_init_injected(monkeypatch,
 
 
 def test_init_from_key_is_fixed_by_the_key():
-    a, b, c = (tct.init_from_key(prng.PRNGKey(s), "resnet18", 4, "cpu")
+    a, b, c = (tclf.init_classifier(prng.PRNGKey(s), "resnet18", 4,
+                                   device="cpu")
                for s in (3, 3, 4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
@@ -375,8 +379,8 @@ def test_run_oscar_matches_reference(oscar_server, monkeypatch, degenerate,
                          "vit_b16") < (TOL_PARAMS if degenerate
                                        else TOL_OSCAR_PARAMS)
     if degenerate:
-        init = tct.init_from_key(prng.split(np.asarray(key), 3)[2],
-                                 "vit_b16", 3, "cpu")
+        init = toscar.init_classifier(prng.split(np.asarray(key), 3)[2],
+                                      "vit_b16", 3, device="cpu")
         assert all(torch.equal(v, got.global_params.state_dict()[k])
                    for k, v in init.state_dict().items())
     assert got.metrics == ref.metrics
