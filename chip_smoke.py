@@ -70,7 +70,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      layers, batch 8): kernel path against plain path, every attention on
      the CUDA-core kernel, the call's device time and attention's share;
   8. LM serving, gemma2-2b at full width and depth (26 layers, d 2304,
-     8/4 heads of 256, vocab 256000) on seeded random weights:
+     8/4 heads of 256, vocab 256000) on ``init_lm``'s weights from key
+     14, drawn on the card as the reference draws them:
      8a. flash attention's mode grid (causal, window, softcap, GQA with
          and without window, MQA, non-causal; head dims 64/128/256;
          S = 100 and 4608; fp32 through the CUDA-core kernel and bf16
@@ -113,8 +114,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      rounds=20)``), each with per-client and average accuracy, upload
      (against ``comm.upload_params``), wall seconds and launch counts
      against its plan, "OSCAR avg vs best baseline" as
-     ``benchmarks/table1_main.py`` prints it, OSCAR gated above chance,
-     and the whole script's seconds.
+     ``benchmarks/table1_main.py`` prints it, and OSCAR gated above
+     chance; the three DM-assisted methods draw D_syn through the
+     ``Experiment``'s shared ``SynthesisService`` and its store;
+ 11. the D_syn front door on phase 10's trained DM, each drain's launches
+     against its plan: 11.1 OSCAR and FedDISC run again, served from the
+     row cache (no wave, no launch, 1800 cache hits each, Table I's
+     accuracies); 11.2 a child process with a fresh ``Experiment`` on the
+     same cache directory serves both from the store (no wave, no launch,
+     1800 store hits each, D_syn SHA-256 and accuracies equal to Table
+     I's); 11.3 phase 4's uploads at 20 then 30 samples on a fresh store
+     (the second drain draws 600 rows, the first 20 of each request
+     bit-equal); 11.4 phase 6's uploads streamed in through ``poll``, 10 at
+     each wave boundary, against a snapshot drain, ragged (bit-identical);
+     11.5 a uniform round traced and untraced (bit-identical; the chrome
+     trace in ``build/service_trace.json``, validated; span counts, queue
+     wait and end-to-end latency p50/p99); 11.6 fault drills: transient
+     fence faults retried, a poisoned classifier closure beside a healthy
+     classifier-guided tenant on a ragged service, and a truncated store
+     shard quarantined and regenerated, each bit-identical to its
+     fault-free drain; and the whole script's seconds.
 Phases 4 and 6 run two rounds each, phase 7 two per schedule, phase 8b
 two.
 The last line is the result; the line before it names the card.
@@ -215,6 +234,58 @@ from repro_torch.encoders.foundation import FrozenFM
 data = make_federated_data(DataConfig(**{PAPER_DATA!r}))
 enc, present = client_encodings(FrozenFM(), data, device="cuda")
 print(hashlib.sha256(enc.tobytes() + present.tobytes()).hexdigest())
+"""
+
+
+# phase 10's preset: the paper's data with the DM's pre-training pool, the
+# DiT pre-trained 6000 steps of 128, ResNet-18 trained 400 steps, 30
+# samples a (client, category)
+PAPER_POOL = dict(pretrain_pool_per_cat_dom=120)
+PAPER_DM = dict(d_model=144, pretrain_steps=6000, batch_size=128)
+PAPER_TOP = dict(classifier_steps=400, samples_per_category=30)
+# phase 11.2's child process: a cold Experiment on phase 10's cache_dir
+# runs OSCAR and FedDISC; prints, for each, the D_syn's SHA-256, the
+# accuracies, the engine's waves and store hits and the kernel launches
+STORE_CHILD = f"""
+import hashlib, json, sys
+from repro_torch.configs.oscar import DataConfig, DiffusionConfig, OscarConfig
+from repro_torch.core import dm_baselines, oscar
+from repro_torch.core import experiment as exp_mod
+from repro_torch.kernels.adaln_norm import ops as an_ops
+from repro_torch.kernels.cfg_fuse import ops as cfg_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+dsyn = {{}}
+def kept(fn, name, pick):
+    def call(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        dsyn[name] = pick(out)
+        return out
+    return call
+exp_mod.run_oscar = kept(oscar.run_oscar, "oscar", lambda o: o.syn_images)
+exp_mod.run_feddisc = kept(dm_baselines.run_feddisc, "feddisc",
+                           lambda o: o[3][0])
+ocfg = OscarConfig(data=DataConfig(**{PAPER_DATA!r}, **{PAPER_POOL!r}),
+                   diffusion=DiffusionConfig(**{PAPER_DM!r}), **{PAPER_TOP!r})
+exp = exp_mod.Experiment(ocfg, verbose=False, cache_dir=sys.argv[1],
+                         device="cuda")
+fns = (fa_ops.flash_attention, an_ops.adaln_norm, cfg_ops.cfg_update,
+       cfg_ops.cfg_update_rowwise, cfg_ops.cfg_update_mixed)
+out = {{}}
+for m in ("oscar", "feddisc"):
+    before = exp.engine.stats
+    for f in fns:
+        f.launches = 0
+    res = exp.run(m, rounds=20)
+    after = exp.engine.stats
+    data = dsyn[m].float().cpu().numpy().tobytes()
+    out[m] = dict(
+        avg=res["avg"], accuracies={{k: v for k, v in res.items()
+                                    if k == "avg" or k.startswith("client")}},
+        waves=after["waves"] - before["waves"],
+        store_hits=after["store_hits"] - before["store_hits"],
+        launches=sum(f.launches for f in fns),
+        sha256=hashlib.sha256(data).hexdigest())
+print(json.dumps(out))
 """
 
 
@@ -457,9 +528,13 @@ def main() -> int:
     from repro_torch.models.classifiers import (classifier_logprob,
                                                 init_classifier)
     from repro_torch.models.moe import Parallel
-    from repro_torch.models.transformer import LM
+    from repro_torch.models.transformer import init_lm
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.steps import make_serve_step
+    from repro_torch.obs import Tracer, validate_chrome_trace, write_trace
+    from repro_torch.serve import (FaultInjector, RequestFailedError,
+                                   RetryPolicy, SynthesisService,
+                                   SynthesisStore)
     from repro_torch.serve import synthesis as serve_synthesis
     from repro_torch.serve.synthesis import SynthesisEngine
     from repro_torch.utils import (default_device, deterministic_cudnn,
@@ -1492,23 +1567,32 @@ def main() -> int:
     # the plan the engine must follow: 15 waves of 120 rows in request
     # order, a running step ceiling, and for compaction each wave's epochs
     row_steps = np.repeat([combos[i % 4][1] for i in range(60)], k_samples)
+    # (and the wave geometries the engine counts, as the reference counts
+    # its compiled ones)
     plan = {"ragged": dict(iters=0, scheduled=0, segments=0),
             "compacted": dict(iters=0, scheduled=0, segments=0)}
+    shapes6 = {"ragged": set(), "compacted": set()}
     smax = 0
     for w in range(0, n_rows, 120):
         st_w = row_steps[w:w + 120]
         smax = max(smax, int(st_w.max()))
         plan["ragged"]["iters"] += smax
         plan["ragged"]["scheduled"] += 120 * smax
+        shapes6["ragged"].add(("cfg-ragged", 120, smax))
         _, epochs = guid.plan_epochs(st_w, smax, compaction="full")
         plan["compacted"]["iters"] += sum(e - b for _, b, e in epochs)
         plan["compacted"]["scheduled"] += sum(r * (e - b)
                                               for r, b, e in epochs)
         plan["compacted"]["segments"] += len(epochs)
+        prev = 0
+        for r, b, e in epochs:
+            shapes6["compacted"].add(("cfg-seg", prev, r, e - b))
+            prev = r
     active_iters = int(row_steps.sum())
     check(plan["ragged"]["scheduled"] == 90000 and active_iters == 67500
           and plan["compacted"]["scheduled"] == 67500,
           f"phase 6 plan {plan}, active {active_iters}")
+    ragged_iters6 = plan["ragged"]["iters"]        # phase 11.4's plan too
 
     samplers = (serve_synthesis.sample_cfg_ragged,
                 serve_synthesis.sample_cfg_compacted)
@@ -1537,9 +1621,11 @@ def main() -> int:
                   and float(images.abs().max()) <= 1.0,
                   f"{mode} D_syn not finite in [-1, 1]")
             p6 = plan[mode]
-            want_stats = dict(waves=15, generated=n_rows,
-                              scheduled_rows=n_rows, padded=0,
-                              merged_waves=15, segments=p6["segments"],
+            want_stats = dict(requests=60, waves=15, generated=n_rows,
+                              scheduled_rows=n_rows, padded=0, cache_hits=0,
+                              store_hits=0, streamed=0, merged_waves=15,
+                              compiled_shapes=len(shapes6[mode]),
+                              segments=p6["segments"],
                               row_iters_scheduled=p6["scheduled"],
                               row_iters_active=active_iters)
             check(eng.stats == want_stats, f"{mode} round {rnd}: stats "
@@ -1722,6 +1808,7 @@ def main() -> int:
     w7 = -(-(-(-n7 // nw)) // 8) * 8
     plan7 = {m: dict(mixed=0, rowwise=0, scheduled=0, segments=0)
              for m in ("ragged", "compacted")}
+    shapes7 = {m: set() for m in plan7}
     smax = 0
     for w in range(nw):
         part = rows7[w * w7:(w + 1) * w7]
@@ -1731,11 +1818,20 @@ def main() -> int:
         kind = "mixed" if any(r[1] for r in part) else "rowwise"
         plan7["ragged"][kind] += smax
         plan7["ragged"]["scheduled"] += w7 * smax
+        shapes7["ragged"].add(
+            ("mixed-ragged", w7, smax, 2) if kind == "mixed"
+            else ("cfg-ragged", w7, smax))
         _, epochs = guid.plan_epochs(st_w, smax, compaction="full")
         plan7["compacted"][kind] += sum(e - b for _, b, e in epochs)
         plan7["compacted"]["scheduled"] += sum(r * (e - b)
                                                for r, b, e in epochs)
         plan7["compacted"]["segments"] += len(epochs)
+        prev = 0
+        for r, b, e in epochs:
+            shapes7["compacted"].add(
+                ("mixed-seg", prev, r, e - b, 2) if kind == "mixed"
+                else ("cfg-seg", prev, r, e - b))
+            prev = r
     active7 = sum(r[0] for r in rows7)
     check(n7 == 2220 and nw == 18 and w7 == 128 and active7 == 83250
           and plan7["ragged"]["mixed"] == 150, f"phase 7 plan {plan7}")
@@ -1765,9 +1861,12 @@ def main() -> int:
                   and float(images.abs().max()) <= 1.0,
                   f"{mode} mixed-mode D_syn not finite in [-1, 1]")
             p7 = plan7[mode]
-            want_stats = dict(waves=nw, generated=n7,
+            want_stats = dict(requests=74, waves=nw, generated=n7,
                               scheduled_rows=nw * w7, padded=nw * w7 - n7,
-                              merged_waves=nw, segments=p7["segments"],
+                              cache_hits=0, store_hits=0, streamed=0,
+                              merged_waves=nw,
+                              compiled_shapes=len(shapes7[mode]),
+                              segments=p7["segments"],
                               row_iters_scheduled=p7["scheduled"],
                               row_iters_active=active7)
             check(eng.stats == want_stats, f"{mode} round {rnd}: stats "
@@ -2224,14 +2323,14 @@ def main() -> int:
                          vector_route=rn_kernel.vector_route(xr)))
     del xr
 
-    # 8b. full-width serving in bf16: seeded random weights (the repository
-    # holds no gemma2 checkpoint), two rounds of wave A (4 x 4608-token
-    # prompts, past the 4096 window, 32 new tokens) and wave B (16 x 512,
-    # 64 new tokens), the last-position read-out only after prefill
+    # 8b. full-width serving in bf16: init_lm's weights from key 14, drawn
+    # on the card (the repository holds no gemma2 checkpoint), two rounds of
+    # wave A (4 x 4608-token prompts, past the 4096 window, 32 new tokens)
+    # and wave B (16 x 512, 64 new tokens), the last-position read-out only
+    # after prefill
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    lm = LM(lm_cfg, generator=torch.Generator(dev).manual_seed(14),
-            device=dev)
+    lm = init_lm(prng.PRNGKey(14), lm_cfg, device=dev)
     lm.eval()
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -2376,12 +2475,11 @@ def main() -> int:
         trace_dec, "card": smi}}))
 
     # 8c. kernel route against plain route at full width in fp32, on the
-    # same seeded weights: one 4608-token request, 8 new tokens
+    # same key's weights: one 4608-token request, 8 new tokens
     del lm, eng, step, timed_step, serve_step, fwd, timed_forward, logits_a
     torch.cuda.empty_cache()
     cfg32 = lm_cfg.replace(dtype="float32")
-    lm32 = LM(cfg32, generator=torch.Generator(dev).manual_seed(14),
-              device=dev)
+    lm32 = init_lm(prng.PRNGKey(14), cfg32, device=dev)
     lm32.eval()
     prompt = waves["A"][0]
     toks1 = torch.as_tensor(prompt[None], device=dev)
@@ -2663,11 +2761,8 @@ def main() -> int:
     # ResNet-18 trained 400 steps of 64, and the FL baselines at 20 rounds,
     # as benchmarks/table1_main.py runs them
     t10 = time.perf_counter()
-    ocfg10 = OscarConfig(
-        data=DataConfig(**PAPER_DATA, pretrain_pool_per_cat_dom=120),
-        diffusion=DiffusionConfig(d_model=144, pretrain_steps=6000,
-                                  batch_size=128),
-        classifier_steps=400, samples_per_category=30)
+    ocfg10 = OscarConfig(data=DataConfig(**PAPER_DATA, **PAPER_POOL),
+                         diffusion=DiffusionConfig(**PAPER_DM), **PAPER_TOP)
     dc10 = ocfg10.diffusion
     check((dc10.d_model, dc10.num_layers, dc10.num_heads, dc10.patch,
            dc10.cond_dim) == (dc.d_model, dc.num_layers, dc.num_heads,
@@ -2870,8 +2965,14 @@ def main() -> int:
 
     for k in stage_s:
         stage_s[k].clear()
+    def kept_oscar(*args, **kwargs):
+        res = oscar_mod.run_oscar(*args, **kwargs)
+        dsyn10["oscar"] = res.syn_images
+        return res
+
     exp_mod.run_fedcado = kept_dsyn(run_fedcado, "fedcado")
     exp_mod.run_feddisc = kept_dsyn(run_feddisc, "feddisc")
+    exp_mod.run_oscar = kept_oscar
     dm_mod.train_classifier = staged(ct.train_classifier, "training")
     dm_mod.fit_global = staged(ct.fit_global, "training")
     table1, launches10 = {}, {}
@@ -2898,10 +2999,11 @@ def main() -> int:
                   f"{out['upload_params']}, comm.upload_params {want_up}")
             row = dict(avg_accuracy=out["avg"], accuracies=accs,
                        upload_params=out["upload_params"], wall_s=wall)
-            if m in ("fedcado", "feddisc"):
+            if m in dsyn10:
                 x_m = dsyn10[m]
                 check(tuple(x_m.shape) == (1800, 16, 16, 3)
                       and bool(torch.isfinite(x_m).all()), f"{m} D_syn")
+            if m in ("fedcado", "feddisc"):
                 train_s = sum(stage_s["training"])
                 row.update(training_s=train_s, other_s=wall - train_s)
             table1[m] = row
@@ -2911,6 +3013,7 @@ def main() -> int:
                 f"({smi})")
     finally:
         exp_mod.run_fedcado, exp_mod.run_feddisc = run_fedcado, run_feddisc
+        exp_mod.run_oscar = oscar_mod.run_oscar
         dm_mod.train_classifier = ct.train_classifier
         dm_mod.fit_global = ct.fit_global
     for name, got in launches10.items():
@@ -2933,7 +3036,325 @@ def main() -> int:
     check(oscar_avg > 1.0 / C, f"OSCAR avg accuracy {oscar_avg:.4f} is not "
           f"above chance ({1.0 / C:.4f})")
     say(f"[10] DM pretraining and Table I: {t10:.1f} s ({smi})")
-    say(f"[10] the whole script: {time.perf_counter() - t_start:.1f} s")
+
+    # -- 11. the D_syn front door: service, store, cache, streaming, faults --
+    # on phase 10's trained DM.  Every drain's launches are checked against
+    # a plan: a uniform wave-step launches cfg_update (keyed) once, a
+    # ragged one cfg_update_rowwise, a mixed one cfg_update_mixed, and each
+    # of them L flash attentions (the short kernel) and 2L + 1 adaln_norms
+    t11 = time.perf_counter()
+    launches11 = {}
+    keyed_fns = {"cfg_update_keyed": cfg_ops.cfg_update,
+                 "cfg_update_rowwise_keyed": cfg_ops.cfg_update_rowwise,
+                 "cfg_update_mixed_keyed": cfg_ops.cfg_update_mixed}
+
+    def zero11():
+        zero_counts()
+        for fn in keyed_fns.values():
+            fn.launches_keyed = 0
+
+    def counts11():
+        got = counts()
+        got.update({k: fn.launches_keyed for k, fn in keyed_fns.items()})
+        return got
+
+    def plan11(uniform=0, rowwise=0, mixed=0):
+        iters = uniform + rowwise + mixed
+        return {"cfg_update": uniform, "flash_attention": iters * L,
+                "adaln_norm": iters * (2 * L + 1),
+                "cfg_update_rowwise": rowwise, "cfg_update_mixed": mixed,
+                "rmsnorm": 0, "cfg_update_keyed": uniform,
+                "flash_attention_short": iters * L,
+                "cfg_update_rowwise_keyed": rowwise,
+                "cfg_update_mixed_keyed": mixed}
+
+    walls11 = {}
+
+    def planned(name, plan, fn):
+        """Run ``fn`` with every count at 0, time it by the host clock to
+        the end of its device work, and check its launches."""
+        zero11()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls11[name] = time.perf_counter() - t
+        launches11[name] = got = counts11()
+        check(got == plan, f"11 {name}: launches {got} != plan {plan}")
+        return out
+
+    def sha(x) -> str:
+        return hashlib.sha256(x.float().cpu().numpy().tobytes()).hexdigest()
+
+    def delta(eng, before):
+        after = eng.stats
+        return {k: after[k] - before[k] for k in
+                ("waves", "generated", "padded", "cache_hits", "store_hits",
+                 "streamed", "row_iters_scheduled", "row_iters_active")}
+
+    uniform_steps = 15 * num_steps        # phase 4's 15 waves of 120
+    none = plan11()
+    report11 = {}
+
+    # 11.1 a repeated run is served from the shared service's row cache:
+    # no wave, no launch, the same D_syn and the same accuracies
+    rep = {}
+    for m in ("oscar", "feddisc"):
+        before = exp.engine.stats
+        out = planned(f"repeat_{m}", none, lambda: exp.run(m, rounds=20))
+        d = delta(exp.engine, before)
+        check(d["waves"] == 0 and d["cache_hits"] == 1800
+              and d["store_hits"] == 0, f"11.1 {m} repeat: {d}")
+        accs = {k: out[k] for k in clients}
+        check(accs == table1[m]["accuracies"],
+              f"11.1 {m} repeat: accuracies {accs} != Table I's "
+              f"{table1[m]['accuracies']}")
+        rep[m] = dict(stats=d, avg_accuracy=out["avg"], wall_s=out["wall_s"])
+        say(f"[11.1] {m} again: {d['cache_hits']} rows from the row cache, "
+            f"{d['waves']} waves, 0 launches, avg accuracy {out['avg']:.4f} "
+            f"== Table I's, {out['wall_s']} s ({smi})")
+    report11["repeats"] = rep
+
+    # 11.2 a cold process on the same cache_dir: the DM from the
+    # checkpoint, D_syn from the store, no wave and no launch
+    digests10 = {m: sha(dsyn10[m]) for m in ("oscar", "feddisc")}
+    t = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", STORE_CHILD, str(cache10)],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(child.returncode == 0, f"11.2 store child process: {child.stderr}")
+    cold = json.loads(child.stdout.strip().splitlines()[-1])
+    for m in ("oscar", "feddisc"):
+        c = cold[m]
+        check(c["waves"] == 0 and c["store_hits"] == 1800
+              and c["launches"] == 0, f"11.2 {m} cold process: {c}")
+        check(c["sha256"] == digests10[m], f"11.2 {m}: D_syn sha256 "
+              f"{c['sha256']} != Table I's {digests10[m]}")
+        check(c["accuracies"] == table1[m]["accuracies"],
+              f"11.2 {m}: accuracies {c['accuracies']} != Table I's")
+        say(f"[11.2] {m} in a cold process: {c['store_hits']} rows from the "
+            f"store, 0 waves, 0 launches, D_syn sha256 {c['sha256']} == "
+            f"Table I's, avg accuracy {c['avg']:.4f} == Table I's")
+    report11["cold_process"] = dict(cold, wall_s=time.perf_counter() - t)
+
+    # 11.3 top-up: phase 4's uploads at 20 samples, then at 30 on a fresh
+    # store: the second drain draws the 10 missing rows of each and no more
+    store113 = BUILD_DIR / "dsyn_store_11_3"
+    shutil.rmtree(store113, ignore_errors=True)
+    svc = SynthesisService(
+        SynthesisEngine(exp.dm, exp.sched, image_size=16, wave_size=wave),
+        key=prng.PRNGKey(113), store=SynthesisStore(store113))
+    rows113, top = [], {}
+    for n, waves113 in ((20, 10), (30, 5)):
+        before = svc.engine.stats
+
+        def drain113():
+            futs = [svc.submit(enc[r, c], c, n) for r, c in uploads]
+            return svc.gather(futs)
+
+        rows113.append(planned(f"top_up_{n}",
+                               plan11(uniform=waves113 * num_steps),
+                               drain113))
+        top[n] = delta(svc.engine, before)
+    check(top[30]["generated"] == 600 and top[30]["cache_hits"] == 1200
+          and top[20]["generated"] == 1200,
+          f"11.3 top-up drew {top[30]['generated']} rows, want 600: {top}")
+    check(all(torch.equal(b[:20], a) for a, b in zip(*rows113))
+          and all(len(b) == 30 for b in rows113[1]),
+          "11.3: the first 20 rows of a topped-up request differ")
+    report11["top_up"] = dict(stats=top, store_entries=svc.stats[
+        "store_entries"])
+    say(f"[11.3] top-up 20 -> 30 samples: the second drain drew "
+        f"{top[30]['generated']} rows in {top[30]['waves']} waves and served "
+        f"{top[30]['cache_hits']} from the cache; the first 20 rows of all "
+        f"60 requests bit-equal")
+
+    # 11.4 streaming admission: phase 6's mixed (guidance, steps) uploads,
+    # ragged, 10 submitted before the drain and 10 more at each wave
+    # boundary, against a snapshot drain of the same requests.  Waves of
+    # 120 rows, so both drains pack the same waves (cuBLAS does not promise
+    # a row the same bits in a batch of another size)
+    key114 = prng.PRNGKey(114)
+
+    def service114():
+        return SynthesisService(SynthesisEngine(
+            exp.dm, exp.sched, image_size=16, wave_size=120, ragged=True))
+
+    def submit114(svc, ids):
+        return [svc.submit(enc[uploads[i][0], uploads[i][1]],
+                           uploads[i][1], k_samples,
+                           guidance=combos[i % 4][0],
+                           num_steps=combos[i % 4][1]) for i in ids]
+
+    stream_modes = {}
+    snap = service114()
+    want114 = planned("snapshot", plan11(rowwise=ragged_iters6),
+                      lambda: snap.gather(submit114(snap, range(60)),
+                                          key114))
+    stream = service114()
+    futs114 = submit114(stream, range(10))
+    pending = list(range(10, 60))
+
+    def poll():
+        if pending:
+            futs114.extend(submit114(stream, pending[:10]))
+            del pending[:10]
+        return bool(pending)
+
+    planned("streaming", plan11(rowwise=ragged_iters6),
+            lambda: stream.drain(key114, poll=poll))
+    check(all(torch.equal(f.result(), w) for f, w in zip(futs114, want114)),
+          "11.4: streamed D_syn differs from the snapshot drain's")
+    for name, svc in (("snapshot", snap), ("streaming", stream)):
+        st = svc.stats
+        stream_modes[name] = {k: st[k] for k in (
+            "waves", "streamed", "padded", "row_iters_scheduled",
+            "row_iters_active")}
+    check(stream_modes["streaming"]["streamed"] == 50
+          and stream_modes["snapshot"]["streamed"] == 0,
+          f"11.4 streamed counts {stream_modes}")
+    report11["streaming"] = stream_modes
+    say(f"[11.4] streaming vs snapshot (60 ragged uploads, 1800 rows): "
+        f"D_syn bit-identical; {json.dumps(stream_modes)}")
+
+    # 11.5 tracing: one uniform round with a tracer on and one with it off,
+    # the same D_syn; the trace exported and validated
+    key115 = prng.PRNGKey(115)
+
+    def uniform_round(tag, svc):
+        return planned(tag, plan11(uniform=uniform_steps), lambda: torch.cat(
+            svc.gather([svc.submit(enc[r, c], c, k_samples)
+                        for r, c in uploads], key115)))
+
+    tracer = Tracer()
+    traced_svc = SynthesisService(SynthesisEngine(
+        exp.dm, exp.sched, image_size=16, wave_size=wave), tracer=tracer)
+    traced = uniform_round("traced", traced_svc)
+    plain115 = uniform_round("untraced", SynthesisService(SynthesisEngine(
+        exp.dm, exp.sched, image_size=16, wave_size=wave)))
+    check(torch.equal(traced, plain115),
+          "11.5: D_syn differs with tracing on")
+    trace_obj = write_trace(BUILD_DIR / "service_trace.json", tracer,
+                            registry=traced_svc.engine.metrics)
+    n_events = validate_chrome_trace(trace_obj)
+    spans = {}
+    for sp in tracer.spans:
+        spans[sp.name] = spans.get(sp.name, 0) + 1
+    lat = traced_svc.stats["latency"]
+    check(spans.get("wave.dispatch") == 15 and spans.get("device.scan") == 15
+          and lat["e2e_latency"]["count"] == 60,
+          f"11.5 spans {spans}, latency {lat}")
+    report11["tracing"] = dict(spans=spans, events=n_events, latency=lat)
+    say(f"[11.5] tracing on vs off: D_syn bit-identical; "
+        f"build/service_trace.json, {n_events} events valid; spans {spans}; "
+        f"queue wait p50 {lat['queue_wait']['p50']:.4g} s p99 "
+        f"{lat['queue_wait']['p99']:.4g} s, end to end p50 "
+        f"{lat['e2e_latency']['p50']:.4g} s p99 "
+        f"{lat['e2e_latency']['p99']:.4g} s ({smi})")
+
+    # 11.6 fault drills.  (a) transient faults at the fence of waves 0, 3
+    # and 7 (wave 7 twice) retry under RetryPolicy: 11.5's D_syn
+    slept = []
+    faulty = SynthesisService(
+        SynthesisEngine(exp.dm, exp.sched, image_size=16, wave_size=wave),
+        faults=FaultInjector([("scan", 0, 0), ("scan", 0, 3),
+                              ("scan", 0, 7), ("scan", None, 7)]),
+        retry=RetryPolicy(sleep=slept.append))
+    got = uniform_round("faults_scan", faulty)
+    m = faulty.engine.metrics
+    retries = m.get("retry.attempts", site="device.scan")
+    check(torch.equal(got, plain115) and retries == 4
+          and m.get("fault.injected", site="scan") == 4,
+          f"11.6a: D_syn equal {torch.equal(got, plain115)}, "
+          f"{retries} retries")
+    say(f"[11.6a] 4 transient fence faults: {retries} retries (backoff "
+        f"{slept} s), D_syn bit-identical to the fault-free round")
+
+    # (b) a poisoned classifier closure beside a healthy classifier-guided
+    # tenant on a ragged service: 10 uploads (300 rows), two healthy
+    # classifier-guided requests of 30 (phase 7's first classifier, 25
+    # steps), then two poisoned ones.  Three waves of 120, the last mixed
+    def poisoned(x, labels):
+        raise RuntimeError("poisoned classifier closure")
+
+    key116 = prng.PRNGKey(116)
+
+    def tenants(svc, with_poison):
+        futs = [svc.submit(enc[r, c], c, k_samples) for r, c in uploads[:10]]
+        futs += [svc.submit_classifier_guided(clfs[0], c, k_samples,
+                                              guidance=1.0, num_steps=25)
+                 for c in (1, 2)]
+        if with_poison:
+            futs += [svc.submit_classifier_guided(poisoned, c, k_samples)
+                     for c in (3, 4)]
+        return svc.gather(futs, key116, return_exceptions=True)
+
+    plan116 = plan11(rowwise=2 * num_steps, mixed=num_steps)
+    outs116 = {}
+    for with_poison in (True, False):
+        svc = SynthesisService(SynthesisEngine(
+            exp.dm, exp.sched, image_size=16, wave_size=wave, ragged=True))
+        outs116[with_poison] = planned(
+            f"faults_poisoned_{with_poison}", plan116,
+            lambda: tenants(svc, with_poison))
+        if with_poison:
+            failed116 = svc.engine.metrics.get("requests_failed")
+    bad = outs116[True][12:]
+    check(all(isinstance(e, RequestFailedError) for e in bad)
+          and failed116 == 2, f"11.6b poisoned requests resolved to {bad}")
+    check(all(torch.equal(a, b) for a, b in zip(outs116[True][:12],
+                                                 outs116[False])),
+          "11.6b: the healthy tenants' D_syn differs beside the poisoned one")
+    say(f"[11.6b] poisoned closure: 2 requests -> RequestFailedError, the "
+        f"healthy 12 (10 uploads, 2 classifier-guided in a mixed wave) "
+        f"bit-identical to a drain without it")
+
+    # (c) a truncated store shard: quarantined and regenerated, bit for bit
+    # (ragged rows keyed by identity, one request a 32-row wave)
+    store116 = BUILD_DIR / "dsyn_store_11_6"
+    shutil.rmtree(store116, ignore_errors=True)
+
+    def stored():
+        svc = SynthesisService(SynthesisEngine(
+            exp.dm, exp.sched, image_size=16, wave_size=32, ragged=True),
+            store=SynthesisStore(store116))
+        return svc, svc.gather([svc.submit(enc[r, c], c, 32)
+                                for r, c in uploads[:10]], key116)
+
+    _, first116 = planned("faults_store_fill",
+                          plan11(rowwise=10 * num_steps), stored)
+    shard = sorted((store116 / "shards").glob("*.npz"))[3]
+    shard.write_bytes(shard.read_bytes()[:1000])
+    svc, again116 = planned("faults_store_heal", plan11(rowwise=num_steps),
+                            stored)
+    st = svc.engine.metrics
+    check(all(torch.equal(a, b) for a, b in zip(first116, again116))
+          and st.get("store.quarantined") == 1
+          and svc.stats["store_hits"] == 9 * 32
+          and (store116 / "quarantine" / shard.name).exists(),
+          f"11.6c: quarantined {st.get('store.quarantined')}, store hits "
+          f"{svc.stats['store_hits']}")
+    say(f"[11.6c] truncated shard {shard.name}: quarantined, its request "
+        f"regenerated in 1 wave bit-identical, 9 served from the store")
+    report11["faults"] = dict(scan_retries=retries, backoff_s=slept,
+                              poisoned_failed=failed116,
+                              quarantined=st.get("store.quarantined"))
+
+    for name, got in launches11.items():
+        for kname in ("adaln_norm", "cfg_update_keyed",
+                      "flash_attention_short", "cfg_update_rowwise_keyed",
+                      "cfg_update_mixed_keyed"):
+            kernels[kname].setdefault("launches_phase11", {})[name] = \
+                got[kname]
+    t11 = time.perf_counter() - t11
+    say(json.dumps({"front_door": dict(report11, launches=launches11,
+                                       walls_s=walls11, phase_s=t11,
+                                       card=smi)}))
+    say(f"[11] wall seconds by drain: "
+        f"{ {k: round(v, 3) for k, v in walls11.items()} } ({smi})")
+    say(f"[11] the D_syn front door: {t11:.1f} s ({smi})")
+    say(f"[11] the whole script: {time.perf_counter() - t_start:.1f} s")
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(smi)

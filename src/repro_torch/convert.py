@@ -94,20 +94,27 @@ def classifier_state_from_jax(tree, name: str) -> dict:
 
 
 def lm_state_from_jax(params, cfg) -> dict:
-    """``init_lm(key, cfg)`` tree → ``LM.load_state_dict`` input.
+    """``init_lm(key, cfg)`` tree (the reference's, or the port's
+    ``init_lm_tree``) → ``LM.load_state_dict`` input.
 
     ``params["groups"]`` holds ``p0..p{period-1}``, each stacked along a
     leading ``num_groups`` axis; absolute layer ``g · period + p`` takes
     slice g of ``p{p}``.  Dense ``w`` (and the MLP's bare ``w_up``,
     ``w_gate``, ``w_down``) is (in, out) there and (out, in) in
     ``nn.Linear``; norms carry ``scale`` in both."""
-    state = {"embedding": torch.tensor(
-        np.asarray(params["embed"]["embedding"], np.float32))}
+    def tensor(a):
+        # a tree of torch tensors (``init_lm_tree``'s, on any device) stays
+        # where it is; arrays cross over as float32
+        if isinstance(a, torch.Tensor):
+            return a.float()
+        return torch.tensor(np.asarray(a, np.float32))
+
+    state = {"embedding": tensor(params["embed"]["embedding"])}
 
     def walk(prefix: str, node, g=None) -> None:
         def leaf(a):
-            a = np.asarray(a, np.float32)
-            return torch.tensor(a if g is None else a[g])
+            a = tensor(a)
+            return a if g is None else a[g]
         if not isinstance(node, dict):     # the MLP's bare (in, out) matrices
             state[f"{prefix}weight"] = leaf(node).T.contiguous()
         elif "w" in node:

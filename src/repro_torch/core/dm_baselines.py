@@ -10,10 +10,10 @@ statistics (means + spreads + a few prototype features) of a frozen
 encoder; the server re-samples encodings from those statistics and
 generates via the (classifier-free) DM.  Upload ≈ 6 × C × 512.
 
-Both run on the DiT's device through the port's ``SynthesisEngine``: a
-caller's ``engine`` (switched on to ``ragged`` or ``compaction``, never
-off; ``SynthesisEngine.opt_in``), else a new one.  The reference's
-``service``, ``topology``, ``hosts`` and ``tracer`` are not ported.
+Both run on the DiT's device and draw D_syn through a
+``SynthesisService`` (``_service``), submitting futures and gathering
+them with the method's own key.  The reference's ``topology`` and
+``hosts`` come with the topology slice.
 """
 from __future__ import annotations
 
@@ -30,23 +30,38 @@ from repro_torch.encoders.foundation import FrozenFM
 from repro_torch.models.classifiers import (classifier_logprob,
                                             classifier_param_count,
                                             init_classifier)
+from repro_torch.serve.service import SynthesisService
 from repro_torch.serve.synthesis import SynthesisEngine
 
 
-def _engine(engine, ocfg: OscarConfig, model: DiT, sched: NoiseSchedule, *,
-            ragged: bool, compaction) -> SynthesisEngine:
+def _service(service, engine, ocfg: OscarConfig, model: DiT,
+             sched: NoiseSchedule, *, ragged: bool = False,
+             compaction: int | str | None = None,
+             tracer=None) -> SynthesisService:
+    """The service a baseline's D_syn goes through, with ``oscar.
+    synthesize``'s precedence: a caller's ``engine`` beats a shared
+    ``service``, else a new engine.  ``ragged``, ``compaction`` and
+    ``tracer`` switch the chosen engine on, never off."""
     if engine is not None:
-        return engine.opt_in(ragged=ragged, compaction=compaction)
-    return SynthesisEngine(model, sched, image_size=ocfg.data.image_size,
-                           channels=ocfg.data.channels, ragged=ragged,
-                           compaction=compaction)
+        return SynthesisService(engine.opt_in(
+            ragged=ragged, compaction=compaction, tracer=tracer))
+    if service is not None:
+        service.engine.opt_in(ragged=ragged, compaction=compaction,
+                              tracer=tracer)
+        return service
+    return SynthesisService(SynthesisEngine(
+        model, sched, image_size=ocfg.data.image_size,
+        channels=ocfg.data.channels, ragged=ragged, compaction=compaction,
+        tracer=tracer))
 
 
 def run_fedcado(key, ocfg: OscarConfig, data, model: DiT,
                 sched: NoiseSchedule, *, classifier: str | None = None,
                 samples_per_category=None, local_steps: int = 200,
-                engine: SynthesisEngine | None = None, ragged: bool = False,
-                compaction: int | str | None = None):
+                engine: SynthesisEngine | None = None,
+                service: SynthesisService | None = None,
+                ragged: bool = False, compaction: int | str | None = None,
+                tracer=None):
     """Returns (global model, metrics, upload per client, (D_syn images,
     labels)).  Client r's classifier is initialised and trained from
     ``fold_in(kloop, r)``; each of its categories becomes one
@@ -71,19 +86,18 @@ def run_fedcado(key, ocfg: OscarConfig, data, model: DiT,
     # --- server side: classifier-guided generation (Eq. 4).  A client's
     # requests share its classifier, so they share grouped waves; with
     # ``ragged`` they ride merged waves beside classifier-free traffic
-    eng = _engine(engine, ocfg, model, sched, ragged=ragged,
-                  compaction=compaction)
-    rid_cat = []
+    svc = _service(service, engine, ocfg, model, sched, ragged=ragged,
+                   compaction=compaction, tracer=tracer)
+    fut_cat = []
     for r in range(R):
         logprob = classifier_logprob(client_models[r])
         for c in np.unique(np.asarray(data.client_labels[r])):
-            rid = eng.submit_classifier_guided(logprob, int(c), k_samples,
+            fut = svc.submit_classifier_guided(logprob, int(c), k_samples,
                                                group=("fedcado", r))
-            rid_cat.append((rid, int(c)))
+            fut_cat.append((fut, int(c)))
     key, kgen = prng.split(key)
-    out = eng.run(kgen)
-    syn_x = torch.cat([out[rid] for rid, _ in rid_cat])
-    syn_y = torch.as_tensor(np.repeat([c for _, c in rid_cat], k_samples),
+    syn_x = torch.cat(svc.gather([f for f, _ in fut_cat], kgen))
+    syn_y = torch.as_tensor(np.repeat([c for _, c in fut_cat], k_samples),
                             dtype=torch.int64, device=device)
 
     key, kclf = prng.split(key)
@@ -98,7 +112,9 @@ def run_feddisc(key, ocfg: OscarConfig, data, model: DiT,
                 sched: NoiseSchedule, fm: FrozenFM, *,
                 classifier: str | None = None, samples_per_category=None,
                 n_prototypes: int = 4, engine: SynthesisEngine | None = None,
-                ragged: bool = False, compaction: int | str | None = None):
+                service: SynthesisService | None = None,
+                ragged: bool = False, compaction: int | str | None = None,
+                tracer=None):
     """Returns (global model, metrics, upload per client, (D_syn images,
     labels)).  Each present (client, category) uploads its statistics;
     the server resamples ``k_samples`` distinct encodings from them
@@ -132,10 +148,10 @@ def run_feddisc(key, ocfg: OscarConfig, data, model: DiT,
 
     # --- server side: resample encodings, generate with the CF-DM; each
     # (client, category)'s k_samples distinct rows are ONE 2-D request
-    eng = _engine(engine, ocfg, model, sched, ragged=ragged,
-                  compaction=compaction)
+    svc = _service(service, engine, ocfg, model, sched, ragged=ragged,
+                   compaction=compaction, tracer=tracer)
     rng = np.random.default_rng(0)
-    rids, labels = [], []
+    futs, labels = [], []
     for r in range(R):
         for c in range(C):
             if not present[r, c]:
@@ -143,13 +159,12 @@ def run_feddisc(key, ocfg: OscarConfig, data, model: DiT,
             eps = rng.normal(size=(k_samples, D)).astype(np.float32)
             smp = means[r, c] + 0.5 * stds[r, c] * eps
             smp /= np.linalg.norm(smp, axis=-1, keepdims=True) + 1e-6
-            rids.append(eng.submit(smp, int(c)))
+            futs.append(svc.submit(smp, int(c)))
             labels.append(np.full((k_samples,), c, np.int64))
     key = np.asarray(key, np.uint32)
     key, kgen = prng.split(key)
-    if rids:
-        out = eng.run(kgen)
-        syn_x = torch.cat([out[rid] for rid in rids])
+    if futs:
+        syn_x = torch.cat(svc.gather(futs, kgen))
     else:
         size, ch = ocfg.data.image_size, ocfg.data.channels
         syn_x = torch.zeros((0, size, size, ch), device=device)

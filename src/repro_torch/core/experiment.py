@@ -7,7 +7,9 @@ conditioning, playing Stable Diffusion's role, then reused frozen by
 OSCAR, FedCADO and FedDISC.  It is checkpointed in the reference's format
 (``checkpoint/io.py``) under a tag of the config, so a later
 ``Experiment`` of the same config, in either package, loads it instead of
-training again.
+training again.  One ``SynthesisService`` serves D_syn to every
+DM-assisted method, its rows cached and spilled to a ``SynthesisStore``
+keyed by the DM tag and the seed.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ from repro_torch.diffusion.ddpm import pretrain_dm
 from repro_torch.diffusion.dit import DiT, dit_from_tree
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.encoders.foundation import FrozenFM
+from repro_torch.serve.service import SynthesisService
+from repro_torch.serve.store import SynthesisStore
+from repro_torch.serve.synthesis import SynthesisEngine, refuse_placement
 from repro_torch.utils import resolve_device
 
 ALL_METHODS = ("local", "fedavg", "fedprox", "feddyn", "fedcado", "feddisc",
@@ -52,16 +57,26 @@ class Experiment:
 
     Keys, as in the reference: ``self.key, kdm = split(PRNGKey(seed))``,
     the DM pre-trained from ``kdm``, and a method's run from
-    ``fold_in(self.key, crc32(method))``.  Each DM-assisted run drains
-    D_syn through a ``SynthesisEngine`` of its own, which gives the
-    reference's D_syn for a method's first run (its shared service drains
-    with the method's key too).  The reference's shared
-    ``SynthesisService`` and ``SynthesisStore``, ``hosts=`` and
-    ``tracer=`` are not ported."""
+    ``fold_in(self.key, crc32(method))``.
+
+    As in the reference, one ``SynthesisService`` over one engine
+    (``self.service``, drain keys from ``fold_in(self.key, 0xD5)``) serves
+    FedCADO, FedDISC and OSCAR, each drain keyed by the method's own key:
+    a repeated run is served from the row cache, a larger
+    ``samples_per_category`` generates only the top-up rows, and the
+    cache spills to a ``SynthesisStore`` under ``cache_dir /
+    f"{tag}_dsyn_s{seed}"`` (the DM's tag and the seed: another DM or seed
+    gets another store), so a cold process against a warm store draws no
+    sample.  ``tracer`` (an ``obs/trace.py::Tracer``) records the
+    service's drains; tracing never changes D_syn.  ``hosts=`` (placed
+    drains) raises ``NotImplementedError``: it comes with the port's
+    topology slice."""
 
     def __init__(self, ocfg: OscarConfig | None = None, *,
                  verbose: bool = True, pretrain_steps: int | None = None,
-                 cache_dir: str | Path | None = None, device=None):
+                 cache_dir: str | Path | None = None, device=None,
+                 hosts: int | None = None, tracer=None):
+        refuse_placement(hosts=hosts)
         self.ocfg = ocfg or OscarConfig()
         self.verbose = verbose
         self.device = resolve_device(device)
@@ -90,7 +105,8 @@ class Experiment:
         size, ch = data_cfg.image_size, data_cfg.channels
         steps = pretrain_steps or dc.pretrain_steps
         self.tag = dm_tag(self.ocfg, steps)
-        cpath = Path(cache_dir or DEFAULT_CACHE) / self.tag
+        cache_dir = Path(cache_dir or DEFAULT_CACHE)
+        cpath = cache_dir / self.tag
         self.sched = make_schedule(dc.train_timesteps, dc.schedule,
                                    device=self.device)
         if ckpt.exists(cpath):
@@ -116,6 +132,16 @@ class Experiment:
             self._say(f"[exp] DM pre-trained in "
                       f"{time.perf_counter() - t0:.1f}s (cached as "
                       f"{self.tag})")
+
+        # one service for every DM-assisted method; the store's root folds
+        # in the seed, since D_syn depends on the drain keys drawn from it
+        self.engine = SynthesisEngine(self.dm, self.sched, image_size=size,
+                                      channels=ch, tracer=tracer)
+        self.service = SynthesisService(
+            self.engine, key=prng.fold_in(self.key, 0xD5),
+            store=SynthesisStore(
+                cache_dir / f"{self.tag}_dsyn_s{self.ocfg.seed}"))
+        self.tracer = self.engine.tracer
 
     def _say(self, msg: str) -> None:
         if self.verbose:
@@ -143,14 +169,19 @@ class Experiment:
         elif method == "fedcado":
             _, metrics, upload, _ = run_fedcado(
                 *dm_args, classifier=classifier,
-                samples_per_category=samples_per_category)
+                samples_per_category=samples_per_category,
+                service=self.service)
         elif method == "feddisc":
             _, metrics, upload, _ = run_feddisc(
                 *dm_args, self.fm, classifier=classifier,
-                samples_per_category=samples_per_category)
+                samples_per_category=samples_per_category,
+                service=self.service)
         elif method == "oscar":
+            # an engine the caller passes beats the shared service
             res = run_oscar(*dm_args, self.fm, classifier=classifier,
-                            samples_per_category=samples_per_category, **kw)
+                            samples_per_category=samples_per_category,
+                            engine=kw.pop("engine", None),
+                            service=kw.pop("service", self.service), **kw)
             metrics, upload = res.metrics, res.upload_per_client
         else:
             raise ValueError(method)

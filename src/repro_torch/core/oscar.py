@@ -25,6 +25,7 @@ from repro_torch.diffusion.dit import DiT
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.encoders.foundation import FrozenFM, category_encodings
 from repro_torch.models.classifiers import init_classifier
+from repro_torch.serve.service import SynthesisService
 from repro_torch.serve.synthesis import SynthesisEngine
 from repro_torch.utils import resolve_device
 
@@ -63,44 +64,53 @@ def synthesize(key, model: DiT, sched: NoiseSchedule, encodings, present,
                guidance: float | None = None, num_steps: int | None = None,
                wave_size: int = 128, ragged: bool = False,
                compaction: int | str | None = None,
-               engine: SynthesisEngine | None = None):
+               engine: SynthesisEngine | None = None,
+               service: SynthesisService | None = None, tracer=None):
     """Step (3): server-side D_syn generation on the model's device, from
     the threefry ``key``.
 
     Every present (client, category) encoding becomes one request of
-    ``k_samples`` rows, in (client, category) order, and a
-    ``SynthesisEngine`` drains them: near-uniform waves of at most
-    ``wave_size`` rows, ragged waves with ``ragged=True``, and compacted
-    ragged waves with ``compaction`` (``"full"``, ``"auto"`` or an int K).
-    A caller's ``engine`` (over the same model) takes the requests instead
-    of a new one; ``ragged`` and ``compaction`` switch it on, never off
-    (``SynthesisEngine.opt_in``), and its own wave size holds.
-    Returns (images (N, H, W, C) float32, labels (N,) int64), both on the
-    model's device; an all-absent ``present`` gives empty tensors."""
+    ``k_samples`` rows, in (client, category) order, submitted to a
+    ``SynthesisService`` and gathered with ``key`` as its drain key: a
+    caller's ``engine`` (over the same model) beats a shared ``service``
+    (callers pass an engine to keep its cache apart), a shared service
+    serves repeats from its row cache and store, else a new engine of
+    near-uniform waves of at most ``wave_size`` rows.  ``ragged``,
+    ``compaction`` and ``tracer`` switch the chosen engine on, never off
+    (``SynthesisEngine.opt_in``).  Returns
+    (images (N, H, W, C) float32, labels (N,) int64), both on the model's
+    device; an all-absent ``present`` gives empty tensors."""
     device = model.null_y.device
-    if engine is not None:
-        eng = engine.opt_in(ragged=ragged, compaction=compaction)
-    else:
+    svc, eng = service, engine
+    if eng is not None:
+        svc = None        # an explicit engine beats a shared service
+    elif svc is not None:
+        eng = svc.engine
+    if eng is None:
         eng = SynthesisEngine(model, sched, image_size=image_size,
                               channels=channels, wave_size=wave_size,
-                              ragged=ragged, compaction=compaction)
+                              ragged=ragged, compaction=compaction,
+                              tracer=tracer)
+    else:
+        eng.opt_in(ragged=ragged, compaction=compaction, tracer=tracer)
+    if svc is None:
+        svc = SynthesisService(eng)
     R, C, _ = encodings.shape
-    rids, cats = [], []
+    futs, cats = [], []
     for r in range(R):
         for c in range(C):
             if present[r, c]:
-                rids.append(eng.submit(encodings[r, c], c, k_samples,
+                futs.append(svc.submit(encodings[r, c], c, k_samples,
                                        guidance=guidance,
                                        num_steps=num_steps))
                 cats.append(c)
-    if not rids:
+    if not futs:
         return (torch.zeros((0, image_size, image_size, channels),
                             device=device),
                 torch.zeros((0,), dtype=torch.int64, device=device))
-    out = eng.run(key)
+    images = torch.cat(svc.gather(futs, key))
     labels = np.repeat(np.asarray(cats, np.int64), k_samples)
-    return (torch.cat([out[rid] for rid in rids]),
-            torch.as_tensor(labels, device=device))
+    return images, torch.as_tensor(labels, device=device)
 
 
 def run_oscar(key, ocfg: OscarConfig, data, model: DiT, sched: NoiseSchedule,
@@ -108,17 +118,20 @@ def run_oscar(key, ocfg: OscarConfig, data, model: DiT, sched: NoiseSchedule,
               samples_per_category: int | None = None,
               classifier_steps: int | None = None,
               guidance: float | None = None,
-              engine: SynthesisEngine | None = None, ragged: bool = False,
-              compaction: int | str | None = None) -> OscarResult:
+              engine: SynthesisEngine | None = None,
+              service: SynthesisService | None = None, ragged: bool = False,
+              compaction: int | str | None = None,
+              tracer=None) -> OscarResult:
     """The whole pipeline from the threefry ``key``, on the DiT's device:
     ``kenc, ksyn, kclf = split(key, 3)``; client encodings, D_syn from
     ``ksyn``, the global classifier initialised and trained from ``kclf``
     (``fit_global``), and its per-domain test accuracy.  With no D_syn
-    (nothing present) the broadcast model is the untrained init.
+    (nothing present) the broadcast model is the untrained init.  D_syn
+    goes through ``synthesize``'s engine or service (see there).
 
-    The reference's ``use_pallas``, ``service``, ``topology``, ``hosts``
-    and ``tracer`` are not ported: the port has no service, topology or
-    tracer, and CUDA tensors always take the kernels."""
+    The reference's ``use_pallas`` is not ported (CUDA tensors always take
+    the kernels), nor are ``topology`` and ``hosts`` (placed drains come
+    with the topology slice)."""
     classifier = classifier or ocfg.classifier
     k_samples = samples_per_category or ocfg.samples_per_category
     # the first key is the reference's kenc, which nothing draws from
@@ -130,8 +143,8 @@ def run_oscar(key, ocfg: OscarConfig, data, model: DiT, sched: NoiseSchedule,
     syn_x, syn_y = synthesize(ksyn, model, sched, enc, present, k_samples,
                               image_size=ocfg.data.image_size,
                               channels=ocfg.data.channels, guidance=guidance,
-                              engine=engine, ragged=ragged,
-                              compaction=compaction)
+                              engine=engine, service=service, ragged=ragged,
+                              compaction=compaction, tracer=tracer)
     if len(syn_x) == 0:
         # degenerate round: no (client, category) present anywhere, so no
         # D_syn, and the broadcast model is the untrained init

@@ -33,17 +33,15 @@ class KVCache(NamedTuple):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, generator=None, device=None,
+    def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
-        kw = dict(bias=cfg.qkv_bias, generator=generator, device=device,
-                  dtype=dtype)
+        kw = dict(bias=cfg.qkv_bias, device=device, dtype=dtype)
         self.wq = Dense(d, cfg.num_heads * hd, **kw)
         self.wk = Dense(d, cfg.num_kv_heads * hd, **kw)
         self.wv = Dense(d, cfg.num_kv_heads * hd, **kw)
-        self.wo = Dense(cfg.num_heads * hd, d, generator=generator,
-                        device=device, dtype=dtype)
+        self.wo = Dense(cfg.num_heads * hd, d, device=device, dtype=dtype)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, cfg.norm_eps, device)
             self.k_norm = RMSNorm(hd, cfg.norm_eps, device)

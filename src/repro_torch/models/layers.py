@@ -6,39 +6,19 @@ statistics in fp32 and scale by ``(1 + scale)``; dense layers cast their
 weight to the input's dtype (``nn.Linear`` weights are (out, in), the
 reference's (in, out)); rope rotates split halves with fp32 angles; the
 MLP's gelu is the tanh form (``jax.nn.gelu``'s default).
+
+The layers allocate their weights and draw nothing: ``models/transformer.py
+::init_lm`` draws the reference's initial weights from a threefry key, and
+``convert.lm_state_from_jax`` loads a reference tree.  Norm scales and
+biases start at zero, as the reference's do.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.rmsnorm.ref import rmsnorm
-
-# ---------------------------------------------------------------------------
-# Initialisers of the LM
-# ---------------------------------------------------------------------------
-# The LM's layers draw their initial weights from a ``torch.Generator``:
-# the reference's key-drawn ``init_lm`` is not ported yet, so these values
-# are the port's own.  Parameters that must equal the reference's load
-# through ``repro_torch.convert``.  The DiT and the classifiers draw from
-# threefry keys instead (``repro_torch.utils.lecun_init``/``normal_init``).
-
-
-def seeded_normal_init(shape, generator: torch.Generator | None = None,
-                       stddev: float = 0.02, device=None) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=device) * stddev
-
-
-def seeded_lecun_init(shape, generator: torch.Generator | None = None,
-                      device=None) -> torch.Tensor:
-    """Truncated normal on [-2, 2], scaled by 1/sqrt(fan_in = shape[0])."""
-    w = torch.empty(shape, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return w / math.sqrt(max(shape[0], 1))
-
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -73,16 +53,16 @@ class RMSNorm(nn.Module):
 
 class Dense(nn.Linear):
     """``x @ w (+ b)`` with the weight cast to x's dtype, as the
-    reference's ``dense``.  LeCun-initialised on the (in, out) matrix, bias
-    zero; held in ``dtype``."""
+    reference's ``dense``; held in ``dtype``.  The weight is allocated, not
+    drawn; the bias is zero."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
-                 generator=None, device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32):
         super().__init__(d_in, d_out, bias=bias, device=device, dtype=dtype)
-        with torch.no_grad():
-            self.weight.copy_(
-                seeded_lecun_init((d_in, d_out), generator, device).T)
-            if bias:
+
+    def reset_parameters(self):
+        if self.bias is not None:
+            with torch.no_grad():
                 self.bias.zero_()
 
     def forward(self, x):
@@ -95,10 +75,9 @@ class Dense(nn.Linear):
 # ---------------------------------------------------------------------------
 
 
-def init_embedding(vocab: int, dim: int, generator=None, device=None,
-                   dtype=torch.float32):
-    return nn.Parameter(
-        seeded_normal_init((vocab, dim), generator, 0.02, device).to(dtype))
+def init_embedding(vocab: int, dim: int, device=None, dtype=torch.float32):
+    """The (vocab, dim) table, allocated, not drawn."""
+    return nn.Parameter(torch.empty((vocab, dim), device=device, dtype=dtype))
 
 
 def embed(table, ids, dtype):
@@ -138,9 +117,9 @@ def apply_rope(x, positions, theta: float):
 
 class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, gated: bool, act: str = "silu",
-                 *, generator=None, device=None, dtype=torch.float32):
+                 *, device=None, dtype=torch.float32):
         super().__init__()
-        kw = dict(generator=generator, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         self.w_up = Dense(d_model, d_ff, **kw)
         self.w_down = Dense(d_ff, d_model, **kw)
         self.w_gate = Dense(d_model, d_ff, **kw) if gated else None

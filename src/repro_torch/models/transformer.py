@@ -12,13 +12,18 @@ here; so does ``loss_fn``, which comes with training.
 
 Weights are held in the activation dtype (the reference holds fp32 and
 casts each to it at use, which rounds the same way); norm scales stay fp32.
+``LM(cfg)`` allocates them and draws nothing; ``init_lm(key, cfg)`` draws
+the reference's initial weights from a threefry key.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import prng
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.convert import lm_state_from_jax
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (MLP, Dense, RMSNorm, embed,
@@ -62,12 +67,11 @@ class LM(nn.Module):
     """Token-frontend decoder.  ``forward(tokens, par, mode=)`` is the
     reference's ``forward``; ``decode_step`` and ``init_caches`` its
     decode half.  Parameters live on ``device``: the card unless the caller
-    passes ``"cpu"``.  Initialised from ``generator`` as ``init_lm`` does
-    (LeCun dense weights, 0.02-normal embedding, zero norm scales and qkv
-    biases), with the port's own draws."""
+    passes ``"cpu"``.  They are allocated, not drawn (norm scales and qkv
+    biases zero): ``init_lm`` draws them from a key, or
+    ``convert.lm_state_from_jax`` loads a reference tree."""
 
-    def __init__(self, cfg: ModelConfig, *,
-                 generator: torch.Generator | None = None, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         if cfg.frontend != "token" or cfg.is_encoder:
             raise NotImplementedError(
@@ -78,14 +82,13 @@ class LM(nn.Module):
         dt = cfg.act_dtype
         self.cfg = cfg
         self.embedding = init_embedding(cfg.padded_vocab, cfg.d_model,
-                                        generator, device, dt)
+                                        device, dt)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.lm_head = None if cfg.tie_embeddings else Dense(
-            cfg.d_model, cfg.padded_vocab, generator=generator,
-            device=device, dtype=dt)
+            cfg.d_model, cfg.padded_vocab, device=device, dtype=dt)
         self.layers = nn.ModuleList(
-            Layer(cfg, i % cfg.period, generator=generator, device=device,
-                  dtype=dt) for i in range(cfg.num_layers))
+            Layer(cfg, i % cfg.period, device=device, dtype=dt)
+            for i in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -186,3 +189,116 @@ class LM(nn.Module):
             x, _ = self._apply_layer(layer, x, None, par, "decode",
                                      cache=cache, decode_pos=pos)
         return self._readout(x), caches
+
+
+# ---------------------------------------------------------------------------
+# init: the reference's initial weights from a key
+# ---------------------------------------------------------------------------
+# A leaf is drawn in pieces of at most this many values (over all its
+# keys), each piece with the counters the whole draw gives it, so the bits
+# are one draw's and a piece's int64 temporaries stay a few hundred MB
+# (gemma2-2b's embedding alone is 590 M values).
+DRAW_PIECE = 1 << 24
+
+
+def _draw(fn, keys, shape, device) -> torch.Tensor:
+    """``fn(keys, shape)`` (``prng.normal`` or a truncated normal) for the
+    batch ``keys`` (..., 2), drawn piece by piece into one float32 tensor
+    (..., *shape) on ``device``."""
+    batch = keys.shape[:-1]
+    n = 1
+    for s in shape:
+        n *= int(s)
+    per_key = max(DRAW_PIECE // max(1, int(np.prod(batch, dtype=np.int64))),
+                  1)
+    out = torch.empty((*batch, n), device=device)
+    for start in range(0, n, per_key):
+        stop = min(start + per_key, n)
+        out[..., start:stop] = fn(keys, (stop - start,), device, start)
+    return out.reshape(*batch, *shape)
+
+
+def _lecun(keys, shape, device) -> torch.Tensor:
+    """The reference's ``lecun_init``: a truncated normal on [-2, 2] times
+    1/sqrt(shape[0])."""
+    std = float(np.float32(1.0 / np.sqrt(max(shape[0], 1))))
+    return _draw(lambda k, s, d, o: prng.truncated_normal(k, -2.0, 2.0, s, d,
+                                                          o),
+                 keys, shape, device).mul_(std)
+
+
+def _zeros(keys, shape, device) -> torch.Tensor:
+    return torch.zeros((*keys.shape[:-1], *shape), device=device)
+
+
+def _dense(keys, d_in: int, d_out: int, device, bias: bool = False) -> dict:
+    kw, _ = np.moveaxis(prng.split(keys), -2, 0)
+    p = {"w": _lecun(kw, (d_in, d_out), device)}
+    if bias:
+        p["b"] = _zeros(keys, (d_out,), device)
+    return p
+
+
+def _layer_tree(keys, cfg: ModelConfig, p: int, device) -> dict:
+    """The reference's ``_init_layer`` for the batch ``keys`` (G, 2), one
+    per group: every leaf stacked along G, as its ``vmap`` stacks them."""
+    ks = np.moveaxis(prng.split(keys, 6), -2, 0)
+    d, hd = cfg.d_model, cfg.head_dim
+    a = np.moveaxis(prng.split(ks[1], 6), -2, 0)
+    mixer = {"wq": _dense(a[0], d, cfg.num_heads * hd, device, cfg.qkv_bias),
+             "wk": _dense(a[1], d, cfg.num_kv_heads * hd, device,
+                          cfg.qkv_bias),
+             "wv": _dense(a[2], d, cfg.num_kv_heads * hd, device,
+                          cfg.qkv_bias),
+             "wo": _dense(a[3], cfg.num_heads * hd, d, device)}
+    if cfg.qk_norm:
+        mixer["q_norm"] = {"scale": _zeros(a[4], (hd,), device)}
+        mixer["k_norm"] = {"scale": _zeros(a[5], (hd,), device)}
+    layer = {"norm1": {"scale": _zeros(ks[0], (d,), device)}, "mixer": mixer}
+    if cfg.d_ff > 0:
+        layer["norm2"] = {"scale": _zeros(ks[2], (d,), device)}
+        m = np.moveaxis(prng.split(ks[3], 3), -2, 0)
+        layer["mlp"] = {"w_up": _lecun(m[0], (d, cfg.d_ff), device),
+                        "w_down": _lecun(m[1], (cfg.d_ff, d), device)}
+        if cfg.gated_mlp:
+            layer["mlp"]["w_gate"] = _lecun(m[2], (d, cfg.d_ff), device)
+    if cfg.post_norms:
+        layer["post_norm1"] = {"scale": _zeros(ks[4], (d,), device)}
+        if cfg.d_ff > 0:
+            layer["post_norm2"] = {"scale": _zeros(ks[5], (d,), device)}
+    return layer
+
+
+def init_lm_tree(key, cfg: ModelConfig, device=None) -> dict:
+    """The reference's ``init_lm(key, cfg)`` tree, drawn on ``device`` (the
+    card unless the caller passes ``"cpu"``) in float32, leaf by leaf:
+    ``key, gkey = split(key)``; ``split(key, 5)`` gives the embedding
+    (0.02·normal), the final norm (zeros) and the head; ``split(gkey,
+    num_groups)`` one key a group, each split by ``period`` into its
+    layers' keys.  Within a few ulps of the reference (``prng.normal``,
+    ``prng.truncated_normal``)."""
+    LM(cfg, device="meta")                # refuses what the LM refuses
+    device = resolve_device(device)
+    key, gkey = prng.split(np.asarray(key, np.uint32))
+    ks = prng.split(key, 5)
+    emb = _draw(prng.normal, ks[0], (cfg.padded_vocab, cfg.d_model), device)
+    params = {"embed": {"embedding": emb.mul_(float(np.float32(0.02)))},
+              "final_norm": {"scale": _zeros(ks[3], (cfg.d_model,), device)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _dense(ks[4], cfg.d_model, cfg.padded_vocab,
+                                   device)
+    lkeys = prng.split(prng.split(gkey, cfg.num_groups), cfg.period)
+    params["groups"] = {f"p{p}": _layer_tree(lkeys[:, p], cfg, p, device)
+                        for p in range(cfg.period)}
+    return params
+
+
+def init_lm(key, cfg: ModelConfig, device=None) -> LM:
+    """An ``LM`` on ``device`` holding the reference's initial weights for
+    ``key`` (``init_lm_tree``, loaded through
+    ``convert.lm_state_from_jax`` and cast to the activation dtype)."""
+    device = resolve_device(device)
+    lm = LM(cfg, device=device)
+    tree = init_lm_tree(key, cfg, device)
+    lm.load_state_dict(lm_state_from_jax(tree, cfg))
+    return lm

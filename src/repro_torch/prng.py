@@ -98,20 +98,24 @@ def split(keys, num: int = 2) -> np.ndarray:
                                 np.zeros_like(i), i))
 
 
-def random_bits(keys, shape, device=None) -> torch.Tensor:
+def random_bits(keys, shape, device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) for every key of the batch
     ``keys`` (..., 2): an int64 tensor (..., *shape) on ``device`` holding
     the uint32 values.  Element n of a key's draw hashes the count pair
-    (n >> 32, n & 0xFFFFFFFF) and xors the two output words."""
+    (n >> 32, n & 0xFFFFFFFF) and xors the two output words.
+
+    ``offset`` shifts the counts: elements ``offset .. offset + size`` of a
+    larger draw, so a big draw made in pieces has the bits of one call."""
     shape = tuple(int(s) for s in shape)
     size = math.prod(shape)
-    if size >= 2 ** 32:
+    if offset + size >= 2 ** 32:
         raise NotImplementedError("more than 2**32 draws from one key")
     k1, k2 = _halves(keys)
     batch = k1.shape
     k1, k2 = (torch.as_tensor(k, device=device).reshape(*batch, 1)
               for k in (k1, k2))
-    lo = torch.arange(size, dtype=torch.int64, device=device)
+    lo = torch.arange(offset, offset + size, dtype=torch.int64,
+                      device=device)
     b1, b2 = _threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return (b1 ^ b2).reshape(tuple(batch) + shape)
 
@@ -170,12 +174,13 @@ def erf_f32(x) -> np.ndarray:
 
 
 def uniform(keys, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
+            device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` for every
     key of the batch ``keys`` (..., 2): a float32 tensor (..., *shape) on
-    ``device`` (see ``uniform_bits_to_float``)."""
-    return uniform_bits_to_float(random_bits(keys, shape, device), minval,
-                                 maxval)
+    ``device`` (see ``uniform_bits_to_float``; ``offset`` as in
+    ``random_bits``)."""
+    return uniform_bits_to_float(random_bits(keys, shape, device, offset),
+                                 minval, maxval)
 
 
 def bernoulli(keys, p: float, shape, device=None) -> torch.Tensor:
@@ -185,7 +190,7 @@ def bernoulli(keys, p: float, shape, device=None) -> torch.Tensor:
 
 
 def truncated_normal(keys, lower: float, upper: float, shape,
-                     device=None) -> torch.Tensor:
+                     device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.truncated_normal(key, lower, upper, shape)`` in float32
     for every key of the batch ``keys`` (..., 2), as jax 0.9 builds it: u
     uniform on [erf(lower/√2), erf(upper/√2)) (XLA's float32 ``erf``), then
@@ -193,19 +198,19 @@ def truncated_normal(keys, lower: float, upper: float, shape,
     few ulps of jax (``erfinv`` is within 3)."""
     lo, hi = np.float32(lower), np.float32(upper)
     a, b = erf_f32(np.array([lo, hi]) / np.float32(_SQRT2))
-    u = uniform(keys, shape, float(a), float(b), device)
+    u = uniform(keys, shape, float(a), float(b), device, offset)
     out = _SQRT2 * erfinv(u)
     return torch.clamp(out, float(np.nextafter(lo, np.float32(np.inf))),
                        float(np.nextafter(hi, np.float32(-np.inf))))
 
 
-def normal(keys, shape, device=None) -> torch.Tensor:
+def normal(keys, shape, device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` in float32 for every key of the
     batch ``keys`` (..., 2): a tensor (..., *shape) on ``device``.
 
     √2·erfinv(u) with u uniform on [nextafter(-1, 0), 1), built from the
     bits exactly as jax builds it; within 3 ulps of jax (see ``erfinv``)."""
-    u = uniform_bits_to_float(random_bits(keys, shape, device),
+    u = uniform_bits_to_float(random_bits(keys, shape, device, offset),
                               _UNIFORM_LO, 1.0)
     return _SQRT2 * erfinv(u)
 

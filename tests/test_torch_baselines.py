@@ -36,7 +36,7 @@ from repro_torch.diffusion import sampler as tsampler
 from repro_torch.diffusion import schedule as tsched
 from repro_torch.encoders.foundation import FrozenFM
 from repro_torch.models import classifiers as tclf
-from repro_torch.serve.synthesis import SynthesisEngine
+from repro_torch.serve.synthesis import STAT_KEYS, SynthesisEngine
 from test_torch_dit import perturbed_params, port_model
 from test_torch_train import inject_init, max_param_err
 
@@ -243,8 +243,14 @@ def test_2d_request_rows_are_sliced_in_wave_order(server):
     assert float((outs["ragged"][0] - outs["ragged"][1]).abs().max()) > 1e-3
 
 
-def test_2d_requests_are_refused_when_repeated_or_miscounted(server):
-    *_, model, sched = server
+def test_2d_requests_are_cached_by_their_rows_or_refused_when_miscounted(
+        server):
+    """A 2-D request's cache key hashes all its rows: the same rows again
+    (in the same drain, or a later one) are served from the first one's
+    rows bit for bit, the rows in another order are a request of their
+    own, as in the reference's engine; a miscounted or misshapen request
+    is refused."""
+    jocfg, params, jsch, _, model, sched = server
     enc = np.random.default_rng(7).standard_normal((3, 512)) \
         .astype(np.float32)
     eng = SynthesisEngine(model, sched, image_size=16)
@@ -254,14 +260,24 @@ def test_2d_requests_are_refused_when_repeated_or_miscounted(server):
         eng.submit(enc[0], 0)
     with pytest.raises(ValueError, match="shape"):
         eng.submit(enc[None], 0)
-    eng.submit(enc, 0, num_steps=2)
-    eng.run(prng.PRNGKey(0))
-    eng.submit(enc.copy(), 1, num_steps=2)       # same rows: same identity
-    with pytest.raises(NotImplementedError, match="cache key"):
-        eng.run(prng.PRNGKey(1))
-    eng._queue.clear()
-    eng.submit(enc[::-1].copy(), 1, num_steps=2)  # other order: its own
-    assert eng.run(prng.PRNGKey(1))[2].shape == (3, 16, 16, 3)
+    ref = JEngine(params, jocfg.diffusion, jsch, image_size=16)
+    drains = ((enc, enc.copy()), (enc.copy(), enc[::-1].copy()))
+    outs = []
+    for i, reqs in enumerate(drains):
+        for e in (ref, eng):
+            for r in reqs:
+                e.submit(r, 1, num_steps=2)
+        key = jax.random.PRNGKey(i)
+        want, got = ref.run(key), eng.run(np.asarray(key))
+        for rid, x in got.items():
+            assert x.shape == (3, 16, 16, 3)
+            assert float(np.max(np.abs(x.numpy() - want[rid]))) < TOL_DSYN
+        assert eng.stats == {k: ref.stats[k] for k in STAT_KEYS}
+        outs.append(got)
+    assert torch.equal(outs[0][1], outs[0][0])
+    assert torch.equal(outs[1][2], outs[0][0])
+    assert float((outs[1][3] - outs[0][0]).abs().max()) > 1e-3
+    assert eng.stats["generated"] == 6 and eng.stats["cache_hits"] == 6
 
 
 def test_engine_opt_in_switches_on_never_off(server):

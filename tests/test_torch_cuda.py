@@ -36,7 +36,7 @@ from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.models import attention as lm_attention
 from repro_torch.models.classifiers import classifier_logprob, init_classifier
 from repro_torch.models.moe import Parallel
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import init_lm
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.utils import recorded_relu
 
@@ -810,7 +810,7 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
 
 
 def test_serve_engine_kernel_route_matches_plain_route(dev):
-    """A 2-layer gemma2 at full width in fp32 on seeded weights: the same
+    """A 2-layer gemma2 at full width in fp32 on key-drawn weights: the same
     waves (16-token prompts past a window of 8, and 40-token ones) through
     the flash kernel and through the plain route give the same tokens,
     with one kernel launch per layer and wave and none in decode.  A
@@ -821,7 +821,7 @@ def test_serve_engine_kernel_route_matches_plain_route(dev):
     cap."""
     cfg = get_config("gemma2-2b").replace(num_layers=2, dtype="float32",
                                           sliding_window=8)
-    lm = LM(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    lm = init_lm(prng.PRNGKey(0), cfg, device=dev)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (16, 16, 40)]
     toks = torch.as_tensor(np.stack(prompts[:2]), device=dev)
@@ -1232,3 +1232,145 @@ def test_grad_through_the_kernel_route_still_raises(dev):
     model.plain = True
     loss = diffusion_loss(model, dc, sched, x, y, prng.PRNGKey(1))
     assert loss.requires_grad and torch.isfinite(loss)
+
+
+# -- slice 12: init_lm on the card, the service and its store ------------------
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix, tree
+
+
+def test_init_lm_on_the_card_draws_the_cpu_bits(dev):
+    """``init_lm`` draws on the device it is given: on the card the random
+    bits equal the CPU's, and every weight is within 4 ulps of the CPU
+    draw (erfinv's log1p and sqrt round otherwise on the card; measured at
+    most 3 ulps on an NVIDIA H100 80GB HBM3 at 700 W), zeros exactly; the
+    model holds the tree's values."""
+    from repro_torch.configs.shapes import smoke_config
+    from repro_torch.convert import lm_state_from_jax
+    from repro_torch.models.transformer import init_lm_tree
+    cfg = smoke_config(get_config("gemma2-2b")).replace(
+        qkv_bias=True, qk_norm=True, tie_embeddings=False)
+    key = prng.PRNGKey(11)
+    keys = prng.split(key, 3)
+    assert torch.equal(prng.random_bits(keys, (4099,), dev).cpu(),
+                       prng.random_bits(keys, (4099,), "cpu"))
+    card, cpu = (dict(_leaves(init_lm_tree(key, cfg, d)))
+                 for d in (dev, "cpu"))
+    assert sorted(card) == sorted(cpu)
+    worst = 0
+    for name, a in card.items():
+        a, b = a.cpu(), cpu[name]
+        assert a.shape == b.shape and a.device.type == "cpu"
+        same_sign = torch.sign(a) == torch.sign(b)
+        assert bool(same_sign.all()), name
+        gap = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+        worst = max(worst, int(gap.max()) if gap.numel() else 0)
+    print(f"init_lm card vs CPU: at most {worst} ulps")
+    assert worst <= 4, worst
+    lm = init_lm(key, cfg, device=dev)
+    want = lm_state_from_jax(init_lm_tree(key, cfg, dev), cfg)
+    assert all(torch.equal(v, want[k].to(v.dtype))
+               for k, v in lm.state_dict().items())
+
+
+_STORE_CHILD = """
+import hashlib, sys
+import numpy as np, torch
+from repro_torch import prng
+from repro_torch.configs.oscar import DiffusionConfig
+from repro_torch.diffusion.dit import DiT
+from repro_torch.diffusion.schedule import make_schedule
+from repro_torch.kernels.adaln_norm import ops as an_ops
+from repro_torch.kernels.cfg_fuse import ops as cfg_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.serve import SynthesisEngine, SynthesisService, SynthesisStore
+root = sys.argv[1]
+model = DiT(DiffusionConfig(d_model=144, num_layers=2, num_heads=4), 16, 3,
+            device="cuda")
+model.load_state_dict(torch.load(root + "/dit.pt"))
+enc = np.load(root + "/enc.npy")
+svc = SynthesisService(SynthesisEngine(model, make_schedule(device="cuda"),
+                                       image_size=16, wave_size=8,
+                                       ragged=True),
+                       key=3, store=SynthesisStore(root + "/store"))
+futs = [svc.submit(e, i, 5, guidance=2.0, num_steps=4)
+        for i, e in enumerate(enc)]
+rows = torch.cat(svc.gather(futs))
+fns = (fa_ops.flash_attention, an_ops.adaln_norm, cfg_ops.cfg_update,
+       cfg_ops.cfg_update_rowwise, cfg_ops.cfg_update_mixed)
+print(hashlib.sha256(rows.cpu().numpy().tobytes()).hexdigest(),
+      sum(f.launches for f in fns), svc.stats["waves"],
+      svc.stats["store_hits"])
+"""
+
+
+def test_a_warm_store_serves_a_cold_process_with_no_launch(dev, tmp_path):
+    """A ragged service round on the card fills a store; a child process
+    with a fresh engine on the same store serves the same requests from it
+    with no wave and no kernel launch, the rows' SHA-256 equal."""
+    import hashlib
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    from repro_torch.serve import (SynthesisEngine, SynthesisService,
+                                   SynthesisStore)
+    model = _seeded_dit(dev).eval()
+    enc = np.random.default_rng(2).standard_normal((4, 512)) \
+        .astype(np.float32)
+    svc = SynthesisService(SynthesisEngine(
+        model, make_schedule(device=dev), image_size=16, wave_size=8,
+        ragged=True), key=3, store=SynthesisStore(tmp_path / "store"))
+    futs = [svc.submit(e, i, 5, guidance=2.0, num_steps=4)
+            for i, e in enumerate(enc)]
+    rows = torch.cat(svc.gather(futs))
+    assert svc.stats["waves"] == 3 and rows.device.type == "cuda"
+    torch.save(model.state_dict(), tmp_path / "dit.pt")
+    np.save(tmp_path / "enc.npy", enc)
+    src = Path(__file__).resolve().parents[1] / "src"
+    child = subprocess.run(
+        [sys.executable, "-c", _STORE_CHILD, str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(src)})
+    assert child.returncode == 0, child.stderr
+    sha, launches, waves, hits = child.stdout.split()
+    assert sha == hashlib.sha256(rows.cpu().numpy().tobytes()).hexdigest()
+    assert (int(launches), int(waves), int(hits)) == (0, 0, 20)
+
+
+def test_streaming_is_snapshot_bit_for_bit_on_the_card(dev):
+    """Ragged requests streamed in through ``poll`` at wave boundaries give
+    the rows a snapshot drain of the same requests gives, bit for bit:
+    rows are keyed by identity and the arrivals fill the same waves."""
+    from repro_torch.serve import SynthesisEngine, SynthesisService
+    model = _seeded_dit(dev).eval()
+    sched = make_schedule(device=dev)
+    rng = np.random.default_rng(4)
+    subs = [(rng.standard_normal(512).astype(np.float32), i % 3, 4,
+             (2.0, 4.0)[i % 2], (4, 2)[i % 3 == 0]) for i in range(8)]
+
+    def service():
+        return SynthesisService(SynthesisEngine(
+            model, sched, image_size=16, wave_size=8, ragged=True), key=6)
+
+    snap = service()
+    want = snap.gather([snap.submit(e, c, n, guidance=g, num_steps=s)
+                        for e, c, n, g, s in subs])
+    stream, late = service(), list(subs[4:])
+    futs = [stream.submit(e, c, n, guidance=g, num_steps=s)
+            for e, c, n, g, s in subs[:4]]
+
+    def poll():
+        if late:
+            e, c, n, g, s = late.pop(0)
+            futs.append(stream.submit(e, c, n, guidance=g, num_steps=s))
+        return bool(late)
+
+    stream.drain(poll=poll)
+    assert all(torch.equal(f.result(), w) for f, w in zip(futs, want))
+    assert stream.stats["streamed"] == 4 and stream.stats["waves"] == 4

@@ -111,23 +111,41 @@ def test_grouped_waves_are_sample_cfg_calls_on_wave_keys(server):
     assert eng.stats["waves"] == 2 and eng.stats["padded"] == 8
 
 
-def test_engine_refuses_repeated_requests(server):
-    """The reference would serve a repeat of (encoding, guidance, steps)
-    from its row cache; the port has none and refuses it."""
-    _, _, _, model, sched = server
+def test_engine_serves_repeats_and_top_ups_like_the_reference(server):
+    """The row cache against the reference's: a repeat of (encoding,
+    guidance, steps) in the same drain takes only the rows the first one
+    does not plan, and in a later drain it is served from the first one's
+    rows bit for bit with no wave; a larger count generates only the
+    top-up rows (within the gate of the reference's); another guidance is
+    its own entry.  Grouped and ragged waves, the same counters."""
+    jdc, params, jsch, model, sched = server
     enc, _ = _uploads()
-    eng = SynthesisEngine(model, sched, image_size=16, ragged=True)
-    eng.submit(enc[0, 0], 0, 2, guidance=2.0, num_steps=2)
-    eng.submit(enc[0, 0], 0, 3, guidance=2.0, num_steps=2)
-    with pytest.raises(NotImplementedError):
-        eng.run(prng.PRNGKey(0))
+    for mode in (dict(), dict(ragged=True)):
+        ref = JEngine(params, jdc, jsch, image_size=16, wave_size=8, **mode)
+        port = SynthesisEngine(model, sched, image_size=16, wave_size=8,
+                               **mode)
+        drains = ([(2, 2.0), (3, 2.0), (2, 4.0)], [(2, 2.0), (6, 2.0)])
+        outs = []
+        for i, reqs in enumerate(drains):
+            for eng in (ref, port):
+                for count, g in reqs:
+                    eng.submit(enc[0, 0], 0, count, guidance=g, num_steps=2)
+            key = jax.random.PRNGKey(i)
+            want, got = ref.run(key), port.run(np.asarray(key))
+            assert sorted(got) == sorted(want)
+            for rid, rows in want.items():
+                assert got[rid].shape == rows.shape
+                assert float(np.max(np.abs(got[rid].numpy() - rows))) < TOL
+            assert port.stats == {k: ref.stats[k] for k in STAT_KEYS}
+            outs.append(got)
+        first, later = outs
+        assert torch.equal(first[1][:2], first[0])       # planned, not drawn
+        assert torch.equal(later[3], first[0])           # served from cache
+        assert torch.equal(later[4][:3], first[1])       # the top-up's prefix
+        assert float((later[4][3:] - first[1][:3]).abs().max()) > 1e-3
+        stats = port.stats
+        assert stats["generated"] == 3 + 2 + 3 and stats["cache_hits"] == 2 + 2 + 3
     eng = SynthesisEngine(model, sched, image_size=16)
-    eng.submit(enc[0, 0], 0, 2, guidance=2.0, num_steps=2)
-    eng.submit(enc[0, 0], 0, 2, guidance=4.0, num_steps=2)   # other guidance
-    assert [len(v) for v in eng.run(prng.PRNGKey(0)).values()] == [2, 2]
-    eng.submit(enc[0, 0], 0, 1, guidance=2.0, num_steps=2)   # a later drain
-    with pytest.raises(NotImplementedError):
-        eng.run(prng.PRNGKey(1))
     with pytest.raises(ValueError):
         eng.submit(enc[0], 0, 2)
     for bad in (0, True, "some"):

@@ -24,6 +24,7 @@ from repro_torch.configs import oscar as tconfigs
 from repro_torch.convert import dit_state_from_jax
 from repro_torch.core import experiment as texp
 from repro_torch.encoders.foundation import FrozenFM
+from test_torch_service import one_thread  # noqa: F401
 
 TINY = dict(
     data=dict(num_categories=3, num_domains=3, train_per_cat_dom=4,
@@ -169,6 +170,41 @@ def test_oscar_and_fedavg_run_end_to_end(experiment):
         assert res["wall_s"] >= 0
     assert o["upload_params"] == C * 512 < f["upload_params"]
     assert not exp.dm.plain
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_dm_methods_share_one_service_its_cache_and_its_store(reference,
+                                                             experiment):
+    """One service over one engine serves the DM-assisted methods, its
+    drain keys from ``fold_in(key, 0xD5)`` and its store under the DM's
+    tag and the seed, as the reference's: a second run of OSCAR or
+    FedDISC is served from the row cache with no wave and the same
+    accuracy, and a second ``Experiment`` on the same ``cache_dir`` serves
+    both from the store with no wave."""
+    exp, cache = experiment
+    key = jax.random.fold_in(jax.numpy.asarray(reference["key"]), 0xD5)
+    assert np.array_equal(exp.service._base_key, np.asarray(key))
+    assert exp.service.engine is exp.engine
+    assert exp.service.store.root == cache / f"{exp.tag}_dsyn_s3"
+    runs = {}
+    for i in range(3):
+        # the cold Experiment opens the store after the runs have filled it
+        e = exp if i < 2 else texp.Experiment(exp.ocfg, verbose=False,
+                                              cache_dir=cache, device="cpu")
+        for m in ("oscar", "feddisc"):
+            before = e.engine.stats
+            out = e.run(m)
+            after = e.engine.stats
+            runs.setdefault(m, []).append(
+                (out["avg"], after["waves"] - before["waves"],
+                 after["cache_hits"] - before["cache_hits"],
+                 after["store_hits"] - before["store_hits"]))
+    n = int(exp.data.client_labels.shape[0] * 3 * 2)   # present pairs x 2
+    for m, ((acc, waves, hits, _), again, cold) in runs.items():
+        # the module's end-to-end test may have run OSCAR on it already
+        assert (waves >= 1 and hits == 0) or (m == "oscar" and hits == n), m
+        assert again == (acc, 0, n, 0), m
+        assert cold == (acc, 0, n, n), m
 
 
 def test_encodings_the_dm_trains_on_are_the_references(reference):

@@ -10,21 +10,30 @@ erf of the bounds; the port's ``erfinv`` is within 3 ulps of XLA's (its
 relative 3·2^-23.  Scaling by a float32 constant keeps the relative error
 and each side rounds its product or quotient once more (2^-24 each), so
 the inits are gated at a relative 4·2^-23 per element (zeros exactly).
+The LM's ``init_lm`` is held the same way at a gemma2 smoke config, with
+and without an untied head, qkv bias and qk-norm.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.configs import get_config as jget_config
+from repro.configs import shapes as jshapes
 from repro.configs.oscar import DiffusionConfig as JDiffusionConfig
 from repro.diffusion import dit as jdit
 from repro.models import classifiers as jclf
+from repro.models import transformer as jlm
 from repro_torch import prng
+from repro_torch.configs import get_config, shapes as tshapes
 from repro_torch.configs.oscar import DiffusionConfig
-from repro_torch.convert import classifier_state_from_jax, dit_state_from_jax
+from repro_torch.convert import (classifier_state_from_jax,
+                                 dit_state_from_jax, lm_state_from_jax)
 from repro_torch.core import classifier_train as tct
 from repro_torch.diffusion import dit as tdit
 from repro_torch.models import classifiers as tclf
+from repro_torch.models import transformer as tlm
+from test_torch_service import one_thread  # noqa: F401
 
 TOL_REL = 4 * 2.0 ** -23
 
@@ -128,3 +137,38 @@ def test_classifier_init_matches_the_reference(name):
     assert_states_within_rounding(want, got.state_dict())
     assert type(got) is type(tclf.classifier_module(name, 7,
                                                     device="meta"))
+
+
+LM_VARIANTS = {"gemma2": {}, "head_bias_qknorm": dict(
+    num_kv_heads=2, qkv_bias=True, qk_norm=True, tie_embeddings=False)}
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("variant", list(LM_VARIANTS))
+def test_init_lm_matches_the_reference(variant):
+    kw = LM_VARIANTS[variant]
+    jcfg = jshapes.smoke_config(jget_config("gemma2-2b")).replace(**kw)
+    tcfg = tshapes.smoke_config(get_config("gemma2-2b")).replace(**kw)
+    key = jax.random.PRNGKey(11)
+    ref = jax.jit(jlm.init_lm, static_argnums=1)(key, jcfg)
+    want = lm_state_from_jax(jax.tree.map(np.asarray, ref), tcfg)
+    lm = tlm.init_lm(np.asarray(key), tcfg, device="cpu")
+    assert_states_within_rounding(want, lm.state_dict())
+    assert all(p.is_leaf and p.requires_grad for p in lm.parameters())
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_init_lm_draws_a_leaf_in_pieces_with_one_draws_bits(monkeypatch):
+    """A leaf drawn in pieces (the card's way for gemma2-2b's 590 M-value
+    embedding) gives the bits of one draw: each piece takes the counters
+    the whole draw gives it."""
+    tcfg = tshapes.smoke_config(get_config("gemma2-2b"))
+    key = prng.PRNGKey(12)
+    whole = tlm.init_lm_tree(key, tcfg, device="cpu")
+    monkeypatch.setattr(tlm, "DRAW_PIECE", 1 << 14)
+    pieces = tlm.init_lm_tree(key, tcfg, device="cpu")
+    flat_a, flat_b = (jax.tree_util.tree_leaves(
+        jax.tree.map(lambda t: t.numpy(), tree)) for tree in (whole, pieces))
+    assert len(flat_a) == len(flat_b) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(flat_a, flat_b))
+    assert whole["embed"]["embedding"].numel() >= 8 << 14

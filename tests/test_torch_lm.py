@@ -32,14 +32,16 @@ from repro.models.moe import Parallel as JParallel
 from repro.models.transformer import (decode_step as jdecode_step,
                                       forward as jforward, init_lm)
 from repro.utils import softcap as jsoftcap
+from repro_torch import prng
 from repro_torch.configs import base as tbase
 from repro_torch.configs import get_config, list_configs, shapes as tshapes
 from repro_torch.convert import lm_state_from_jax
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.moe import Parallel
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, init_lm as tinit_lm
 from repro_torch.utils import softcap
+from test_torch_service import one_thread  # noqa: F401
 
 TOL = 2e-5
 S = 20                                   # > the smoke window of 8
@@ -314,14 +316,22 @@ def test_lm_refuses_unported_layers_and_frontends():
             LM(base.replace(**kw), device="cpu")
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_lm_init_is_seeded_and_zeroes_norms():
+    """``init_lm`` draws from its key alone (bit for bit again from the same
+    key, other weights from another) and zeroes every norm scale and qkv
+    bias; the embedding is 0.02·normal.  Against the reference's draw:
+    ``test_torch_init.py::test_init_lm_matches_the_reference``."""
     cfg = tshapes.smoke_config(get_config("gemma2-2b")).replace(
         qkv_bias=True, qk_norm=True)
-    a, b = (LM(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    a, b = (tinit_lm(prng.PRNGKey(3), cfg, device="cpu")
             for _ in range(2))
+    other = tinit_lm(prng.PRNGKey(4), cfg, device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(),
                               b.state_dict().values()):
         assert torch.equal(pa, pb), name
         if name.endswith(("scale", "bias")):
             assert not pa.any(), name
+        else:
+            assert not torch.equal(pa, other.state_dict()[name]), name
     assert float(a.embedding.detach().std()) == pytest.approx(0.02, rel=0.05)

@@ -438,24 +438,42 @@ def test_engine_dispatches_the_mixed_sampler_only_for_classifier_rows(
     assert calls == ["sample_cfg_ragged", "sample_mixed"]
 
 
-def test_engine_refuses_repeated_unconditional_never_classifier(server):
+def test_engine_caches_unconditional_never_classifier_requests(server):
     """The reference keys an unconditional request by (category, steps) in
-    its cache and caches no classifier-guided request: the port, which has
-    no cache, refuses the first kind of repeat and serves the second."""
-    _, _, _, model, sched = server
-    eng = SynthesisEngine(model, sched, image_size=16, ragged=True)
-    eng.submit_unconditional(2, category=3, num_steps=2)
-    eng.submit_unconditional(1, category=3, num_steps=2)
-    with pytest.raises(NotImplementedError):
-        eng.run(prng.PRNGKey(0))
-    eng = SynthesisEngine(model, sched, image_size=16, ragged=True)
-    eng.submit_unconditional(2, category=3, num_steps=2)
-    eng.submit_unconditional(2, category=3, num_steps=3)    # other steps
-    eng.submit_classifier_guided(t_center, 1, 2, num_steps=2)
-    eng.submit_classifier_guided(t_center, 1, 2, num_steps=2)
-    assert [len(v) for v in eng.run(prng.PRNGKey(0)).values()] == [2] * 4
-    eng.submit_classifier_guided(t_center, 1, 2, num_steps=2)  # a later run
-    assert len(eng.run(prng.PRNGKey(1))) == 1
-    eng.submit_unconditional(1, category=3, num_steps=2)
-    with pytest.raises(NotImplementedError):
-        eng.run(prng.PRNGKey(2))
+    its row cache and caches no classifier-guided request: against its
+    engine, a repeated unconditional request is served from the first
+    one's rows bit for bit, a larger count is topped up, another step
+    count is its own entry, and a repeated classifier-guided request is
+    drawn again, in the same drain and a later one."""
+    jdc, params, jsch, model, sched = server
+    ref = JEngine(params, jdc, jsch, image_size=16, wave_size=8, ragged=True)
+    port = SynthesisEngine(model, sched, image_size=16, wave_size=8,
+                           ragged=True)
+
+    def submit(eng, center, uncond_counts):
+        for n in uncond_counts:
+            eng.submit_unconditional(n, category=3, num_steps=2)
+        eng.submit_unconditional(2, category=3, num_steps=3)   # other steps
+        for _ in range(2):
+            eng.submit_classifier_guided(center, 1, 2, guidance=1.0,
+                                         num_steps=2)
+
+    outs = []
+    for i, counts in enumerate(((2, 1), (4,))):
+        submit(ref, j_center, counts)
+        submit(port, t_center, counts)
+        key = jax.random.PRNGKey(i)
+        want, got = ref.run(key), port.run(np.asarray(key))
+        assert sorted(got) == sorted(want)
+        for rid, rows in want.items():
+            assert _err(got[rid].numpy(), rows) < TOL_SMOKE, rid
+        assert port.stats == {k: ref.stats[k] for k in STAT_KEYS}
+        outs.append(got)
+    (a, b, other, c1, c2), (top, other2, c3, c4) = (
+        [o[r] for r in sorted(o)] for o in outs)
+    assert torch.equal(b, a[:1]) and torch.equal(top[:2], a)
+    assert torch.equal(other2, other)
+    assert float((top[2:] - a).abs().max()) > 1e-3
+    for c in (c2, c3, c4):                 # drawn again, never cached
+        assert float((c - c1).abs().max()) > 1e-3
+    assert port.stats["cache_hits"] == 1 + 2 + 2
