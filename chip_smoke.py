@@ -133,7 +133,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      fence faults retried, a poisoned classifier closure beside a healthy
      classifier-guided tenant on a ragged service, and a truncated store
      shard quarantined and regenerated, each bit-identical to its
-     fault-free drain; and the whole script's seconds.
+     fault-free drain;
+ 12. placed multi-host drains on phase 10's trained DM, each drain's
+     launches against a plan computed from the placements it made (and
+     the update kernels' launches at a non-zero ``row_offset``): 12.1
+     phase 6's 60 mixed (guidance, steps) uploads unplaced, ragged and
+     compacted, and over H = 1, 2, 4 simulated hosts (ragged and
+     compacted; H = 2 also with ``workers=False``, bit-identical to the
+     hosts' own streams; H = 1 bit-identical to the unplaced drain, which
+     packs the same waves; every compacted window bit-identical to its
+     replay alone through ``sample_cfg_compacted`` with the window's own
+     plan), images/s and wall of every drain, each placed D_syn held row
+     by row against the unplaced one (``gated12``, at most 2% of its rows
+     over 2e-2); 12.2 per-host counters
+     summing to the global ones in every placed drain, and a mixed H = 2
+     drain launching both per-row update kernels at row_offset > 0; 12.3
+     host 0 lost at wave 2 of an H = 2 drain (two replays bit-identical,
+     ``failover.requeued_rows``), then every host lost
+     (``AllHostsLostError``, the queue kept) and a fresh topology serving
+     it; 12.4 phase 11.4's stream through two hosts' ``host_polls``; 12.5
+     a ``make_serving_mesh(hosts=1, data=1, model=1)`` topology
+     bit-identical to simulated H = 1; 12.6 ``Experiment(hosts=2)`` on
+     phase 10's checkpoint running OSCAR, its accuracy beside Table I's;
+     12.7 a traced H = 2 drain in ``build/placed_trace.json`` with two
+     host tracks and the overlap of the hosts' ``device.scan`` spans; and
+     the whole script's seconds.
 Phases 4 and 6 run two rounds each, phase 7 two per schedule, phase 8b
 two.
 The last line is the result; the line before it names the card.
@@ -152,6 +176,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -506,7 +531,9 @@ def main() -> int:
     from repro_torch.diffusion import ddpm
     from repro_torch.diffusion import guidance as guid
     from repro_torch.diffusion.dit import init_dit
-    from repro_torch.diffusion.sampler import (sample_cfg, sample_cfg_ragged,
+    from repro_torch.diffusion.sampler import (sample_cfg,
+                                               sample_cfg_compacted,
+                                               sample_cfg_ragged,
                                                sample_cfg_window, sample_mixed)
     from repro_torch.diffusion.schedule import make_schedule
     from repro_torch.encoders.foundation import FrozenFM
@@ -532,11 +559,13 @@ def main() -> int:
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.steps import make_serve_step
     from repro_torch.obs import Tracer, validate_chrome_trace, write_trace
-    from repro_torch.serve import (FaultInjector, RequestFailedError,
-                                   RetryPolicy, SynthesisService,
-                                   SynthesisStore)
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import (AllHostsLostError, FaultInjector,
+                                   RequestFailedError, RetryPolicy,
+                                   SynthesisService, SynthesisStore)
     from repro_torch.serve import synthesis as serve_synthesis
     from repro_torch.serve.synthesis import SynthesisEngine
+    from repro_torch.serve.topology import HostTopology
     from repro_torch.utils import (default_device, deterministic_cudnn,
                                    recorded_relu)
 
@@ -1593,6 +1622,7 @@ def main() -> int:
           and plan["compacted"]["scheduled"] == 67500,
           f"phase 6 plan {plan}, active {active_iters}")
     ragged_iters6 = plan["ragged"]["iters"]        # phase 11.4's plan too
+    compacted_iters6 = plan["compacted"]["iters"]  # and phase 12's
 
     samplers = (serve_synthesis.sample_cfg_ragged,
                 serve_synthesis.sample_cfg_compacted)
@@ -3354,7 +3384,548 @@ def main() -> int:
     say(f"[11] wall seconds by drain: "
         f"{ {k: round(v, 3) for k, v in walls11.items()} } ({smi})")
     say(f"[11] the D_syn front door: {t11:.1f} s ({smi})")
-    say(f"[11] the whole script: {time.perf_counter() - t_start:.1f} s")
+    # -- 12. placed multi-host drains ----------------------------------------
+    # on phase 10's trained DM: phase 6's mixed (guidance, steps) uploads
+    # over simulated hosts, each host's windows on a CUDA stream of its
+    # own; every drain's launches against a plan computed from the
+    # placements it made (each window runs its own segment chain: a
+    # rowwise or mixed update, L short-kernel attentions and 2L + 1
+    # adaln_norms an iteration), and the windows past the first of a wave
+    # counted by the update kernels' launches at a non-zero row_offset
+    t12 = time.perf_counter()
+    launches12, walls12, report12 = {}, {}, {}
+    offset_fns = {"cfg_update_rowwise_offset": cfg_ops.cfg_update_rowwise,
+                  "cfg_update_mixed_offset": cfg_ops.cfg_update_mixed}
+    key12 = prng.PRNGKey(12)
+
+    def engine12(**kw):
+        kw.setdefault("ragged", True)
+        return SynthesisEngine(exp.dm, exp.sched, image_size=16,
+                               wave_size=120, **kw)
+
+    def submit12(eng, ids):
+        return [eng.submit(enc[uploads[i][0], uploads[i][1]], uploads[i][1],
+                           k_samples, guidance=combos[i % 4][0],
+                           num_steps=combos[i % 4][1]) for i in ids]
+
+    def recorded(eng):
+        """Keep every placed wave the engine dispatches: its placement,
+        its step ceiling, and each window's rows' step counts (padding
+        repeats a window's last row), for the launch plan."""
+        waves = []
+        inner = eng._sample_wave_placed
+
+        def call(parts_h, placement, key, max_steps, wave=-1):
+            out = inner(parts_h, placement, key, max_steps, wave=wave)
+            steps = []
+            for w in placement.windows:
+                s = [p.req.num_steps for p, t, _ in parts_h[w.host]
+                     for _ in range(t)]
+                steps.append(s + [s[-1]] * (w.rows - w.real))
+            waves.append((placement, max_steps, steps,
+                          any(p.req.mode == "clf" for parts in parts_h
+                              for p, _, _ in parts)))
+            return out
+
+        eng._sample_wave_placed = call
+        return waves
+
+    def replayed(eng):
+        """Keep each placed window's rows as the unplaced compacted sampler
+        needs them (window order, padding included) with their identities
+        (rid, row index), to replay after the drain: its launches stay out
+        of the drain's counted run."""
+        wins = []
+        inner = eng._sample_wave_placed
+
+        def call(parts_h, placement, key, max_steps, wave=-1):
+            for w in placement.windows:
+                parts = parts_h[w.host]
+                rows = np.concatenate([p.row_block(t, s, eng._null_row)
+                                       for p, t, s in parts])
+                ids = [(p.req.rid, p.req.count - p.fresh + s + i,
+                        p.req.guidance, p.req.num_steps)
+                       for p, t, s in parts for i in range(t)]
+                pad = w.rows - w.real
+                rows = np.concatenate([rows, np.repeat(rows[-1:], pad, 0)])
+                wins.append((rows, ids + [ids[-1]] * pad, w.real,
+                             np.asarray(key), max_steps))
+            return inner(parts_h, placement, key, max_steps, wave=wave)
+
+        eng._sample_wave_placed = call
+        return wins
+
+    def replay12(wins, rids, counts):
+        """Every recorded window sampled again alone by
+        ``sample_cfg_compacted`` with the window's own activation plan (the
+        batches the placed window ran), its rows back in request order."""
+        rows = {}
+        for cond, ids, real, key, smax in wins:
+            rid, ridx, g, steps = (np.array(c) for c in zip(*ids))
+            steps = steps.astype(np.int32)
+            keys = prng.fold_in(prng.fold_in(key[None], rid), ridx)
+            x = sample_cfg_compacted(
+                exp.dm, exp.sched, cond, keys, g.astype(np.float32), steps,
+                max_steps=smax, image_size=16,
+                plan=guid.plan_epochs(steps, smax, compaction="full"))
+            for i in range(real):
+                rows[(int(rid[i]), int(ridx[i]))] = x[i]
+        return torch.stack([rows[(r, i)] for r, n in zip(rids, counts)
+                            for i in range(n)])
+
+    def plan12(waves, compacted):
+        """Launches a drain's placed waves imply: per window, its iterations
+        (the step ceiling, or the epochs of its own activation plan) of
+        the rowwise update, or the mixed one in a wave with a classifier-
+        guided row; those of windows at a non-zero offset again on the
+        offset counters."""
+        it = {"rowwise": 0, "mixed": 0, "rowwise_off": 0, "mixed_off": 0}
+        for placement, smax_w, steps, mixed in waves:
+            for w, s in zip(placement.windows, steps):
+                n = (sum(e - b for _, b, e in guid.plan_epochs(
+                    np.asarray(s, np.int32), smax_w, compaction="full")[1])
+                     if compacted else smax_w)
+                kind = "mixed" if mixed else "rowwise"
+                it[kind] += n
+                if w.offset:
+                    it[kind + "_off"] += n
+        want = plan11(rowwise=it["rowwise"], mixed=it["mixed"])
+        want.update(cfg_update_rowwise_offset=it["rowwise_off"],
+                    cfg_update_mixed_offset=it["mixed_off"])
+        return want
+
+    def drain12(name, fn, plan_of=None):
+        """Run ``fn`` with every count at 0, time it to the end of its device
+        work, and check its launches against ``plan_of()`` (read after the
+        run: the placements it made)."""
+        zero11()
+        for f in offset_fns.values():
+            f.launches_offset = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls12[name] = time.perf_counter() - t
+        got = counts11()
+        got.update({k: f.launches_offset for k, f in offset_fns.items()})
+        launches12[name] = got
+        if plan_of is not None:
+            want = plan_of()
+            check(got == want, f"12 {name}: launches {got} != plan {want}")
+        return out
+
+    def per_host_sums(eng, what):
+        s = eng.stats
+        per = s["per_host"]
+        check(all(sum(p[k] for p in per) == s[g] for k, g in (
+            ("rows", "generated"), ("padded", "padded"),
+            ("row_iters_scheduled", "row_iters_scheduled"),
+            ("row_iters_active", "row_iters_active")))
+              and s["scheduled_rows"] == s["generated"] + s["padded"],
+              f"12 {what}: per-host sums {per} against {s}")
+        return {k: s[k] for k in ("waves", "generated", "padded",
+                                  "scheduled_rows", "row_iters_scheduled",
+                                  "row_iters_active")}
+
+    # the gates across packings.  A window is a batch of another size than
+    # a wave, and cuBLAS promises a row no bits across batch sizes; the
+    # first step of every trajectory (t = 999) divides ε̂ by √ᾱ_999 =
+    # 4.9e-5 and guidance multiplies a difference by 1 + 2s, so on the
+    # trained DM at s = 7.5 a rounding difference can move a 25- or
+    # 50-step row far past 2e-2.  Each row is held at TOL_E2E_DEEP or, if
+    # any row is over it, at max(TOL_E2E_DEEP, K_PROBE × how far two
+    # probes (every DiT output moved by ± phase 3's kernel-vs-plain
+    # difference, both signs) move that row in the unplaced drain): the
+    # rule phases 4 and 6 hold 4-step rows to (``row_gated``).  K_PROBE was
+    # calibrated on 4-step rows of a random DiT, and a row whose probe
+    # movement reaches 0.5 gets a gate past the clipped range [-1, 1]:
+    # such a row is not checked by its value at all.  So at most
+    # MAX_SHARE_OVER_DEEP of a drain's rows may be over TOL_E2E_DEEP,
+    # whatever their gates (measured: 12 of 1800, all in the compacted
+    # H = 2 drain, whose windows the replay in 12.1 holds bit for bit),
+    # and the rows gated by the probe, and those gated past the value
+    # range, are counted and printed
+    MAX_SHARE_OVER_DEEP = 0.02
+
+    def gated12(what, got, ref, movement):
+        err = (got - ref).abs().flatten(1).amax(1)
+        over = err > TOL_E2E_DEEP
+        out = dict(max_abs_err=float(err.max()),
+                   rows=int(err.numel()),
+                   rows_over_tol_e2e=int((err > TOL_E2E).sum()),
+                   rows_over_tol_e2e_deep=int(over.sum()),
+                   rows_probe_gated=0, rows_gated_past_value_range=0,
+                   bit_identical=bool(torch.equal(got, ref)))
+        check(out["rows_over_tol_e2e_deep"]
+              <= MAX_SHARE_OVER_DEEP * out["rows"],
+              f"{what}: {out['rows_over_tol_e2e_deep']} of {out['rows']} "
+              f"rows over {TOL_E2E_DEEP:g}, more than "
+              f"{MAX_SHARE_OVER_DEEP:.0%}")
+        if bool(over.any()):
+            moved = movement()
+            gate = torch.clamp(K_PROBE * moved, min=TOL_E2E_DEEP)
+            bad = (err > gate).nonzero().flatten().tolist()
+            check(not bad, f"{what}: rows {bad[:8]} off by "
+                  f"{err[bad][:8].tolist()} over their gates "
+                  f"{gate[bad][:8].tolist()} (probes moved them "
+                  f"{moved[bad][:8].tolist()})")
+            out["rows_probe_gated"] = int((gate > TOL_E2E_DEEP).sum())
+            out["rows_gated_past_value_range"] = int((gate >= 2.0).sum())
+            rows = over.nonzero().flatten().tolist()
+            out["rows_over_tol_e2e_deep_err_and_probe"] = [
+                (r, float(err[r]), float(moved[r])) for r in rows]
+        say(f"[12] {what}: max_abs_err {out['max_abs_err']:.3g}, rows over "
+            f"{TOL_E2E:g} {out['rows_over_tol_e2e']}, over "
+            f"{TOL_E2E_DEEP:g} {out['rows_over_tol_e2e_deep']} of "
+            f"{out['rows']} "
+            f"{out.get('rows_over_tol_e2e_deep_err_and_probe', '')} (gate "
+            f"max({TOL_E2E_DEEP:g}, {K_PROBE:g}·probe), probe "
+            f"±{dit_err:.2g}; rows gated by the probe "
+            f"{out['rows_probe_gated']}, past the value range "
+            f"{out['rows_gated_past_value_range']}), bit-identical "
+            f"{out['bit_identical']}")
+        return out
+
+    movements12 = {}
+
+    def movement12(name, run, ref):
+        """``probe_movement`` of ``run`` on the trained DM, measured once
+        per request set and schedule."""
+        def measure():
+            if name not in movements12:
+                movements12[name] = probe_movement(run, exp.dm, dit_err, ref)
+            return movements12[name]
+        return measure
+
+    def unplaced12(ids, **kw):
+        def run(m):
+            eng = SynthesisEngine(m, exp.sched, image_size=16,
+                                  wave_size=120, ragged=True, **kw)
+            rids = submit12(eng, ids)
+            out = eng.run(key12)
+            return torch.cat([out[r] for r in rids])
+        return run
+
+    # 12.1 the 60 uploads, unplaced and over H = 1, 2, 4 hosts
+    d12, eng12, wins12 = {}, {}, {}
+    for name, kw in (("unplaced_ragged", {}),
+                     ("unplaced_compacted", dict(compaction="full")),
+                     ("h1_ragged", dict(hosts=1)),
+                     ("h2_ragged", dict(hosts=2)),
+                     ("h2_ragged_workers_off", dict(hosts=2, workers=False)),
+                     ("h2_compacted", dict(hosts=2, compaction="full")),
+                     ("h4_ragged", dict(hosts=4)),
+                     ("h4_compacted", dict(hosts=4, compaction="full"))):
+        eng = engine12(**kw)
+        rids = submit12(eng, range(60))
+        if "hosts" in kw and "compaction" in kw:
+            wins12[name] = (replayed(eng), rids)
+        if "hosts" in kw:
+            waves = recorded(eng)
+            plan_of = (lambda w=waves, c="compaction" in kw: plan12(w, c))
+        else:
+            it6 = compacted_iters6 if "compaction" in kw else ragged_iters6
+            plan_of = (lambda it6=it6: dict(plan11(rowwise=it6),
+                                            cfg_update_rowwise_offset=0,
+                                            cfg_update_mixed_offset=0))
+        out = drain12(name, lambda: eng.run(key12), plan_of)
+        d12[name] = torch.cat([out[r] for r in rids])
+        eng12[name] = eng
+        check(tuple(d12[name].shape) == (n_rows, 16, 16, 3)
+              and bool(torch.isfinite(d12[name]).all()),
+              f"12.1 {name}: D_syn {tuple(d12[name].shape)}")
+        stats = (per_host_sums(eng, name) if "hosts" in kw else
+                 {k: eng.stats[k] for k in ("waves", "padded",
+                                            "row_iters_scheduled")})
+        report12[name] = dict(wall_s=walls12[name],
+                              images_per_s=n_rows / walls12[name],
+                              stats=stats)
+        say(f"[12.1] {name}: {n_rows / walls12[name]:.1f} images/s, wall "
+            f"{walls12[name]:.3f} s, {json.dumps(stats)} ({smi})")
+    check(torch.equal(d12["h2_ragged"], d12["h2_ragged_workers_off"]),
+          "12.1: H = 2 on the hosts' streams differs from workers=False")
+    # a compacted window runs other batches than the unplaced wave's (its
+    # own activation plan), so it is held bit for bit against its rows
+    # sampled again alone by the unplaced compacted sampler with that plan
+    replays12 = {}
+    for name, (wins, rids) in wins12.items():
+        again = replay12(wins, rids, [k_samples] * len(rids))
+        replays12[name] = bool(torch.equal(again, d12[name]))
+        check(replays12[name], f"12.1 {name}: differs from its windows "
+              f"replayed through sample_cfg_compacted, max_abs_err "
+              f"{float((again - d12[name]).abs().max()):.3g}")
+    say(f"[12.1] compacted placed drains vs their windows replayed alone "
+        f"through sample_cfg_compacted with each window's plan: "
+        f"bit-identical {replays12}")
+    # H = 1 packs the unplaced drain's geometry (15 waves of 120, one
+    # window at offset 0): the same kernels at the same shapes
+    waves12 = eng12["unplaced_ragged"].stats["waves"]
+    same_geom = (eng12["h1_ragged"].stats["waves"] == waves12
+                 and eng12["h1_ragged"].stats["padded"]
+                 == eng12["unplaced_ragged"].stats["padded"] == 0)
+    check(same_geom, "12.1: H = 1 does not pack the unplaced waves")
+    check(torch.equal(d12["h1_ragged"], d12["unplaced_ragged"]),
+          "12.1: H = 1 differs from the unplaced drain of the same "
+          "geometry")
+    gates12 = {}
+    moves = {m: movement12(m, unplaced12(range(60), **kw), d12["unplaced_"
+                                                               + m])
+             for m, kw in (("ragged", {}),
+                           ("compacted", dict(compaction="full")))}
+    for name in ("h2_ragged", "h2_compacted", "h4_ragged", "h4_compacted"):
+        mode = name.split("_")[1]
+        gates12[name] = gated12(f"12.1 {name} vs the unplaced drain",
+                                d12[name], d12["unplaced_" + mode],
+                                moves[mode])
+    # the same packing change without placement, on the trained DM: the
+    # unplaced compacted drain against the unplaced ragged one (phase 6
+    # gates it on phase 3's random DiT), printed
+    gates12["unplaced_compacted_vs_ragged"] = gated12(
+        "12.1 unplaced compacted vs unplaced ragged",
+        d12["unplaced_compacted"], d12["unplaced_ragged"], moves["ragged"])
+    say(f"[12.1] H = 2 on the hosts' streams vs workers=False: "
+        f"bit-identical; H = 1 vs unplaced (the same {waves12} waves, one "
+        f"window each): bit-identical")
+    report12["gates"] = gates12
+    report12["window_replays_bit_identical"] = replays12
+
+    # 12.2 per-host stats (checked above for every placed drain) and a mixed
+    # placed drain: 10 uploads and two classifier-guided requests (phase
+    # 7's first classifier, 25 steps) over two hosts, 3 waves of 2 x 60,
+    # the last mixed: both update kernels launch at row_offset 60
+    def tenants12(eng):
+        futs = submit12(eng, range(10))
+        futs += [eng.submit_classifier_guided(clfs[0], c, k_samples,
+                                              guidance=1.0, num_steps=25)
+                 for c in (1, 2)]
+        return futs
+
+    mixed12 = {}
+    for name, kw in (("mixed_unplaced", {}), ("mixed_h2", dict(hosts=2))):
+        eng = engine12(**kw)
+        rids = tenants12(eng)
+        plan_of = None
+        if kw:
+            waves = recorded(eng)
+            plan_of = (lambda w=waves: plan12(w, False))
+        out = drain12(name, lambda: eng.run(key12), plan_of)
+        mixed12[name] = torch.cat([out[r] for r in rids])
+        if kw:
+            report12[name] = dict(stats=per_host_sums(eng, name),
+                                  per_host=eng.stats["per_host"])
+    got = launches12["mixed_h2"]
+    check(got["cfg_update_rowwise_offset"] > 0
+          and got["cfg_update_mixed_offset"] > 0,
+          f"12.2: no launch at a non-zero row_offset: {got}")
+    def mixed_run(m):
+        eng = SynthesisEngine(m, exp.sched, image_size=16, wave_size=120,
+                              ragged=True)
+        rids = tenants12(eng)
+        out = eng.run(key12)
+        return torch.cat([out[r] for r in rids])
+
+    gate_mixed = gated12("12.2 mixed H = 2 vs unplaced", mixed12["mixed_h2"],
+                         mixed12["mixed_unplaced"],
+                         movement12("mixed", mixed_run,
+                                    mixed12["mixed_unplaced"]))
+    err_mixed = gate_mixed["max_abs_err"]
+    say(f"[12.2] per-host rows, padding and row-iterations sum to the "
+        f"global counters in every placed drain; mixed H = 2 drain: "
+        f"launches {json.dumps(got)} (plan from its placements), "
+        f"rowwise at a non-zero row_offset {got['cfg_update_rowwise_offset']}"
+        f", mixed {got['cfg_update_mixed_offset']}; D_syn vs unplaced "
+        f"max_abs_err {err_mixed:.3g} (gated row by row); per host "
+        f"{json.dumps(report12['mixed_h2']['per_host'])}")
+
+    # 12.3 failover: a window fault kills host 0 at wave 2 of an H = 2
+    # drain, twice (bit-identical replays); then every host killed at wave
+    # 0 of a 10-upload drain raises AllHostsLostError with the queue
+    # intact, and a fresh topology serves it
+    fail12 = []
+    for i in range(2):
+        eng = engine12(hosts=2, faults=FaultInjector([("window", 0, 2)]))
+        rids = submit12(eng, range(60))
+        waves = recorded(eng)
+        out = drain12(f"failover_{i}", lambda: eng.run(key12),
+                      lambda w=waves: plan12(w, False))
+        check(eng.topology.failed == {0} and len(out) == 60,
+              f"12.3: failed {eng.topology.failed}, {len(out)} served")
+        fail12.append((torch.cat([out[r] for r in rids]), eng))
+    (x_f, eng_f), (x_f2, _) = fail12
+    check(torch.equal(x_f, x_f2), "12.3: failover replays differ")
+    err_f = gated12("12.3 failover vs the healthy H = 2 drain", x_f,
+                    d12["h2_ragged"], moves["ragged"])["max_abs_err"]
+    requeued = eng_f.metrics.get("failover.requeued_rows")
+    eng = engine12(hosts=2, faults=FaultInjector([("window", 0, 0),
+                                                  ("window", 1, 0)]))
+    rids = submit12(eng, range(10))
+    lost = False
+    try:
+        eng.run(key12)
+    except AllHostsLostError:
+        lost = True
+    check(lost and [r.rid for r in eng._queue] == rids,
+          f"12.3: all hosts lost raised {lost}, queue "
+          f"{[r.rid for r in eng._queue]}")
+    eng.topology = HostTopology.simulated(2, granule=eng.granule)  # fresh
+    out = drain12("all_lost_redrain", lambda: eng.run(key12))
+    check(len(out) == 10, f"12.3 re-drain served {len(out)} of 10")
+    err_lost = gated12(
+        "12.3 re-drain after all hosts lost vs the healthy drain's rows",
+        torch.cat([out[r] for r in rids]), d12["h2_ragged"][:10 * k_samples],
+        lambda: moves["ragged"]()[:10 * k_samples])["max_abs_err"]
+    report12["failover"] = dict(requeued_rows=requeued,
+                                failed=sorted(eng_f.topology.failed),
+                                max_abs_err_vs_healthy=err_f,
+                                redrain_max_abs_err=err_lost)
+    say(f"[12.3] host 0 lost at wave 2 of H = 2: failed {{0}}, all 60 "
+        f"served, failover.requeued_rows {requeued}, two replays "
+        f"bit-identical, vs healthy max_abs_err {err_f:.3g} (gated row by "
+        f"row); every host lost: AllHostsLostError, queue "
+        f"intact, a fresh topology served all 10 (max_abs_err "
+        f"{err_lost:.3g})")
+
+    # 12.4 phase 11.4's stream split across two hosts' host_polls: 10
+    # uploads before the drain, then at each wave boundary host 0's hook
+    # submits the next 5 and host 1's the 5 after (rids in upload order)
+    svc = SynthesisService(engine12(), hosts=2)
+    futs12 = {}
+    for i, f in zip(range(10), submit12(svc, range(10))):
+        futs12[i] = f
+    pending12 = list(range(10, 60))
+
+    def hook12():
+        for i, f in zip(pending12[:5], submit12(svc, pending12[:5])):
+            futs12[i] = f
+        del pending12[:5]
+        return bool(pending12)
+
+    drain12("h2_streaming", lambda: svc.drain(
+        key12, host_polls={0: hook12, 1: hook12}))
+    x_s = torch.cat([futs12[i].result() for i in range(60)])
+    check(svc.stats["streamed"] == 50,
+          f"12.4 streamed {svc.stats['streamed']} of 50")
+    err_s = gated12("12.4 host_polls stream vs the H = 2 snapshot", x_s,
+                    d12["h2_ragged"], moves["ragged"])["max_abs_err"]
+    report12["host_polls"] = dict(max_abs_err=err_s,
+                                  bit_identical=bool(torch.equal(
+                                      x_s, d12["h2_ragged"])),
+                                  stats=per_host_sums(svc.engine, "stream"))
+    say(f"[12.4] 50 uploads streamed through two hosts' host_polls vs the "
+        f"H = 2 snapshot: max_abs_err {err_s:.3g} (gated row by row), "
+        f"bit-identical {report12['host_polls']['bit_identical']}, "
+        f"{n_rows / walls12['h2_streaming']:.1f} images/s")
+
+    # 12.5 a topology from a 1 x 1 x 1 serving mesh on the card: its
+    # windows on the submesh's device, D_syn the simulated H = 1 drain's
+    mesh12 = make_serving_mesh(hosts=1, data=1, model=1)
+    eng = engine12(mesh=mesh12, hosts=1)
+    sh12 = eng._window_shardings(0)
+    check(eng.topology.mesh is mesh12
+          and sh12["y"].devices == (torch.device("cuda", 0),),
+          f"12.5 window devices {sh12['y'].devices}")
+    rids = submit12(eng, range(60))
+    out = drain12("h1_mesh", lambda: eng.run(key12))
+    x_m = torch.cat([out[r] for r in rids])
+    check(x_m.device.type == "cuda" and torch.equal(x_m, d12["h1_ragged"]),
+          "12.5: the mesh topology's D_syn differs from simulated H = 1")
+    say(f"[12.5] make_serving_mesh(hosts=1, data=1, model=1): windows on "
+        f"{sh12['y'].devices}, D_syn bit-identical to the simulated H = 1 "
+        f"drain")
+
+    # 12.6 Experiment(hosts=2) on phase 10's checkpoint (copied to a cache
+    # directory with no D_syn store): OSCAR once.  Placed waves draw every
+    # row from its own key, phase 10's grouped waves from the wave's, so
+    # its D_syn is gated against the same requests drained unplaced and
+    # ragged from the same key, not against phase 10's
+    cache12 = BUILD_DIR / "dm_cache_smoke_hosts"
+    shutil.rmtree(cache12, ignore_errors=True)
+    cache12.mkdir(parents=True)
+    for f in cache10.iterdir():
+        if f.name.startswith(exp.tag) and not f.is_dir():
+            shutil.copy2(f, cache12 / f.name)
+    exp12 = exp_mod.Experiment(ocfg10, verbose=False, cache_dir=cache12,
+                               device=dev, hosts=2)
+    check(exp12.dm_losses == [] and exp12.engine.topology.num_hosts == 2,
+          "12.6: Experiment(hosts=2) did not load the checkpoint")
+    kept12 = {}
+
+    def kept_oscar12(*args, **kwargs):
+        res = oscar_mod.run_oscar(*args, **kwargs)
+        kept12["x"] = res.syn_images
+        return res
+
+    exp_mod.run_oscar = kept_oscar12
+    waves = recorded(exp12.engine)
+    try:
+        res12 = drain12("experiment_hosts2_oscar",
+                        lambda: exp12.run("oscar", rounds=20),
+                        lambda: plan12(waves, False))
+    finally:
+        exp_mod.run_oscar = oscar_mod.run_oscar
+    ksyn12 = prng.split(prng.fold_in(exp12.key, zlib.crc32(b"oscar")), 3)[1]
+    enc12, present12 = client_encodings(exp12.fm, exp12.data, device=dev)
+    def oscar_run(m):
+        return synthesize(ksyn12, m, exp12.sched, enc12, present12,
+                          k_samples, image_size=16,
+                          engine=SynthesisEngine(m, exp12.sched,
+                                                 image_size=16,
+                                                 ragged=True))[0]
+
+    x_u = oscar_run(exp12.dm)
+    err_e = gated12("12.6 Experiment(hosts=2) OSCAR D_syn vs the unplaced "
+                    "ragged drain of its key", kept12["x"], x_u,
+                    movement12("oscar", oscar_run, x_u))["max_abs_err"]
+    vs10 = max_err(kept12["x"], dsyn10["oscar"])
+    report12["experiment_hosts2"] = dict(
+        avg_accuracy=res12["avg"],
+        table1_avg_accuracy=table1["oscar"]["avg_accuracy"],
+        max_abs_err_vs_unplaced_ragged=err_e,
+        max_abs_err_vs_phase10_grouped=vs10,
+        per_host=exp12.engine.stats["per_host"])
+    say(f"[12.6] Experiment(hosts=2) OSCAR: avg accuracy {res12['avg']:.4f} "
+        f"(phase 10's {table1['oscar']['avg_accuracy']:.4f}); D_syn vs the "
+        f"unplaced ragged drain of the same key max_abs_err {err_e:.3g} "
+        f"(gated row by row); vs phase 10's grouped D_syn {vs10:.3g} "
+        f"(another sample: grouped waves draw from wave keys)")
+    del exp12
+
+    # 12.7 one H = 2 drain traced (20 uploads, 5 waves): two host tracks,
+    # and how much of the hosts' device.scan spans overlap (the drain
+    # thread fences the windows one after another, so only a span's edges
+    # can)
+    tracer12 = Tracer()
+    eng = engine12(hosts=2, tracer=tracer12)
+    submit12(eng, range(20))
+    drain12("h2_traced", lambda: eng.run(key12))
+    trace12 = write_trace(BUILD_DIR / "placed_trace.json", tracer12,
+                          registry=eng.metrics, hosts=2)
+    n12 = validate_chrome_trace(trace12, require_hosts=2)
+    scans = {h: [(sp.start, sp.end) for sp in tracer12.spans
+                 if sp.name == "device.scan" and sp.attrs.get("host") == h]
+             for h in (0, 1)}
+    both = sum(max(0.0, min(a1, b1) - max(a0, b0))
+               for a0, a1 in scans[0] for b0, b1 in scans[1])
+    spans0 = sum(b - a for a, b in scans[0]) or 1.0
+    report12["trace"] = dict(events=n12, scan_spans={h: len(v) for h, v in
+                                                     scans.items()},
+                             scan_overlap_s=both,
+                             scan_overlap_share_of_host0=both / spans0)
+    say(f"[12.7] build/placed_trace.json: {n12} events valid with 2 host "
+        f"tracks; the hosts' device.scan spans overlap {both:.4f} s "
+        f"({100 * both / spans0:.1f}% of host 0's) ({smi})")
+
+    for name, got in launches12.items():
+        for kname in ("adaln_norm", "flash_attention_short",
+                      "cfg_update_rowwise_keyed", "cfg_update_mixed_keyed"):
+            kernels[kname].setdefault("launches_phase12", {})[name] = \
+                got[kname]
+    t12 = time.perf_counter() - t12
+    say(json.dumps({"placed": dict(report12, launches=launches12,
+                                   walls_s=walls12, phase_s=t12,
+                                   card=smi)}))
+    say(f"[12] placed multi-host drains: {t12:.1f} s ({smi})")
+    say(f"[12] the whole script: {time.perf_counter() - t_start:.1f} s")
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(smi)

@@ -12,8 +12,8 @@ generates via the (classifier-free) DM.  Upload ≈ 6 × C × 512.
 
 Both run on the DiT's device and draw D_syn through a
 ``SynthesisService`` (``_service``), submitting futures and gathering
-them with the method's own key.  The reference's ``topology`` and
-``hosts`` come with the topology slice.
+them with the method's own key; ``topology``/``hosts`` place its drains
+over hosts.
 """
 from __future__ import annotations
 
@@ -36,23 +36,23 @@ from repro_torch.serve.synthesis import SynthesisEngine
 
 def _service(service, engine, ocfg: OscarConfig, model: DiT,
              sched: NoiseSchedule, *, ragged: bool = False,
-             compaction: int | str | None = None,
-             tracer=None) -> SynthesisService:
+             compaction: int | str | None = None, topology=None,
+             hosts: int | None = None, tracer=None) -> SynthesisService:
     """The service a baseline's D_syn goes through, with ``oscar.
     synthesize``'s precedence: a caller's ``engine`` beats a shared
-    ``service``, else a new engine.  ``ragged``, ``compaction`` and
-    ``tracer`` switch the chosen engine on, never off."""
+    ``service``, else a new engine.  ``ragged``, ``compaction``,
+    ``topology``/``hosts`` and ``tracer`` switch the chosen engine on,
+    never off."""
+    knobs = dict(ragged=ragged, compaction=compaction, topology=topology,
+                 hosts=hosts, tracer=tracer)
     if engine is not None:
-        return SynthesisService(engine.opt_in(
-            ragged=ragged, compaction=compaction, tracer=tracer))
+        return SynthesisService(engine.opt_in(**knobs))
     if service is not None:
-        service.engine.opt_in(ragged=ragged, compaction=compaction,
-                              tracer=tracer)
+        service.engine.opt_in(**knobs)
         return service
     return SynthesisService(SynthesisEngine(
         model, sched, image_size=ocfg.data.image_size,
-        channels=ocfg.data.channels, ragged=ragged, compaction=compaction,
-        tracer=tracer))
+        channels=ocfg.data.channels, **knobs))
 
 
 def run_fedcado(key, ocfg: OscarConfig, data, model: DiT,
@@ -61,7 +61,7 @@ def run_fedcado(key, ocfg: OscarConfig, data, model: DiT,
                 engine: SynthesisEngine | None = None,
                 service: SynthesisService | None = None,
                 ragged: bool = False, compaction: int | str | None = None,
-                tracer=None):
+                topology=None, hosts: int | None = None, tracer=None):
     """Returns (global model, metrics, upload per client, (D_syn images,
     labels)).  Client r's classifier is initialised and trained from
     ``fold_in(kloop, r)``; each of its categories becomes one
@@ -87,7 +87,8 @@ def run_fedcado(key, ocfg: OscarConfig, data, model: DiT,
     # requests share its classifier, so they share grouped waves; with
     # ``ragged`` they ride merged waves beside classifier-free traffic
     svc = _service(service, engine, ocfg, model, sched, ragged=ragged,
-                   compaction=compaction, tracer=tracer)
+                   compaction=compaction, topology=topology, hosts=hosts,
+                   tracer=tracer)
     fut_cat = []
     for r in range(R):
         logprob = classifier_logprob(client_models[r])
@@ -114,7 +115,7 @@ def run_feddisc(key, ocfg: OscarConfig, data, model: DiT,
                 n_prototypes: int = 4, engine: SynthesisEngine | None = None,
                 service: SynthesisService | None = None,
                 ragged: bool = False, compaction: int | str | None = None,
-                tracer=None):
+                topology=None, hosts: int | None = None, tracer=None):
     """Returns (global model, metrics, upload per client, (D_syn images,
     labels)).  Each present (client, category) uploads its statistics;
     the server resamples ``k_samples`` distinct encodings from them
@@ -149,7 +150,8 @@ def run_feddisc(key, ocfg: OscarConfig, data, model: DiT,
     # --- server side: resample encodings, generate with the CF-DM; each
     # (client, category)'s k_samples distinct rows are ONE 2-D request
     svc = _service(service, engine, ocfg, model, sched, ragged=ragged,
-                   compaction=compaction, tracer=tracer)
+                   compaction=compaction, topology=topology, hosts=hosts,
+                   tracer=tracer)
     rng = np.random.default_rng(0)
     futs, labels = [], []
     for r in range(R):

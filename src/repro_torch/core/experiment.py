@@ -35,7 +35,7 @@ from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.encoders.foundation import FrozenFM
 from repro_torch.serve.service import SynthesisService
 from repro_torch.serve.store import SynthesisStore
-from repro_torch.serve.synthesis import SynthesisEngine, refuse_placement
+from repro_torch.serve.synthesis import SynthesisEngine
 from repro_torch.utils import resolve_device
 
 ALL_METHODS = ("local", "fedavg", "fedprox", "feddyn", "fedcado", "feddisc",
@@ -68,15 +68,17 @@ class Experiment:
     f"{tag}_dsyn_s{seed}"`` (the DM's tag and the seed: another DM or seed
     gets another store), so a cold process against a warm store draws no
     sample.  ``tracer`` (an ``obs/trace.py::Tracer``) records the
-    service's drains; tracing never changes D_syn.  ``hosts=`` (placed
-    drains) raises ``NotImplementedError``: it comes with the port's
-    topology slice."""
+    service's drains; tracing never changes D_syn.  ``hosts=H`` places
+    every DM-assisted method's drains over H simulated hosts
+    (``serve/topology.py``): the rows are keyed by identity, so D_syn
+    does not depend on the host count beyond the denoiser's rounding at
+    another batch size (on the card cuBLAS promises no row the same bits
+    in a batch of another size)."""
 
     def __init__(self, ocfg: OscarConfig | None = None, *,
                  verbose: bool = True, pretrain_steps: int | None = None,
                  cache_dir: str | Path | None = None, device=None,
                  hosts: int | None = None, tracer=None):
-        refuse_placement(hosts=hosts)
         self.ocfg = ocfg or OscarConfig()
         self.verbose = verbose
         self.device = resolve_device(device)
@@ -136,7 +138,7 @@ class Experiment:
         # one service for every DM-assisted method; the store's root folds
         # in the seed, since D_syn depends on the drain keys drawn from it
         self.engine = SynthesisEngine(self.dm, self.sched, image_size=size,
-                                      channels=ch, tracer=tracer)
+                                      channels=ch, hosts=hosts, tracer=tracer)
         self.service = SynthesisService(
             self.engine, key=prng.fold_in(self.key, 0xD5),
             store=SynthesisStore(

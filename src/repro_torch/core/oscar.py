@@ -65,7 +65,8 @@ def synthesize(key, model: DiT, sched: NoiseSchedule, encodings, present,
                wave_size: int = 128, ragged: bool = False,
                compaction: int | str | None = None,
                engine: SynthesisEngine | None = None,
-               service: SynthesisService | None = None, tracer=None):
+               service: SynthesisService | None = None, topology=None,
+               hosts: int | None = None, tracer=None):
     """Step (3): server-side D_syn generation on the model's device, from
     the threefry ``key``.
 
@@ -76,8 +77,9 @@ def synthesize(key, model: DiT, sched: NoiseSchedule, encodings, present,
     (callers pass an engine to keep its cache apart), a shared service
     serves repeats from its row cache and store, else a new engine of
     near-uniform waves of at most ``wave_size`` rows.  ``ragged``,
-    ``compaction`` and ``tracer`` switch the chosen engine on, never off
-    (``SynthesisEngine.opt_in``).  Returns
+    ``compaction``, ``topology``/``hosts`` (placed drains) and ``tracer``
+    switch the chosen engine on, never off (``SynthesisEngine.opt_in``).
+    Returns
     (images (N, H, W, C) float32, labels (N,) int64), both on the model's
     device; an all-absent ``present`` gives empty tensors."""
     device = model.null_y.device
@@ -90,9 +92,10 @@ def synthesize(key, model: DiT, sched: NoiseSchedule, encodings, present,
         eng = SynthesisEngine(model, sched, image_size=image_size,
                               channels=channels, wave_size=wave_size,
                               ragged=ragged, compaction=compaction,
-                              tracer=tracer)
+                              topology=topology, hosts=hosts, tracer=tracer)
     else:
-        eng.opt_in(ragged=ragged, compaction=compaction, tracer=tracer)
+        eng.opt_in(ragged=ragged, compaction=compaction, topology=topology,
+                   hosts=hosts, tracer=tracer)
     if svc is None:
         svc = SynthesisService(eng)
     R, C, _ = encodings.shape
@@ -120,18 +123,18 @@ def run_oscar(key, ocfg: OscarConfig, data, model: DiT, sched: NoiseSchedule,
               guidance: float | None = None,
               engine: SynthesisEngine | None = None,
               service: SynthesisService | None = None, ragged: bool = False,
-              compaction: int | str | None = None,
-              tracer=None) -> OscarResult:
+              compaction: int | str | None = None, topology=None,
+              hosts: int | None = None, tracer=None) -> OscarResult:
     """The whole pipeline from the threefry ``key``, on the DiT's device:
     ``kenc, ksyn, kclf = split(key, 3)``; client encodings, D_syn from
     ``ksyn``, the global classifier initialised and trained from ``kclf``
     (``fit_global``), and its per-domain test accuracy.  With no D_syn
     (nothing present) the broadcast model is the untrained init.  D_syn
-    goes through ``synthesize``'s engine or service (see there).
+    goes through ``synthesize``'s engine or service (see there), placed
+    over ``topology``/``hosts`` when given.
 
-    The reference's ``use_pallas`` is not ported (CUDA tensors always take
-    the kernels), nor are ``topology`` and ``hosts`` (placed drains come
-    with the topology slice)."""
+    The reference's ``use_pallas`` is not ported: CUDA tensors always take
+    the kernels."""
     classifier = classifier or ocfg.classifier
     k_samples = samples_per_category or ocfg.samples_per_category
     # the first key is the reference's kenc, which nothing draws from
@@ -144,7 +147,8 @@ def run_oscar(key, ocfg: OscarConfig, data, model: DiT, sched: NoiseSchedule,
                               image_size=ocfg.data.image_size,
                               channels=ocfg.data.channels, guidance=guidance,
                               engine=engine, service=service, ragged=ragged,
-                              compaction=compaction, tracer=tracer)
+                              compaction=compaction, topology=topology,
+                              hosts=hosts, tracer=tracer)
     if len(syn_x) == 0:
         # degenerate round: no (client, category) present anywhere, so no
         # D_syn, and the broadcast model is the untrained init

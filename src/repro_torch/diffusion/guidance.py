@@ -398,7 +398,7 @@ def _clf_correct(eps_c, eps_u, x, coeffs, labels, groups):
 
 def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
               ab_prev, active, *, row_offset: int, eta: float,
-              mixed: Mixed | None = None):
+              mixed: Mixed | None = None, coeffs=None):
     """The per-row reverse scan, one iteration per table column.
 
     ``x`` holds wave rows ``[row_offset, row_offset + B)``; ``y2``,
@@ -409,7 +409,10 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     ``fold_in(row_keys[b], max(j, 0) + 1)``, zero at t = 0: on the card
     the update kernel draws it from the (S, B) key table, uploaded once
     (on the CPU it is drawn before the loop).  The update coefficients
-    are formed on the host and uploaded once.  With
+    are formed on the host and uploaded once, or ``coeffs`` is that table
+    already on x's device, (S, 8, Bs) (``cfg_ops.rowwise_coeffs`` of these
+    vectors) or (S, 9, Bs) with ``mixed`` (``cfg_ops.mixed_coeffs``): the
+    wave-resident table a placed wave's windows share.  With
     ``mixed`` the update is ``cfg_update_mixed`` and each iteration first
     corrects the active classifier-guided rows.  Returns x unclipped."""
     B, H, W, C = x.shape
@@ -425,17 +428,17 @@ def _row_scan(model: DiT, x, y2, row_keys, guidance, ts, jloc, ab_t,
     else:
         noise = prng.normal(nk, (H, W, C), dev) * live[..., None, None, None]
     guidance = np.asarray(guidance, np.float32)
-    if mixed is None:
-        table = cfg_ops.rowwise_coeffs(guidance, ab_t.T, ab_prev.T, active.T,
-                                       eta)
-    else:
-        table = cfg_ops.mixed_coeffs(mixed.mode, guidance, ab_t.T, ab_prev.T,
-                                     active.T, eta)
+    if coeffs is None:
+        coeffs = torch.as_tensor(
+            cfg_ops.rowwise_coeffs(guidance, ab_t.T, ab_prev.T, active.T, eta)
+            if mixed is None else
+            cfg_ops.mixed_coeffs(mixed.mode, guidance, ab_t.T, ab_prev.T,
+                                 active.T, eta), device=dev)
+    if mixed is not None:
         w = slice(row_offset, row_offset + B)
         is_clf = mixed.mode[w] >= 0.5
         labels = torch.as_tensor(mixed.labels, device=dev)
         row_sets: dict[bytes, torch.Tensor] = {}   # one upload per row set
-    coeffs = torch.as_tensor(table, device=dev)
     t_all = torch.as_tensor(ts_steps, dtype=torch.int64, device=dev)
     for i in range(S):
         t2 = torch.cat([t_all[i], t_all[i]])
@@ -487,12 +490,15 @@ def reverse_sample_ragged(model: DiT, y, row_keys, guidance, ts, ab_t,
 def reverse_sample_window(model: DiT, x, y, row_keys, guidance, ts, jloc,
                           ab_t, ab_prev, active, *, row_offset: int,
                           image_size: int, channels: int = 3,
-                          eta: float = 1.0, mixed: Mixed | None = None):
+                          eta: float = 1.0, mixed: Mixed | None = None,
+                          coeffs=None):
     """One segment of one window of a wave: advance the carried rows ``x``
     and admit the rest.  ``y``, ``row_keys`` and ``ts``/``jloc`` belong to
     the window; ``guidance``, ``ab_t``, ``ab_prev`` and ``active`` span the
-    whole wave and are read at slot ``row_offset + b``.  Admitted rows draw
-    x_T from ``fold_in(row_keys[b], 0)``, as every other schedule draws it.
+    whole wave and are read at slot ``row_offset + b``, as is ``coeffs``,
+    the segment's columns of the wave's device table (``_row_scan``) when
+    the caller holds one.  Admitted rows draw x_T from
+    ``fold_in(row_keys[b], 0)``, as every other schedule draws it.
     Returns x unclipped."""
     n_prev = x.shape[0]
     x_new = _row_x_T(np.asarray(row_keys)[n_prev:],
@@ -500,7 +506,7 @@ def reverse_sample_window(model: DiT, x, y, row_keys, guidance, ts, jloc,
     x = torch.cat([x.to(y.device), x_new], dim=0)
     return _row_scan(model, x, _with_null(model, y), row_keys, guidance,
                      ts, jloc, ab_t, ab_prev, active, row_offset=row_offset,
-                     eta=eta, mixed=mixed)
+                     eta=eta, mixed=mixed, coeffs=coeffs)
 
 
 # ---------------------------------------------------------------------------

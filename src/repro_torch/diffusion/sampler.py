@@ -117,6 +117,35 @@ def sample_cfg_window(model: DiT, sched: NoiseSchedule, y, row_keys,
                    channels=channels, eta=eta)
 
 
+@torch.inference_mode()
+def _window_segment(model: DiT, x, y, row_keys, guidance, ts, jloc, ab_t,
+                    ab_prev, active, *, row_offset: int, image_size: int,
+                    channels: int = 3, eta: float = 1.0, coeffs=None):
+    """One segment of one host window of a placed classifier-free wave, the
+    reference's ``_window_segment``: advance the carried rows ``x`` and
+    admit the rest of ``y`` (window rows on their device), reading the
+    wave-resident tables at ``row_offset`` (``reverse_sample_window``).
+    Returns x unclipped."""
+    return reverse_sample_window(
+        model, x, _rows(model, y), row_keys, guidance, ts, jloc, ab_t,
+        ab_prev, active, row_offset=row_offset, image_size=image_size,
+        channels=channels, eta=eta, coeffs=coeffs)
+
+
+@torch.no_grad()
+def _window_segment_mixed(model: DiT, x, y, row_keys, guidance, ts, jloc,
+                          ab_t, ab_prev, active, *, mode, clf_ids, labels,
+                          clf_fns, row_offset: int, image_size: int,
+                          channels: int = 3, eta: float = 1.0, coeffs=None):
+    """``_window_segment`` of a mixed wave: ``mode`` spans the wave,
+    ``clf_ids`` and ``labels`` belong to the segment's rows."""
+    return reverse_sample_window(
+        model, x, _rows(model, y), row_keys, guidance, ts, jloc, ab_t,
+        ab_prev, active, row_offset=row_offset, image_size=image_size,
+        channels=channels, eta=eta, coeffs=coeffs,
+        mixed=Mixed.of(mode, clf_ids, labels, clf_fns))
+
+
 def _window(model, sched, y, row_keys, guidance, num_steps, mixed, *,
             row_offset, window_rows, max_steps, image_size, channels, eta):
     steps, S = _ragged_args(num_steps, max_steps)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.adaln_norm import kernel as K
 from repro_torch.kernels.adaln_norm import ref
-from repro_torch.kernels.build import check_cuda_inputs
+from repro_torch.kernels.build import check_cuda_inputs, count_launch
 
 
 def adaln_norm(x, scale, shift, eps: float = 1e-6):
@@ -28,7 +28,7 @@ def adaln_norm(x, scale, shift, eps: float = 1e-6):
     if max(sx[0] * B, B * N * d) >= 2 ** 31:
         raise ValueError("adaln_norm: offsets beyond 2**31 elements")
     out = K.adaln_norm_3d(x, scale, shift, eps)
-    adaln_norm.launches += 1
+    count_launch(adaln_norm, "launches")
     return out
 
 

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -24,6 +25,23 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 EMPTY_SOURCE = Path(__file__).with_name("csrc") / "empty.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+# launch counters are plain int attributes of the wrappers, and
+# ``fn.launches += 1`` is a read, an add and a write that two threads can
+# interleave.  The engine launches from one thread, but a caller may drive
+# kernels from several (two engines drained at once, the card tests), and
+# a lost count would make ``chip_smoke.py``'s launch plans pass or fail by
+# chance
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, *counters: str) -> None:
+    """Add one to each named counter attribute of the wrapper ``fn`` (its
+    ``launches`` and route counters), under one lock."""
+    with _COUNT_LOCK:
+        for c in counters:
+            setattr(fn, c, getattr(fn, c) + 1)
 
 
 def _library_path(src: Path) -> Path:

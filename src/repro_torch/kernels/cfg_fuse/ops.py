@@ -5,8 +5,11 @@ for CUDA tensors, the plain versions (``ref.py``) for CPU tensors.
 step's noise z from a tensor, or (``noise`` None) draw it from threefry
 keys: on the card inside the kernel, on the CPU as their plain versions,
 ``prng.normal`` of the same keys and then the plain update.  Each counts
-its launches in ``.launches`` and the keyed ones also in
-``.launches_keyed``."""
+its launches in ``.launches``, the keyed ones also in ``.launches_keyed``,
+and the per-row wrappers' launches at a non-zero ``row_offset`` (a host
+window past the first of a placed wave) also in ``.launches_offset``.
+The counters are safe to read while threads launch
+(``build.count_launch``)."""
 from __future__ import annotations
 
 import functools
@@ -14,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import check_cuda_inputs
+from repro_torch.kernels.build import check_cuda_inputs, count_launch
 from repro_torch.kernels.cfg_fuse import kernel as K
 from repro_torch.kernels.cfg_fuse import ref
 
@@ -127,10 +130,10 @@ def cfg_update(x, eps_c, eps_u, s: float, ab_t, ab_prev, noise,
     if noise is None:
         out = K.cfg_update_flat(x, eps_c, eps_u, None, scalars,
                                 key=noise_key, live=live)
-        cfg_update.launches_keyed += 1
+        count_launch(cfg_update, "launches", "launches_keyed")
     else:
         out = K.cfg_update_flat(x, eps_c, eps_u, noise, scalars)
-    cfg_update.launches += 1
+        count_launch(cfg_update, "launches")
     return out
 
 
@@ -178,9 +181,9 @@ def _launch_rows(fn, flat, x, eps_c, eps_u, noise, coeffs, make_table,
         return torch.empty_like(x)
     out = flat(x, eps_c, eps_u, noise, coeffs, row_offset, keys=noise_keys,
                live=live)
-    fn.launches += 1
-    if noise is None:
-        fn.launches_keyed += 1
+    count_launch(fn, "launches", *(("launches_keyed",) if noise is None
+                                   else ()),
+                 *(("launches_offset",) if row_offset else ()))
     return out
 
 
@@ -218,6 +221,7 @@ def cfg_update_rowwise(x, eps_c, eps_u, s, ab_t, ab_prev, noise, active,
 
 cfg_update_rowwise.launches = 0
 cfg_update_rowwise.launches_keyed = 0
+cfg_update_rowwise.launches_offset = 0
 
 
 def cfg_update_mixed(x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,
@@ -247,3 +251,4 @@ def cfg_update_mixed(x, eps_c, eps_u, mode, s, ab_t, ab_prev, noise, active,
 
 cfg_update_mixed.launches = 0
 cfg_update_mixed.launches_keyed = 0
+cfg_update_mixed.launches_offset = 0

@@ -7,10 +7,10 @@ DiT's attention), the tensor-core kernel (``kernel.tensor_core_route``:
 bf16; gemma2's prefill), else the CUDA-core kernel.
 ``flash_attention.launches`` counts every launch, and
 ``launches_short``, ``launches_tensor_core`` and ``launches_cuda_core``
-each route's."""
+each route's (safe to read while threads launch: ``build.count_launch``)."""
 from __future__ import annotations
 
-from repro_torch.kernels.build import check_cuda_inputs
+from repro_torch.kernels.build import check_cuda_inputs, count_launch
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
 
@@ -47,16 +47,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if K.short_seq_route(q, k, v):
         out = K.flash_attention_short_bshd(q, k, v, causal=causal,
                                            window=window, softcap=softcap)
-        flash_attention.launches_short += 1
+        route = "launches_short"
     elif K.tensor_core_route(q, k, v):
         out = K.flash_attention_tc_bshd(q, k, v, causal=causal,
                                         window=window, softcap=softcap)
-        flash_attention.launches_tensor_core += 1
+        route = "launches_tensor_core"
     else:
         out = K.flash_attention_bshd(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
-        flash_attention.launches_cuda_core += 1
-    flash_attention.launches += 1
+        route = "launches_cuda_core"
+    count_launch(flash_attention, "launches", route)
     return out
 
 

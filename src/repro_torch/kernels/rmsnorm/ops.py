@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import check_cuda_inputs
+from repro_torch.kernels.build import check_cuda_inputs, count_launch
 from repro_torch.kernels.rmsnorm import kernel as K
 from repro_torch.kernels.rmsnorm import ref
 
@@ -34,7 +34,7 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if x2.stride(1) != 1:
         raise ValueError("rmsnorm: the kernel needs unit stride over d")
     out = K.rmsnorm_2d(x2, scale.contiguous(), eps)
-    rmsnorm.launches += 1
+    count_launch(rmsnorm, "launches")
     return out.reshape(x.shape)
 
 

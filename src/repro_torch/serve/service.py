@@ -1,7 +1,7 @@
 """SynthesisService — the streaming front door to the SynthesisEngine.
 
-The JAX package's ``serve/service.py`` for the port, over one host: the
-same futures, locks, drain-key stream and store budget.  Rows come back
+The JAX package's ``serve/service.py`` for the port: the same futures,
+locks, drain-key stream, store budget and placed drains.  Rows come back
 as torch tensors on the model's device.
 
 Where ``SynthesisEngine`` is the wave scheduler (pack → sample → scatter),
@@ -98,6 +98,7 @@ class SynthesisService:
     def __init__(self, engine: SynthesisEngine, *,
                  key: np.ndarray | int | None = None,
                  store: SynthesisStore | str | None = None,
+                 topology=None, hosts: int | None = None,
                  store_max_bytes: int | None = None,
                  tracer: Tracer | None = None,
                  faults: FaultInjector | None = None,
@@ -105,6 +106,11 @@ class SynthesisService:
         """``store`` (a ``SynthesisStore`` or its root) becomes the
         engine's; the engine's own knobs (ragged waves, compaction) are set
         on the engine.
+
+        ``topology`` (a ``serve/topology.py::HostTopology``) or ``hosts``
+        (an int H) places drains over hosts: per-host ingress queues,
+        per-host windows of each wave against one wave-resident table,
+        per-host stats.  Opt-in only, like the other knobs.
 
         ``store_max_bytes`` is the persistent store's size budget: after
         every drain the least-recently-used shards are evicted until the
@@ -128,7 +134,8 @@ class SynthesisService:
             store = SynthesisStore(store)
         if store is not None:
             engine.store = store
-        engine.opt_in(tracer=tracer, faults=faults, retry=retry)
+        engine.opt_in(topology=topology, hosts=hosts, tracer=tracer,
+                      faults=faults, retry=retry)
         self.engine = engine
         self.store = engine.store
         self.store_max_bytes = store_max_bytes
@@ -199,15 +206,17 @@ class SynthesisService:
         invoked before each wave is packed and may submit new requests —
         compatible ones join the open wave (return falsy once the arrival
         trace is exhausted, or the drain never concludes).
-        ``host_polls`` (per-host admission hooks of placed drains)
-        raises ``NotImplementedError``, as the engine does.
+        ``host_polls`` (the engine must have a topology) adds per-host
+        admission hooks on the same contract: every live host's hook runs
+        at each wave boundary, a dead host's is dropped; see
+        ``SynthesisEngine.run``.
 
         Failure contract: a PERMANENT failure inside one wave group
         resolves that group's futures to ``RequestFailedError`` (read
         via ``exception()``; ``result()`` raises it) while every other
         group keeps serving — one poisoned request never takes down the
-        drain for every tenant.  Transient faults retry inside the
-        engine, invisibly to futures.
+        drain for every tenant.  Transient faults retry and a lost host
+        fails over inside the engine, invisibly to futures.
         """
         with self._drain_lock:
             if key is None:

@@ -39,6 +39,9 @@ from repro_torch.models import classifiers as tclf
 from repro_torch.serve.synthesis import STAT_KEYS, SynthesisEngine
 from test_torch_dit import perturbed_params, port_model
 from test_torch_train import inject_init, max_param_err
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NAME = "vit_b16"
 DC = dict(d_model=32, num_layers=1, num_heads=2, train_timesteps=16,

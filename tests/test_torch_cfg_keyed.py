@@ -25,6 +25,9 @@ from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.kernels.cfg_fuse import kernel as K
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 1e-5
 

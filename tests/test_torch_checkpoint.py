@@ -17,6 +17,9 @@ from repro_torch.checkpoint import io as ckpt
 from repro_torch.configs.oscar import DiffusionConfig
 from repro_torch.convert import dit_state_from_jax, dit_tree_from_state
 from repro_torch.diffusion import dit as tdit
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 DIT = dict(d_model=32, num_layers=2, num_heads=2)
 

@@ -33,6 +33,9 @@ from repro_torch import prng
 from repro_torch.convert import classifier_state_from_jax
 from repro_torch.diffusion import guidance as tguid
 from repro_torch.models import classifiers as tclf
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 1e-4
 CASES = [(name, 16) for name in jclf.CLASSIFIERS] + [

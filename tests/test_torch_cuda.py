@@ -1374,3 +1374,144 @@ def test_streaming_is_snapshot_bit_for_bit_on_the_card(dev):
     stream.drain(poll=poll)
     assert all(torch.equal(f.result(), w) for f, w in zip(futs, want))
     assert stream.stats["streamed"] == 4 and stream.stats["waves"] == 4
+
+
+def _placed_requests(rng_seed=12, n=8):
+    """``n`` requests of 6 rows at 25 or 20 steps: rows of 20+ steps are
+    gated at 2e-2 across packings (a 4-step row's first step divides by
+    √ᾱ_999 and amplifies another batch size's rounding past any fixed
+    gate)."""
+    rng = np.random.default_rng(rng_seed)
+    return [(rng.standard_normal(512).astype(np.float32), i % 3, 6,
+             (2.0, 4.0)[i % 2], (25, 20)[i % 3 == 0]) for i in range(n)]
+
+
+def _placed_drain(model, sched, key, subs, **kw):
+    from repro_torch.serve import SynthesisEngine
+    eng = SynthesisEngine(model, sched, image_size=16, wave_size=16,
+                          ragged=True, **kw)
+    rids = [eng.submit(e, c, n, guidance=g, num_steps=s)
+            for e, c, n, g, s in subs]
+    out = eng.run(key)
+    return torch.cat([out[r] for r in rids]), eng
+
+
+def test_placed_windows_run_on_their_hosts_streams(dev, monkeypatch):
+    """With ``workers=True`` each host's windows launch on a CUDA stream of
+    the host's own (not the drain thread's), every window is fenced on its
+    own event, and the D_syn equals the ``workers=False`` drain's (every
+    window on the drain thread's stream) bit for bit."""
+    from repro_torch.serve import synthesis as synth
+    model = _seeded_dit(dev).eval()
+    sched = make_schedule(device=dev)
+    streams, events = {}, []
+    real_seg, real_fence = synth._window_segment, synth.SynthesisEngine._fence
+
+    def seg(*args, **kwargs):
+        streams.setdefault(kwargs["row_offset"] // 8, set()).add(
+            torch.cuda.current_stream().cuda_stream)
+        return real_seg(*args, **kwargs)
+
+    def fence(self, done, **kw):
+        if isinstance(done, synth._WindowOut):
+            events.extend(e for _, e in done.chunks)
+        return real_fence(self, done, **kw)
+
+    monkeypatch.setattr(synth, "_window_segment", seg)
+    monkeypatch.setattr(synth.SynthesisEngine, "_fence", fence)
+    subs, key = _placed_requests(), prng.PRNGKey(12)
+    on, eng = _placed_drain(model, sched, key, subs, hosts=2)
+    default = torch.cuda.default_stream().cuda_stream
+    assert sorted(streams) == [0, 1]
+    on_streams = set().union(*streams.values())
+    assert default not in on_streams and len(on_streams) == 2
+    assert all(len(s) == 1 for s in streams.values())
+    assert len(events) == 2 * eng.stats["waves"]
+    assert all(e is not None and e.query() for e in events)
+    streams.clear()
+    off, _ = _placed_drain(model, sched, key, subs, hosts=2, workers=False)
+    assert set().union(*streams.values()) == {
+        torch.cuda.current_stream().cuda_stream}
+    assert torch.equal(on, off)
+
+
+def test_launch_counters_lose_no_count_under_eight_threads(dev):
+    """Eight threads launching at once: every launch counted, and the
+    per-row wrappers' launches at a non-zero ``row_offset`` counted apart."""
+    import threading
+    x, sc, sh = _randn(dev, 30, (4, 17, 144), (4, 144), (4, 144))
+    xs = _randn(dev, 31, (8, 4, 4, 3), (8, 4, 4, 3), (8, 4, 4, 3),
+                (8, 4, 4, 3))
+    s, ab_t, ab_prev, act = _rowwise_table(16)
+    n = 200
+    an0, rw0 = an_ops.adaln_norm.launches, cfg_ops.cfg_update_rowwise.launches
+    off0 = cfg_ops.cfg_update_rowwise.launches_offset
+    go = threading.Barrier(8)
+
+    def work():
+        go.wait()
+        for i in range(n):
+            an_ops.adaln_norm(x, sc, sh)
+            cfg_ops.cfg_update_rowwise(*xs[:3], s, ab_t, ab_prev, xs[3], act,
+                                       row_offset=8 * (i % 2))
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    assert an_ops.adaln_norm.launches - an0 == 8 * n
+    assert cfg_ops.cfg_update_rowwise.launches - rw0 == 8 * n
+    assert cfg_ops.cfg_update_rowwise.launches_offset - off0 == 8 * n // 2
+
+
+_FAILOVER_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from test_torch_cuda import _placed_drain, _placed_requests, _seeded_dit
+from repro_torch import prng
+from repro_torch.diffusion.schedule import make_schedule
+from repro_torch.serve import FaultInjector
+dev = torch.device("cuda")
+model = _seeded_dit(dev).eval()
+sched = make_schedule(device=dev)
+subs, key = _placed_requests(13, 12), prng.PRNGKey(13)
+outs = []
+for workers in (True, True, False):
+    x, eng = _placed_drain(model, sched, key, subs, hosts=4, workers=workers,
+                           faults=FaultInjector([("window", 3, 0),
+                                                 ("window", 1, 2)]))
+    assert eng.topology.failed == {1, 3}, eng.topology.failed
+    outs.append(x)
+healthy, _ = _placed_drain(model, sched, key, subs, hosts=4)
+print(int(torch.equal(outs[0], outs[1])), int(torch.equal(outs[0], outs[2])),
+      float((outs[0] - healthy).abs().max()))
+"""
+
+
+def test_failover_discarding_launched_windows_leaves_no_hazard(dev):
+    """Hosts 3 and 1 lost at waves 0 and 2 of an H = 4 drain, in a child
+    process with ``CUDA_LAUNCH_BLOCKING=0``: each aborted wave launches
+    none of its windows (every host's fault site is checked first) while
+    the wave before it is still in flight on the hosts' streams and is
+    retired, and the drain replays bit for bit, equals the
+    ``workers=False`` drill, and stays within the 20+-step gate (2e-2) of
+    the healthy drain."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    tests = Path(__file__).resolve().parent
+    src = tests.parent / "src"
+    child = subprocess.run(
+        [sys.executable, "-c", _FAILOVER_CHILD, str(tests)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "CUDA_LAUNCH_BLOCKING": "0",
+             "PYTHONPATH": str(src)})
+    assert child.returncode == 0, child.stderr
+    replay, off, err = child.stdout.split()
+    assert (replay, off) == ("1", "1")
+    assert float(err) <= 2e-2

@@ -11,6 +11,9 @@ import torch
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.rmsnorm import kernel as RK
 from repro_torch.models.attention import make_mask
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LENGTHS = (1, 33, 63, 64, 65, 129, 3137, 4608)
 # (causal, window, query heads, kv heads)

@@ -33,6 +33,9 @@ from repro_torch.convert import dit_state_from_jax
 from repro_torch.diffusion import ddpm as tddpm
 from repro_torch.diffusion import schedule as tsched
 from test_torch_dit import perturbed_params, port_model
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 DC = dict(d_model=32, num_layers=2, num_heads=2, train_timesteps=16,
           cond_drop_prob=0.3, group_cond_prob=0.4, batch_size=8)

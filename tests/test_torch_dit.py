@@ -17,6 +17,9 @@ from repro_torch import prng
 from repro_torch.configs.oscar import DiffusionConfig
 from repro_torch.convert import dit_state_from_jax
 from repro_torch.diffusion import dit as tdit
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 2e-5
 

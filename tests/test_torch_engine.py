@@ -21,6 +21,9 @@ from repro_torch.diffusion import sampler as tsampler
 from repro_torch.diffusion import schedule as tsched
 from repro_torch.serve.synthesis import STAT_KEYS, SynthesisEngine
 from test_torch_dit import perturbed_params, port_model
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = 5e-4
 DC = dict(d_model=32, num_layers=1, num_heads=2, train_timesteps=16,

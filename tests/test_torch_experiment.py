@@ -24,7 +24,7 @@ from repro_torch.configs import oscar as tconfigs
 from repro_torch.convert import dit_state_from_jax
 from repro_torch.core import experiment as texp
 from repro_torch.encoders.foundation import FrozenFM
-from test_torch_service import one_thread  # noqa: F401
+from torch_one_thread import one_thread  # noqa: F401
 
 TINY = dict(
     data=dict(num_categories=3, num_domains=3, train_per_cat_dom=4,

@@ -21,7 +21,8 @@ from repro_torch.serve import (FaultInjector, RequestFailedError,
                                RetryPolicy, SynthesisEngine, SynthesisError,
                                SynthesisService, SynthesisStore)
 from repro_torch.serve import faults as tfaults
-from test_torch_service import make_server, one_thread  # noqa: F401
+from test_torch_service import make_server
+from torch_one_thread import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

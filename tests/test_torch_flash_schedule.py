@@ -8,6 +8,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.models.attention import make_mask
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 BQ, BK = K.TC_BLOCK_Q, K.TC_BLOCK_K
 

@@ -33,7 +33,7 @@ from repro_torch.core import classifier_train as tct
 from repro_torch.diffusion import dit as tdit
 from repro_torch.models import classifiers as tclf
 from repro_torch.models import transformer as tlm
-from test_torch_service import one_thread  # noqa: F401
+from torch_one_thread import one_thread  # noqa: F401
 
 TOL_REL = 4 * 2.0 ** -23
 

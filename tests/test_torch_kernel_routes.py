@@ -14,6 +14,9 @@ from repro_torch.kernels.adaln_norm import kernel as AN
 from repro_torch.kernels.cfg_fuse import kernel as CK
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.rmsnorm import kernel as RK
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _qkv(Sq=17, Sk=17, hd=36, Hq=4, Hkv=4, dtype=torch.float32):

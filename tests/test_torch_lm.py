@@ -41,7 +41,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.moe import Parallel
 from repro_torch.models.transformer import LM, init_lm as tinit_lm
 from repro_torch.utils import softcap
-from test_torch_service import one_thread  # noqa: F401
+from torch_one_thread import one_thread  # noqa: F401
 
 TOL = 2e-5
 S = 20                                   # > the smoke window of 8

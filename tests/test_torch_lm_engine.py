@@ -21,6 +21,9 @@ from repro_torch.models.moe import Parallel
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.steps import make_prefill_step, make_serve_step
 from test_torch_lm import lm_pair
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 

@@ -35,6 +35,9 @@ from repro_torch.serve import synthesis as tsynth
 from repro_torch.serve.synthesis import STAT_KEYS, SynthesisEngine
 from test_torch_classifiers import jax_logprob, random_classifier
 from test_torch_dit import perturbed_params, port_model
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL_SMOKE, TOL_DEEP = 5e-4, 2e-2
 DC = dict(d_model=32, num_layers=1, num_heads=2, sample_timesteps=3)

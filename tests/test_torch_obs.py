@@ -22,7 +22,8 @@ from repro_torch.obs import (FakeClock, MetricsRegistry, Tracer,
                              validate_chrome_trace, write_trace)
 from repro_torch.obs import trace as ttrace
 from repro_torch.serve import SynthesisEngine, SynthesisService
-from test_torch_service import make_server, one_thread  # noqa: F401
+from test_torch_service import make_server
+from torch_one_thread import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

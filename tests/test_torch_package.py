@@ -27,6 +27,9 @@ from repro_torch.diffusion import dit as tdit
 from repro_torch.diffusion import guidance as tguid
 from repro_torch.diffusion import schedule as tsched
 from repro_torch.models.classifiers import init_classifier
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"

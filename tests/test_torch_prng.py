@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 
 from repro_torch import prng
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ULPS = 4
 

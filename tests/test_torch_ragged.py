@@ -31,6 +31,9 @@ from repro_torch.diffusion import schedule as tsched
 from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.kernels.cfg_fuse import ref as cfg_ref
 from test_torch_dit import perturbed_params, port_model
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 try:
     from hypothesis import given, settings

@@ -18,6 +18,9 @@ from repro.diffusion import guidance as jguid
 from repro.diffusion import schedule as jsched
 from repro_torch.diffusion import guidance as tguid
 from repro_torch.diffusion import schedule as tsched
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 T = 1000
 

@@ -24,6 +24,9 @@ from repro_torch import prng
 from repro_torch.diffusion import sampler as tsampler
 from repro_torch.diffusion import schedule as tsched
 from test_torch_dit import perturbed_params, port_model
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL_E2E = 5e-4
 DC = dict(d_model=32, num_layers=1, num_heads=2)

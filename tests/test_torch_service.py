@@ -32,22 +32,11 @@ from repro_torch.serve import (RequestFailedError, SynthesisEngine,
                                SynthesisStore)
 from repro_torch.serve.synthesis import STAT_KEYS
 from test_torch_dit import port_model
+from torch_one_thread import one_thread  # noqa: F401
 
 TOL = 5e-4
 DC = dict(d_model=32, num_layers=1, num_heads=2, train_timesteps=16,
           sample_timesteps=3)
-
-
-@pytest.fixture
-def one_thread():
-    """Torch on one intra-op thread for the test.  The suite runs several
-    worker processes at once; with a thread per core in each, every
-    parallel op of these small tensors waits at a barrier for threads the
-    other workers hold (the threefry draws alone ran ~100x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 pytestmark = pytest.mark.usefixtures("one_thread")
@@ -338,18 +327,33 @@ def test_threads_submitting_mid_drain_are_served(server):
 
 
 def test_placed_drains_are_refused(server):
-    """Placed multi-host drains are not ported: each of their knobs
-    raises ``NotImplementedError`` naming the slice they come with."""
-    from repro_torch.core.experiment import Experiment
+    """The placed drains' knobs, refused until the port had the topology
+    slice, are taken now: ``hosts=``, ``topology=`` and ``mesh=`` build a
+    placed engine, ``host_polls`` streams into a placed drain, and no
+    knob raises ``NotImplementedError`` (``test_torch_topology`` holds
+    these drains against the reference's)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve.topology import HostTopology
     *_, model, sched = server
-    for kw in (dict(hosts=2), dict(topology=2), dict(mesh="data")):
-        with pytest.raises(NotImplementedError, match="topology slice"):
-            SynthesisEngine(model, sched, image_size=16, **kw)
-    eng = SynthesisEngine(model, sched, image_size=16)
-    with pytest.raises(NotImplementedError, match="host_polls"):
-        eng.run(prng.PRNGKey(0), host_polls={0: lambda: False})
-    with pytest.raises(NotImplementedError, match="hosts=2"):
-        Experiment(hosts=2, device="cpu")
+    mesh = make_serving_mesh(device="cpu")
+    for kw, hosts in ((dict(hosts=2), 2),
+                      (dict(topology=HostTopology.simulated(3)), 3),
+                      (dict(mesh=mesh, hosts=1), 1)):
+        eng = SynthesisEngine(model, sched, image_size=16, wave_size=8,
+                              **kw)
+        assert eng.topology.num_hosts == hosts
+    eng = SynthesisEngine(model, sched, image_size=16, wave_size=8, hosts=2)
+    fut = []
+
+    def poll():
+        if fut:
+            return False
+        fut.append(eng.submit(_enc(0), 0, 3))
+        return True
+
+    out = eng.run(prng.PRNGKey(0), host_polls={1: poll})
+    assert out[fut[0]].shape == (3, 16, 16, 3)
+    assert sum(p["rows"] for p in eng.stats["per_host"]) == 3
 
 
 def test_store_budget_evicts_after_each_drain(server, tmp_path):

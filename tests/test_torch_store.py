@@ -18,6 +18,9 @@ import torch
 from repro.serve.store import SynthesisStore as JStore
 from repro.serve.store import _slug as jslug
 from repro_torch.serve.store import SynthesisStore, _slug
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SHAPE = (16, 16, 3)
 PER = int(np.prod(SHAPE)) * 4          # bytes of one row

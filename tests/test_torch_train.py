@@ -52,6 +52,9 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.utils import recorded_relu
 from test_torch_classifiers import random_classifier
 from test_torch_dit import perturbed_params, port_model
+from torch_one_thread import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # three SGD steps of a seeded classifier: parameters move by ~0.2-0.6 and
 # differ by 1.3e-7 (ResNet-18) and 6.6e-7 (ViT), fp32 sums in another
