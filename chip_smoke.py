@@ -30,6 +30,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      ``init_dit``'s weights from key 1 perturbed 0.05·normal: kernel path
      against plain path, and
      a call's host and device time;
+     3c. the same DiT with ``bf16_act`` on the kernel path (its QKV,
+     output and MLP GEMMs with bf16 operands into fp32) against the plain
+     fp32 path at the reference's gate (max|Δ| < 2e-2·max(max|y|, 1)),
+     its host and device time beside phase 3's, and the device time of its
+     16 GEMMs in fp32 and in bf16;
      3b. a ResNet-18 classifier's forward pass and input gradient at
      B = 120 on the card against the CPU run of the same weights;
   4. the slice: federated data → client encodings → D_syn synthesis
@@ -68,7 +73,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      traced mixed wave;
      7b. the DiT at the paper's 224 px (S = 3137, the preset's width, 4
      layers, batch 8): kernel path against plain path, every attention on
-     the CUDA-core kernel, the call's device time and attention's share;
+     the CUDA-core kernel, the call's device time and attention's share,
+     and the same call with ``bf16_act`` (gated as 3c, its device time);
+     7c. phase 4's uniform round with ``bf16_act``: launches against phase
+     4's plan plus the bf16 GEMMs, images/s, and each D_syn row against
+     phase 4's fp32 round beside how far phase 4's probe moves it (rows
+     over 5e-4 and past the probe's gate counted, not gated);
   8. LM serving, gemma2-2b at full width and depth (26 layers, d 2304,
      8/4 heads of 256, vocab 256000) on ``init_lm``'s weights from key
      14, drawn on the card as the reference draws them:
@@ -79,7 +89,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          relative to the row's size) and rmsnorm against their plain
          versions, and both timed at the serving shapes, beside
          ``flex_attention`` (the same function, compiled) and SDPA (a
-         different one);
+         different one); the tensor-core kernel also at olmoe-1b-7b's
+         prefill layer (4, 2048, 16/16, 128) beside ``flex_attention``
+         and SDPA (there the same function);
      8b. ``ServeEngine`` in bf16, two rounds of a wave of 4 × 4608-token
          prompts (32 new tokens each) and a wave of 16 × 512 (64 each),
          with stats and flash launches checked (26 per prefill, all on
@@ -90,6 +102,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          CUDA-core flash kernel, its launches counted) and the plain route
          on the same weights: last-position logits gated, greedy tokens
          compared;
+     8d. the slice's path: olmoe-1b-7b at full width and depth (16
+         layers, d 2048, 16/16 heads of 128, 64 experts top-8 of d_ff
+         1024, vocab 50304) in bf16, drawn by ``init_lm`` from key 25 on
+         the card (seconds, peak memory), ``ServeEngine`` serving two
+         rounds of 4 × 2048 and 16 × 256 prompts (32 new tokens each; the
+         same tokens both rounds, 16 flash launches a prefill, all on the
+         tensor cores, none in decode; the tokens each expert received),
+         a traced prefill (the MoE's and the flash kernel's shares of
+         device time) and decode step (its launches); then the same
+         weights in fp32, one 2048-token request kernel route against
+         plain route (logits gated, tokens and expert sets compared);
+     8e. phi3.5-moe at full width and 4 of its 32 layers: 4 × 1024
+         prompts, 16 new tokens, served twice;
+     8f. granite-20b, qwen2-7b and qwen3-32b at full width and 2 layers:
+         a bf16 2 × 1024 prefill and 16 decode tokens served twice, and
+         the fp32 weights' kernel route against their plain route;
   9. the OSCAR pipeline at phase 4's preset and random DiT:
      ``run_oscar`` twice from one key (D_syn and the global ResNet-18
      bit-identical, synthesis and training seconds apart, training
@@ -167,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import hashlib
 import json
 import math
@@ -211,6 +240,11 @@ TOL_ADALN_BF16_ULP = 2.0 ** -7
 # that to the logits (|logit| < 30 after the final soft cap)
 TOL_LM_LOGITS = 1e-3
 TOL_DIT, TOL_E2E, TOL_E2E_DEEP = 2e-5, 5e-4, 2e-2
+# 3c / 7b: the DiT with bf16_act (bf16 GEMM operands, fp32 accumulation)
+# against the plain fp32 path, the reference's own gate
+# (tests/test_dit_fused.py::test_dit_bf16_act_opt_in): max|Δ| below this
+# times max(max|y|, 1)
+TOL_BF16_ACT = 2e-2
 # the 4-step kernel-vs-plain gates (phases 4 and 6): a 4-step trajectory's
 # first step (t = 999) divides ε̂ by √ᾱ_999 ≈ 4.9e-5, so a value it leaves
 # unclipped carries the DiT's per-call difference times ~2e4·(1 + 2s) into
@@ -471,9 +505,11 @@ def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def device_busy(fn, trace_path: Path) -> dict:
+def device_busy(fn, trace_path: Path, region: str | None = None) -> dict:
     """Run ``fn`` once under the profiler; the device's busy time is the
-    union of the kernel and copy intervals inside the call's span."""
+    union of the kernel and copy intervals inside the call's span.  With
+    ``region``, also the device time of the kernels inside the device-side
+    ranges of the ``record_function(region)`` blocks ``fn`` ran."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -500,13 +536,504 @@ def device_busy(fn, trace_path: Path) -> dict:
             flash += (b - a) if "flash_fwd" in name else 0.0
     check(busy > 0, "the profiler trace holds no device work")
     traced_wall = (hi - lo) * 1e-6
-    return {"kernels": len(work), "traced_wall_s": traced_wall,
+    extra = {}
+    if region is not None:
+        marks = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("ph") == "X" and e.get("name") == region
+                 and e.get("cat") == "gpu_user_annotation"]
+        inside = sum(b - a for a, b, _ in work if b > a and any(
+            m0 <= a and b <= m1 for m0, m1 in marks))
+        extra = {f"{region}_ranges": len(marks),
+                 f"{region}_device_s": inside * 1e-6 if marks else None,
+                 f"{region}_share_of_busy": inside / busy if marks else None}
+    return {**extra, "kernels": len(work), "traced_wall_s": traced_wall,
             "device_busy_s": busy * 1e-6,
             "device_idle_share": 1 - busy * 1e-6 / traced_wall,
             "flash_attention_device_s": flash * 1e-6,
             "flash_attention_share_of_busy": flash / busy,
             "top_device_us": sorted(by_name.items(),
                                     key=lambda kv: -kv[1])[:10]}
+
+
+# -- slice 14: the DiT's bf16_act path and the MoE / dense decoder configs ----
+
+def bf16_act_model(model):
+    """A copy of the DiT ``model`` with ``bf16_act`` on."""
+    out = copy.deepcopy(model)
+    out.dc = dataclasses.replace(model.dc, bf16_act=True)
+    return out
+
+
+def phase_3c(model, plain, xt, tt, yy, fp32: dict, smi: str):
+    """3c. Phase 3's DiT, weights and inputs with ``bf16_act`` on the
+    kernel path (its QKV, output and MLP GEMMs with bf16 operands into fp32
+    on the tensor cores) against the plain fp32 path, at the reference's
+    gate; the call's host and device time beside phase 3's fp32 call
+    (``fp32``), and the device time of the four GEMMs a block at the call's
+    shapes, fp32 and bf16 (casts included).  Returns (the bf16_act model,
+    its largest difference from the plain path)."""
+    from repro_torch.diffusion import dit as dit_mod
+    model16 = bf16_act_model(model)
+    L, d = model.dc.num_layers, model.dc.d_model
+    errs = {}
+    with torch.inference_mode():
+        for y_in in (yy, None):
+            n0 = dit_mod.bf16_dense.calls
+            out = model16(xt, tt, y_in)
+            check(dit_mod.bf16_dense.calls - n0 == 4 * L,
+                  f"3c: {dit_mod.bf16_dense.calls - n0} bf16 GEMMs, want "
+                  f"{4 * L}")
+            ref = plain(xt, tt, y_in)
+            scale = max(float(ref.abs().max()), 1.0)
+            err = max_err(out, ref)
+            check(out.dtype == torch.float32 and err < TOL_BF16_ACT * scale,
+                  f"3c: bf16_act vs plain {err:.3g} >= {TOL_BF16_ACT:g} x "
+                  f"{scale:.3f}")
+            errs["given" if y_in is not None else "null"] = dict(
+                max_abs_err=err, max_abs_ref=float(ref.abs().max()),
+                gate=TOL_BF16_ACT * scale)
+        ms = cuda_ms(lambda: model16(xt, tt, yy), 20)
+        dev_ms = graph_ms(lambda: model16(xt, tt, yy), 5)
+        host_ms = host_us(lambda: model16(xt, tt, yy), 100) * 1e-3
+        gen = torch.Generator(xt.device).manual_seed(3)
+        S = model.pos.shape[0] + 1
+        h = torch.randn((xt.shape[0], S, d), generator=gen, device=xt.device)
+        h4 = torch.randn((xt.shape[0], S, 4 * d), generator=gen,
+                         device=xt.device)
+
+        def gemms(dense):
+            for blk in model.blocks:
+                dense(blk.wqkv, h)
+                dense(blk.wo, h)
+                dense(blk.w_up, h)
+                dense(blk.w_down, h4)
+
+        gemm32 = graph_ms(lambda: gemms(lambda lin, v: lin(v)), 5)
+        gemm16 = graph_ms(lambda: gemms(dit_mod.bf16_dense), 5)
+    flops = 2 * xt.shape[0] * S * L * (d * 3 * d + d * d + 2 * d * 4 * d)
+    say(json.dumps({"dit_bf16_act": {
+        "batch": xt.shape[0], "tokens": S, "layers": L, "errors": errs,
+        "ms_per_call": ms, "host_ms": host_ms, "device_ms": dev_ms,
+        "fp32_ms_per_call": fp32["ms"], "fp32_host_ms": fp32["host_ms"],
+        "fp32_device_ms": fp32["device_ms"], "gemms_device_ms_bf16": gemm16,
+        "gemms_device_ms_fp32": gemm32, "gemm_flops": flops, "card": smi}}))
+    say(f"[3c] DiT bf16_act B={xt.shape[0]}: vs plain fp32 max_abs_err "
+        f"{max(e['max_abs_err'] for e in errs.values()):.3g} (gate "
+        f"{TOL_BF16_ACT:g} x max(max|y|, 1)); {ms:.3f} ms per call, "
+        f"{host_ms:.3f} ms host, {dev_ms:.3f} ms device (fp32 "
+        f"{fp32['ms']:.3f} / {fp32['host_ms']:.3f} / {fp32['device_ms']:.3f});"
+        f" the 16 GEMMs {gemm16:.4f} ms bf16 against {gemm32:.4f} ms fp32 on "
+        f"the device ({smi})")
+    return model16, max(e["max_abs_err"] for e in errs.values())
+
+
+def phase_7c(run, model, model16, fp32_images, fp32_rounds, fns, want: dict,
+             amplitude: float, smi: str):
+    """7c. One uniform D_syn round at phase 4's preset (``run(model)``
+    draws it) with ``bf16_act``: every launch against phase 4's plan
+    ``want`` plus the bf16 GEMMs (four a block a DiT call, each casting its
+    two operands to bf16); images/s beside phase 4's rounds; each D_syn row
+    against phase 4's fp32 round beside how far the probe of phase 4's rule
+    moves it (every fp32 DiT output moved by ± ``amplitude``, 3c's
+    bf16-vs-fp32 difference): the rows past max(5e-4, K_PROBE·probe) and
+    over 5e-4 are counted, not gated, since bf16 operands are not the fp32
+    function."""
+    from repro_torch.diffusion import dit as dit_mod
+    fa, cfg_up = fns["flash_attention"], fns["cfg_update"]
+    for fn in fns.values():
+        fn.launches = 0
+    keyed0, short0 = cfg_up.launches_keyed, fa.launches_short
+    gemm0 = dit_mod.bf16_dense.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = run(model16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    plan = {**want, "bf16_gemms": 4 * want["flash_attention"],
+            "bf16_operand_casts": 8 * want["flash_attention"]}
+    got = {**launches, "bf16_gemms": dit_mod.bf16_dense.calls - gemm0,
+           "bf16_operand_casts": 2 * (dit_mod.bf16_dense.calls - gemm0)}
+    check(got == plan, f"7c: launches {got} != plan {plan}")
+    check(cfg_up.launches_keyed - keyed0 == want["cfg_update"]
+          and fa.launches_short - short0 == want["flash_attention"],
+          "7c: not every update keyed or not every attention short")
+    check(images.shape == fp32_images.shape
+          and bool(torch.isfinite(images).all())
+          and float(images.abs().max()) <= 1.0, "7c: D_syn shape or range")
+    err = (images - fp32_images).abs().flatten(1).amax(1)
+    moved = probe_movement(run, model, amplitude, fp32_images)
+    gate = torch.clamp(K_PROBE * moved, min=TOL_E2E)
+    n = images.shape[0]
+    say(json.dumps({"dsyn_bf16_act": {
+        "rows": n, "images_per_s": n / wall, "wall_s": wall,
+        "fp32_images_per_s": [r["images_per_s"] for r in fp32_rounds],
+        "launches": got, "plan": plan, "max_abs_err_vs_fp32":
+        float(err.max()), "median_row_err": float(err.median()),
+        "rows_over_5e-4": int((err > TOL_E2E).sum()),
+        "rows_past_probe_gate": int((err > gate).sum()),
+        "probe_amplitude": amplitude, "median_probe": float(moved.median()),
+        "card": smi}}))
+    say(f"[7c] bf16_act uniform round: {n / wall:.1f} images/s (phase 4: "
+        + ", ".join(f"{r['images_per_s']:.1f}" for r in fp32_rounds)
+        + f"); D_syn vs phase 4's fp32 round max {float(err.max()):.3g}, "
+        f"{int((err > TOL_E2E).sum())} of {n} rows over {TOL_E2E:g}, "
+        f"{int((err > gate).sum())} past max({TOL_E2E:g}, {K_PROBE:g}·probe)"
+        f" (not gated) ({smi})")
+
+
+class RouteLog:
+    """While entered, keeps the expert indices (T, k) of every call of
+    ``models/moe.py::route``, on the device, in call order."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.route, self.calls = moe_mod, moe_mod.route, []
+
+    def __enter__(self):
+        def recorded(w, x_flat, m):
+            out = self.route(w, x_flat, m)
+            self.calls.append(out[1])
+            return out
+        self.mod.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+
+def serve_twice(tag: str, cfg, lm, waves: dict, budget: dict, fns: dict,
+                smi: str, log: RouteLog | None = None):
+    """Two rounds of ``waves`` (name → prompts) through ``ServeEngine`` in
+    the activation dtype, last-position read-out after prefill: stats,
+    prefill and decode tokens/s, every flash launch on the tensor-core
+    kernel (one a layer a prefill, none in decode), the other kernels not
+    launched, and the same tokens in both rounds.  With ``log``, each
+    wave's prefill also reports the tokens each expert received (summed
+    over layers: min and max) and the drops against capacity.  Returns
+    (the rounds, the last engine)."""
+    from repro_torch.models.moe import Parallel, capacity
+    from repro_torch.serve.engine import ServeEngine
+    fa = fns["flash_attention"]
+    par = Parallel(prefill_last_only=True)
+    fwd, stat = lm.forward, {}
+
+    def timed_forward(*args, **kwargs):        # the engine's prefill call
+        n0 = (fa.launches, fa.launches_tensor_core, fa.launches_cuda_core,
+              len(log.calls) if log else 0)
+        t = time.perf_counter()
+        out = fwd(*args, **kwargs)
+        torch.cuda.synchronize()
+        stat.update(prefill=time.perf_counter() - t,
+                    launches=fa.launches - n0[0],
+                    tc=fa.launches_tensor_core - n0[1],
+                    cc=fa.launches_cuda_core - n0[2],
+                    routes=log.calls[n0[3]:] if log else [])
+        return out
+
+    lm.forward = timed_forward
+    rounds, tokens = [], []
+    max_len = max(len(p[0]) + budget[n] for n, p in waves.items())
+    try:
+        for rnd in (1, 2):
+            eng = ServeEngine(cfg, lm, max_len=max_len, par=par)
+
+            def timed_step(*args, step=eng._decode):
+                n0 = fa.launches
+                t = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                stat["decode"] += time.perf_counter() - t
+                stat["decode_launches"] += fa.launches - n0
+                return out
+
+            eng._decode = timed_step
+            for fn in fns.values():
+                fn.launches = 0
+            out, per_wave = {}, []
+            for name, prompts in waves.items():
+                rids = [eng.submit(p, max_new=budget[name]) for p in prompts]
+                stat.update(decode=0.0, decode_launches=0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t = time.perf_counter()
+                res = eng.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                peak = torch.cuda.max_memory_allocated()
+                nb, L = len(prompts), len(prompts[0])
+                check(sorted(res) == rids and all(
+                    len(res[r]) == budget[name] for r in rids),
+                    f"{tag} wave {name}: results "
+                    f"{[len(res.get(r, [])) for r in rids]}")
+                check(stat["launches"] == stat["tc"] == cfg.num_layers
+                      and stat["cc"] == 0 and stat["decode_launches"] == 0,
+                      f"{tag} wave {name}: {stat['launches']} flash launches"
+                      f" in prefill ({stat['tc']} on the tensor cores, "
+                      f"{stat['cc']} on the CUDA cores; want "
+                      f"{cfg.num_layers}, all on the tensor cores), "
+                      f"{stat['decode_launches']} in decode (want 0)")
+                out.update(res)
+                w = dict(wave=name, requests=nb, prompt=L,
+                         new_tokens=budget[name],
+                         prefill_flash_launches_tensor_core=stat["tc"],
+                         prefill_tokens_per_s=nb * L / stat["prefill"],
+                         decode_tokens_per_s=nb * (budget[name] - 1)
+                         / stat["decode"],
+                         prefill_s=stat["prefill"], decode_s=stat["decode"],
+                         wall_s=wall, peak_gib=peak / 2**30,
+                         peak_above_wave_start_gib=(peak - base) / 2**30)
+                if stat["routes"]:
+                    E = cfg.moe.num_experts
+                    counts = torch.stack([torch.bincount(
+                        i.flatten(), minlength=E) for i in stat["routes"]])
+                    counts = counts.cpu()
+                    cap = capacity(nb * L, cfg.moe)
+                    w["expert_tokens"] = dict(
+                        layers=counts.shape[0], capacity=cap,
+                        min=int(counts.min()), max=int(counts.max()),
+                        mean=nb * L * cfg.moe.top_k / E,
+                        dropped=int((counts - cap).clamp(min=0).sum()))
+                per_wave.append(w)
+                say(f"[{tag}] serve round {rnd} wave {name} ({nb} x {L}, "
+                    f"{budget[name]} new): prefill "
+                    f"{w['prefill_tokens_per_s']:.1f} tokens/s "
+                    f"({w['prefill_s']:.3f} s), decode "
+                    f"{w['decode_tokens_per_s']:.1f} tokens/s "
+                    f"({w['decode_s']:.3f} s), wall {wall:.3f} s, peak "
+                    f"memory {peak / 2**30:.2f} GiB ("
+                    f"{(peak - base) / 2**30:.2f} above the wave's start)"
+                    + (f"; expert tokens {w['expert_tokens']}"
+                       if "expert_tokens" in w else "") + f" ({smi})")
+            launches = {name: fn.launches for name, fn in fns.items()}
+            want = {name: 0 for name in fns}
+            want["flash_attention"] = len(waves) * cfg.num_layers
+            check(launches == want, f"{tag} round {rnd}: launches "
+                  f"{launches} != expected {want}")
+            want_stats = dict(
+                waves=len(waves),
+                prefilled=sum(len(p) for p in waves.values()),
+                decoded=sum(len(p) * (budget[n] - 1)
+                            for n, p in waves.items()))
+            check(eng.stats == want_stats, f"{tag} round {rnd}: stats "
+                  f"{eng.stats} != {want_stats}")
+            tokens.append(out)
+            rounds.append(dict(round=rnd, waves=per_wave, stats=eng.stats,
+                               launches=launches))
+    finally:
+        lm.forward = fwd
+    check(tokens[0] == tokens[1], f"{tag}: round 2's tokens differ from "
+          "round 1's, same weights and prompts")
+    return rounds, eng
+
+
+def kernel_vs_plain_fp32(tag: str, cfg32, lm32, prompt, fns, smi: str,
+                         new: int = 8) -> dict:
+    """One request in fp32 through the kernel route (the CUDA-core flash
+    kernel, one launch a layer a prefill) and the plain route on the same
+    weights: the last-position logits gated at ``TOL_LM_LOGITS``, the
+    greedy tokens compared, and for an MoE the (token, layer) pairs whose
+    expert set differs between the routes counted."""
+    from repro_torch.models.moe import Parallel
+    from repro_torch.serve.engine import ServeEngine
+    fa = fns["flash_attention"]
+    toks = torch.as_tensor(prompt[None], device=lm32.device)
+    last, gen, experts = {}, {}, {}
+    for use_kernels in (True, False):
+        par = Parallel(use_kernels=use_kernels, prefill_last_only=True)
+        fa.launches = fa.launches_short = fa.launches_tensor_core = 0
+        fa.launches_cuda_core = 0
+        with RouteLog() as log, torch.inference_mode():
+            last[use_kernels] = lm32(toks, par, mode="prefill")[0][0, -1]
+            experts[use_kernels] = [i.sort(-1).values for i in log.calls]
+        eng = ServeEngine(cfg32, lm32, max_len=len(prompt) + new, par=par)
+        rid = eng.submit(prompt, max_new=new)
+        gen[use_kernels] = eng.run()[rid]
+        routes = (fa.launches_short, fa.launches_tensor_core,
+                  fa.launches_cuda_core)
+        want = 2 * cfg32.num_layers if use_kernels else 0
+        check(fa.launches == want and routes == (0, 0, want),
+              f"{tag} use_kernels={use_kernels}: {fa.launches} flash "
+              f"launches, routes (short, tensor core, CUDA core) {routes}, "
+              f"want {want} on the CUDA cores")
+    err = max_err(last[True], last[False])
+    differ = sum(int((a != b).any(-1).sum())
+                 for a, b in zip(experts[True], experts[False]))
+    check(bool(torch.isfinite(last[True]).all())
+          and float(last[False].abs().max()) > 1e-1,
+          f"{tag}: vacuous or non-finite fp32 logits")
+    out = {"prompt": len(prompt), "last_logits_max_abs_err": err,
+           "tol": TOL_LM_LOGITS, "max_abs_logit":
+           float(last[False].abs().max()), "tokens_kernel": gen[True],
+           "tokens_plain": gen[False], "tokens_agree": gen[True] == gen[False],
+           "flash_launches_cuda_core": 2 * cfg32.num_layers,
+           "token_layer_pairs": sum(len(e) for e in experts[True]) or None,
+           "expert_sets_differing": differ if experts[True] else None,
+           "card": smi}
+    say(json.dumps({f"{tag}_kernel_vs_plain_fp32": out}))
+    check(err <= TOL_LM_LOGITS, f"{tag}: fp32 prefill logits kernel vs "
+          f"plain {err:.3g} > {TOL_LM_LOGITS:g}")
+    return out
+
+
+def phase_8d(dev, fns, smi: str) -> dict:
+    """8d. The slice's path: olmoe-1b-7b at full width and depth (16
+    layers, d 2048, 16/16 heads of 128, 64 experts top-8 of d_ff 1024,
+    vocab 50304) in bf16, drawn by ``init_lm`` from key 25 on the card
+    (seconds, peak memory), served by ``ServeEngine`` in two rounds of wave
+    A (4 × 2048-token prompts) and wave B (16 × 256), 32 new tokens each;
+    one traced wave-A prefill (the MoE's and the flash kernel's shares of
+    device time) and decode step (its launches); then the same weights in
+    fp32 (kernel route against plain route on one 2048-token request).
+    Returns the tensor-core flash launches of round 1."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.moe import Parallel
+    from repro_torch.models.transformer import LM, init_lm
+    from repro_torch.serve.steps import make_serve_step
+    cfg = get_config("olmoe-1b-7b")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()     # what earlier phases hold
+    t0 = time.perf_counter()
+    lm = init_lm(prng.PRNGKey(25), cfg, device=dev).eval()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - start
+    n_params = sum(p.numel() for p in lm.parameters())
+    model_gib = sum(p.numel() * p.element_size()
+                    for p in lm.parameters()) / 2**30
+    say(f"[8d] olmoe-1b-7b: {n_params} parameters ({model_gib:.2f} GiB) in "
+        f"bf16 drawn by init_lm from key 25 on the card in {t_init:.2f} s, "
+        f"peak memory {init_peak / 2**30:.2f} GiB above the "
+        f"{start / 2**30:.2f} GiB earlier phases hold ({smi})")
+    rng = np.random.default_rng(25)
+    waves = {"A": [rng.integers(0, cfg.vocab_size, 2048) for _ in range(4)],
+             "B": [rng.integers(0, cfg.vocab_size, 256) for _ in range(16)]}
+    budget = {"A": 32, "B": 32}
+    with RouteLog() as log:
+        rounds, eng = serve_twice("8d", cfg, lm, waves, budget, fns, smi, log)
+    par = Parallel(prefill_last_only=True)
+    toks = torch.as_tensor(np.stack(waves["A"]), device=dev)
+    dense = moe_mod.moe_dense
+
+    def annotated(*args, **kwargs):
+        with torch.profiler.record_function("moe"):
+            return dense(*args, **kwargs)
+
+    with torch.inference_mode():
+        logits, _, caches = lm(toks, par, mode="prefill")
+        full = eng._pad_caches(caches, 4, 2048)
+        del caches
+        cur = torch.argmax(logits[:, -1, :cfg.vocab_size],
+                           -1)[:, None].to(torch.int32)
+        step = make_serve_step(lm, par)
+        moe_mod.moe_dense = annotated
+        try:
+            trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
+                                    BUILD_DIR / "olmoe_prefill_trace.json",
+                                    region="moe")
+        finally:
+            moe_mod.moe_dense = dense
+        trace_dec = device_busy(lambda: step(cur, full, 2048),
+                                BUILD_DIR / "olmoe_decode_trace.json")
+    del full, logits
+    wave_a = rounds[-1]["waves"][0]
+    trace_dec["untraced_step_s"] = wave_a["decode_s"] / (budget["A"] - 1)
+    say(f"[8d] traced wave-A prefill: device busy "
+        f"{trace_pre['device_busy_s']:.4f} s over {trace_pre['kernels']} "
+        f"kernels, MoE {trace_pre['moe_device_s']} s "
+        f"({trace_pre['moe_share_of_busy']} of it, "
+        f"{trace_pre['moe_ranges']} ranges), flash attention "
+        f"{trace_pre['flash_attention_device_s']:.4f} s "
+        f"({100 * trace_pre['flash_attention_share_of_busy']:.1f}%); decode "
+        f"step: {trace_dec['kernels']} launches, device busy "
+        f"{1e3 * trace_dec['device_busy_s']:.2f} ms, untraced step "
+        f"{1e3 * trace_dec['untraced_step_s']:.2f} ms ({smi})")
+    say(json.dumps({"olmoe_serving": {
+        "model": cfg.name, "params": n_params, "dtype": "bfloat16",
+        "init_s": t_init, "model_gib": model_gib,
+        "init_peak_gib_above_start": init_peak / 2**30,
+        "allocated_at_start_gib": start / 2**30,
+        "rounds": rounds, "prefill_trace_wave_A": trace_pre,
+        "decode_step_trace_wave_A": trace_dec, "card": smi}}))
+    # the same weights in fp32 (bf16 values are exact in fp32)
+    cfg32 = cfg.replace(dtype="float32")
+    lm32 = LM(cfg32, device=dev)
+    lm32.load_state_dict(lm.state_dict())
+    del lm, eng, step
+    torch.cuda.empty_cache()
+    kernel_vs_plain_fp32("8d", cfg32, lm32.eval(), waves["A"][0], fns, smi)
+    del lm32
+    torch.cuda.empty_cache()
+    return sum(w["prefill_flash_launches_tensor_core"]
+               for w in rounds[0]["waves"])
+
+
+def phase_8e(dev, fns, smi: str) -> None:
+    """8e. phi3.5-moe at full width (d 4096, 32/8 heads of 128, 16
+    experts top-2 of d_ff 6400, vocab 32064) and 4 of its 32 layers (the
+    32 need 84 GB in bf16), ``init_lm`` from key 26 on the card: one wave
+    of 4 × 1024-token prompts, 16 new tokens, served twice."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config("phi3.5-moe-42b-a6.6b").replace(num_layers=4)
+    t0 = time.perf_counter()
+    lm = init_lm(prng.PRNGKey(26), cfg, device=dev).eval()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(26)
+    waves = {"A": [rng.integers(0, cfg.vocab_size, 1024) for _ in range(4)]}
+    with RouteLog() as log:
+        rounds, _ = serve_twice("8e", cfg, lm, waves, {"A": 16}, fns, smi,
+                                log)
+    say(json.dumps({"phi35_moe_serving": {
+        "model": cfg.name, "layers": cfg.num_layers, "params": sum(
+            p.numel() for p in lm.parameters()), "init_s": t_init,
+        "rounds": rounds, "card": smi}}))
+    del lm
+    torch.cuda.empty_cache()
+
+
+def phase_8f(dev, fns, smi: str) -> None:
+    """8f. granite-20b (MQA 48/1, qkv bias, non-gated gelu, tied
+    embeddings), qwen2-7b (GQA 28/4, qkv bias, rope θ 1e6) and qwen3-32b
+    (64/8 heads of 128, a q projection of 8192 > d 5120, qk-norm) at full
+    width and 2 layers each: ``init_lm`` from key 27 in fp32, its weights
+    cast to bf16 (``init_lm``'s bf16 values) for a 2 × 1024 prefill and
+    16 decode tokens served twice; then the fp32 weights' kernel route
+    against their plain route."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM, init_lm
+    for name in ("granite-20b", "qwen2-7b", "qwen3-32b"):
+        cfg = get_config(name).replace(num_layers=2)
+        cfg32 = cfg.replace(dtype="float32")
+        t0 = time.perf_counter()
+        lm32 = init_lm(prng.PRNGKey(27), cfg32, device=dev).eval()
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        lm16 = LM(cfg, device=dev)
+        lm16.load_state_dict(lm32.state_dict())
+        rng = np.random.default_rng(27)
+        waves = {"A": [rng.integers(0, cfg.vocab_size, 1024)
+                       for _ in range(2)]}
+        rounds, _ = serve_twice(f"8f {name}", cfg, lm16.eval(), waves,
+                                {"A": 17}, fns, smi)
+        say(json.dumps({"dense_serving": {
+            "model": name, "layers": 2, "params": sum(
+                p.numel() for p in lm16.parameters()), "init_s_fp32": t_init,
+            "rounds": rounds, "card": smi}}))
+        del lm16
+        kernel_vs_plain_fp32(f"8f {name}", cfg32, lm32, waves["A"][0], fns,
+                             smi)
+        del lm32
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1371,6 +1898,8 @@ def main() -> int:
     say(f"[3] DiT call at B={B}: kernel path {dit_ms:.3f} ms per call, "
         f"{dit_host_ms:.3f} ms of host time and {dit_dev_ms:.3f} ms on the "
         f"device; plain path {dit_plain_ms:.3f} ms per call ({smi})")
+    model16, dit16_err = phase_3c(model, plain, xt, tt, yy, dict(
+        ms=dit_ms, host_ms=dit_host_ms, device_ms=dit_dev_ms), smi)
 
     # -- 3b. the classifier on the card --------------------------------------
     # ResNet-18 at a mixed wave's width: logits and the guidance gradient
@@ -2054,6 +2583,24 @@ def main() -> int:
         dit224_plain_ms = cuda_ms(lambda: plain224(x224, t224, y224), 3)
         trace224 = device_busy(lambda: model224(x224, t224, y224),
                                BUILD_DIR / "dit224_trace.json")
+        # 7c's 224-px call: the same with bf16_act, attention still fp32 on
+        # the CUDA-core kernel
+        m224_16 = bf16_act_model(model224)
+        n_cc = fa.launches_cuda_core
+        out224_16 = m224_16(x224, t224, y224)
+        torch.cuda.synchronize()
+        check(fa.launches_cuda_core - n_cc == dc.num_layers,
+              "224-px DiT with bf16_act: attention left the CUDA cores")
+        err224_16 = max_err(out224_16, ref224)
+        gate224_16 = TOL_BF16_ACT * max(float(ref224.abs().max()), 1.0)
+        check(err224_16 < gate224_16, f"224-px DiT bf16_act vs plain "
+              f"{err224_16:.3g} >= {gate224_16:.3g}")
+        bf16_224 = dict(max_abs_err_vs_plain=err224_16, gate=gate224_16,
+                        device_ms=graph_ms(lambda: m224_16(x224, t224, y224),
+                                           3),
+                        ms_per_call=cuda_ms(lambda: m224_16(x224, t224, y224),
+                                            5))
+        del m224_16, out224_16
     kernels["flash_attention_s3137"]["launches"] = moved224[3]
     say(json.dumps({"dit_224px": {
         "image_size": 224, "tokens": 3137, "batch": 8, "d_model": dc.d_model,
@@ -2066,8 +2613,19 @@ def main() -> int:
         "attention_device_ms": 1e3 * trace224["flash_attention_device_s"],
         "attention_share_of_busy": trace224[
             "flash_attention_share_of_busy"],
-        "top_device_us": trace224["top_device_us"][:5], "card": smi}}))
+        "top_device_us": trace224["top_device_us"][:5], "bf16_act": bf16_224,
+        "card": smi}}))
+    say(f"[7c] 224-px DiT with bf16_act: {bf16_224['device_ms']:.3f} ms on "
+        f"the device against {dit224_dev_ms:.3f} ms in fp32; vs plain "
+        f"{err224_16:.3g} (gate {gate224_16:.3g}) ({smi})")
     del model224, plain224, out224, ref224, x224
+
+    # -- 7c. a uniform D_syn round with bf16_act -----------------------------
+    phase_7c(lambda m: synthesize(prng.PRNGKey(2), m, sched, enc, present,
+                                  k_samples, image_size=16,
+                                  wave_size=wave)[0],
+             model, model16, first_images, rounds, fns, want, dit16_err, smi)
+    del model16
 
     # -- 8. LM serving: gemma2-2b ---------------------------------------------
     # 8a. flash attention's modes and rmsnorm against their plain versions.
@@ -2252,6 +2810,67 @@ def main() -> int:
         "shape": [Bw, Sw, hq, hkv, hd], "mode": "causal, softcap 50, GQA 8/4, "
         "bf16, tensor-core kernel", **attn_global, "card": smi}}))
     del bhsd, qa, ka, va
+
+    # the tensor-core kernel at olmoe-1b-7b's prefill layer (8d's wave A:
+    # B 4, S 2048, 16/16 heads of 128, bf16, causal), drawn from a generator
+    # of its own.  The library column is SDPA (causal, no GQA, no window or
+    # softcap: here the same function); flex_attention compiled with a
+    # causal BlockMask is timed beside it
+    g25 = torch.Generator(dev).manual_seed(25)
+    qo, ko, vo = (torch.randn((4, 2048, 16, 128), generator=g25,
+                              device=dev).bfloat16() for _ in range(3))
+    kw_o = dict(causal=True, window=0, softcap=0.0)
+    n_tc = fa.launches_tensor_core
+    o_out = fa(qo, ko, vo, **kw_o)
+    check(fa.launches_tensor_core == n_tc + 1, "olmoe's prefill layer did "
+          "not take the tensor-core kernel")
+    o_ref = plain_lm_attn(qo, ko, vo, **kw_o)
+    o_err, o_rel = max_err(o_out, o_ref), row_rel_err(o_out, o_ref)
+    check(o_err <= TOL_ATTN_BF16 and o_rel <= TOL_ATTN_BF16_ROW,
+          f"flash_attention at olmoe's layer: max abs error {o_err:.3g}, "
+          f"row-relative {o_rel:.3g}")
+    bhsd_o = [t.transpose(1, 2) for t in (qo, ko, vo)]
+    flex_o = flex_o_err = flex_o_s = None
+    if flex:
+        bm_o = create_block_mask(causal_mask, None, None, 2048, 2048,
+                                 device=dev)
+
+        def flex_o():
+            return flex_c(*bhsd_o, block_mask=bm_o)
+        t0 = time.perf_counter()
+        flex_o_err = max_err(flex_o().transpose(1, 2), o_ref)
+        flex_o_s = time.perf_counter() - t0
+    del o_out
+
+    def sdpa_o():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *bhsd_o, is_causal=True)
+
+    record("flash_attention_lm_olmoe", "cuda",
+           "src/repro_torch/kernels/flash_attention/csrc/"
+           "flash_attention_tc.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN_BF16,
+           [dict(mode="olmoe_causal", shape=[4, 2048, 16, 16, 128],
+                 max_abs_err=o_err, max_row_rel_err=o_rel)],
+           lambda: fa(qo, ko, vo, **kw_o),
+           lambda: plain_lm_attn(qo, ko, vo, **kw_o), sdpa_o,
+           2 * (2 * qo.numel() + ko.numel() + vo.numel()),
+           4 * 128 * 4 * 16 * attn_pairs(2048, 2048, True, 0),
+           [4, 2048, 16, 16, 128], peak=BF16_FLOPS, iters=5, phase=8,
+           mode="causal, MHA 16/16, head dim 128, bf16 (olmoe-1b-7b, 8d's "
+                "wave A prefill), tensor-core kernel",
+           launch_floor_ms=graph_ms(lambda: empty_launch(
+               (fa_kernel.work_list(2048, 2048, True, 0).shape[0] * 4 * 16,
+                1), 384, 1024 + 6 * (128 // 64) * 64 * 128 + 64,
+               torch.cuda.current_device())),
+           library_call="scaled_dot_product_attention, is_causal",
+           library_max_abs_err=max_err(sdpa_o().transpose(1, 2), o_ref),
+           flex_attention_ms=cuda_ms(flex_o, 5) if flex else None,
+           flex_attention_device_ms=graph_ms(flex_o, 2) if flex else None,
+           flex_attention_max_abs_err=flex_o_err,
+           flex_attention_first_call_s=flex_o_s)
+    del o_ref
+    del bhsd_o, qo, ko, vo
 
     # the CUDA-core kernel at 8c's layer: one 4608-token request of gemma2
     # in fp32, local mode (window 4096, softcap 50, GQA 8/4); its launches
@@ -2543,7 +3162,12 @@ def main() -> int:
         "tokens_agree": gen[True] == gen[False], "card": smi}}))
     check(err_lm <= TOL_LM_LOGITS, f"fp32 prefill logits kernel vs plain "
           f"{err_lm:.3g} > {TOL_LM_LOGITS:g}")
-    del lm32
+    del lm32, eng32              # the engine holds the model
+
+    # -- 8d-8f. MoE FFNs and the dense decoder configs -----------------------
+    kernels["flash_attention_lm_olmoe"]["launches"] = phase_8d(dev, fns, smi)
+    phase_8e(dev, fns, smi)
+    phase_8f(dev, fns, smi)
 
     # -- 9. the paper's methods end to end -----------------------------------
     # benchmarks/common.py's paper preset: phase 4's data and DiT, 30

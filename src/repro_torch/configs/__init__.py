@@ -5,7 +5,12 @@ from repro_torch.configs.base import (INPUT_SHAPES, InputShape, MambaConfig,
                                       ModelConfig, MoEConfig, XLSTMConfig,
                                       get_config, list_configs, register)
 from repro_torch.configs.oscar import DataConfig, DiffusionConfig, OscarConfig
-from repro_torch.configs import gemma2_2b  # noqa: F401  (registers)
+from repro_torch.configs import granite_20b  # noqa: F401  (registers)
+from repro_torch.configs import gemma2_2b  # noqa: F401
+from repro_torch.configs import phi35_moe  # noqa: F401
+from repro_torch.configs import qwen2_7b  # noqa: F401
+from repro_torch.configs import olmoe_1b_7b  # noqa: F401
+from repro_torch.configs import qwen3_32b  # noqa: F401
 from repro_torch.configs.shapes import smoke_config, smoke_shape
 
 __all__ = ["DataConfig", "DiffusionConfig", "OscarConfig", "INPUT_SHAPES",

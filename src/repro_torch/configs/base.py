@@ -3,7 +3,8 @@
 Field for field the same as the JAX package's ``configs/base.py`` (same
 names, defaults, layer kinds and parameter counts), kept as a copy so the
 port never imports it; ``act_dtype`` is a torch dtype here.  Only the
-configs the port can run register (``configs/gemma2_2b.py``).
+configs the port can run register: gemma2-2b, granite-20b, qwen2-7b,
+qwen3-32b, olmoe-1b-7b and phi3.5-moe.
 """
 from __future__ import annotations
 

@@ -93,44 +93,58 @@ def classifier_state_from_jax(tree, name: str) -> dict:
     return state
 
 
+def _lm_leaf(a, g=None, transpose=False):
+    """A load of one leaf: an array (crossing over as float32), a torch
+    tensor (``init_lm_tree``'s, on any device, staying there) or a lazy
+    leaf (a call that draws it); slice ``g`` of a group-stacked leaf; (in,
+    out) matrices transposed to ``nn.Linear``'s (out, in), as a view."""
+    def load():
+        t = a() if callable(a) else a
+        t = (t.float() if isinstance(t, torch.Tensor)
+             else torch.tensor(np.asarray(t, np.float32)))
+        t = t if g is None else t[g]
+        return t.T if transpose else t
+    return load
+
+
+def lm_layer_items(prefix: str, node, g=None):
+    """(state name, load) of every leaf of a subtree of the reference's LM
+    tree.  Dense ``w`` (and the MLP's bare ``w_up``, ``w_gate``,
+    ``w_down``) is (in, out) there and (out, in) in ``nn.Linear``; the
+    MoE's leaves (``w_router`` (d, E), the experts (E, in, out)) keep the
+    reference's layout; norms carry ``scale`` in both."""
+    if not isinstance(node, dict):         # the MLP's bare (in, out) matrices
+        yield f"{prefix}weight", _lm_leaf(node, g, True)
+    elif "w_router" in node:
+        for k, v in node.items():
+            yield f"{prefix}{k}", _lm_leaf(v, g)
+    elif "w" in node:
+        yield f"{prefix}weight", _lm_leaf(node["w"], g, True)
+        if "b" in node:
+            yield f"{prefix}bias", _lm_leaf(node["b"], g)
+    elif "scale" in node:
+        yield f"{prefix}scale", _lm_leaf(node["scale"], g)
+    else:
+        for k, v in node.items():
+            yield from lm_layer_items(f"{prefix}{k}.", v, g)
+
+
+def lm_state_items(params, cfg):
+    """(state name, load) of every leaf of an ``init_lm``-shaped tree;
+    ``params["groups"]``, where present, holds ``p0..p{period-1}``, each
+    stacked along a leading ``num_groups`` axis: absolute layer
+    ``g · period + p`` takes slice g of ``p{p}``."""
+    yield "embedding", _lm_leaf(params["embed"]["embedding"])
+    yield from lm_layer_items("final_norm.", params["final_norm"])
+    if "lm_head" in params:
+        yield from lm_layer_items("lm_head.", params["lm_head"])
+    for g in range(cfg.num_groups if "groups" in params else 0):
+        for p in range(cfg.period):
+            yield from lm_layer_items(f"layers.{g * cfg.period + p}.",
+                                      params["groups"][f"p{p}"], g)
+
+
 def lm_state_from_jax(params, cfg) -> dict:
     """``init_lm(key, cfg)`` tree (the reference's, or the port's
-    ``init_lm_tree``) → ``LM.load_state_dict`` input.
-
-    ``params["groups"]`` holds ``p0..p{period-1}``, each stacked along a
-    leading ``num_groups`` axis; absolute layer ``g · period + p`` takes
-    slice g of ``p{p}``.  Dense ``w`` (and the MLP's bare ``w_up``,
-    ``w_gate``, ``w_down``) is (in, out) there and (out, in) in
-    ``nn.Linear``; norms carry ``scale`` in both."""
-    def tensor(a):
-        # a tree of torch tensors (``init_lm_tree``'s, on any device) stays
-        # where it is; arrays cross over as float32
-        if isinstance(a, torch.Tensor):
-            return a.float()
-        return torch.tensor(np.asarray(a, np.float32))
-
-    state = {"embedding": tensor(params["embed"]["embedding"])}
-
-    def walk(prefix: str, node, g=None) -> None:
-        def leaf(a):
-            a = tensor(a)
-            return a if g is None else a[g]
-        if not isinstance(node, dict):     # the MLP's bare (in, out) matrices
-            state[f"{prefix}weight"] = leaf(node).T.contiguous()
-        elif "w" in node:
-            state[f"{prefix}weight"] = leaf(node["w"]).T.contiguous()
-            if "b" in node:
-                state[f"{prefix}bias"] = leaf(node["b"])
-        elif "scale" in node:
-            state[f"{prefix}scale"] = leaf(node["scale"])
-        else:
-            for k, v in node.items():
-                walk(f"{prefix}{k}.", v, g)
-
-    walk("final_norm.", params["final_norm"])
-    if "lm_head" in params:
-        walk("lm_head.", params["lm_head"])
-    for g in range(cfg.num_groups):
-        for p in range(cfg.period):
-            walk(f"layers.{g * cfg.period + p}.", params["groups"][f"p{p}"], g)
-    return state
+    ``init_lm_tree``) → ``LM.load_state_dict`` input."""
+    return {name: load() for name, load in lm_state_items(params, cfg)}

@@ -57,6 +57,29 @@ def _dense(d_in: int, d_out: int, device, *, bias: bool = True) -> nn.Linear:
                               device=device)
 
 
+def bf16_dense(lin: nn.Linear, x):
+    """``lin(x)`` with bf16 operands and fp32 accumulation, the fp32 bias
+    added after the product: the reference's ``_dense_act(..., bf16=True)``
+    (``dot_general`` with ``preferred_element_type=float32``).  On the card
+    one ``torch.mm(..., out_dtype=float32)`` on the tensor cores; on the CPU,
+    which has no such GEMM, both operands rounded to bf16 and multiplied in
+    fp32, the same function (a product of two bf16 values is exact in
+    fp32).  Counts its calls in ``bf16_dense.calls``."""
+    bf16_dense.calls += 1
+    xb = x.to(torch.bfloat16).reshape(-1, x.shape[-1])
+    wb = lin.weight.to(torch.bfloat16).T
+    if x.is_cuda:
+        y = torch.mm(xb, wb, out_dtype=torch.float32)
+    else:
+        y = xb.float() @ wb.float()
+    if lin.bias is not None:
+        y = y + lin.bias
+    return y.view(*x.shape[:-1], -1)
+
+
+bf16_dense.calls = 0
+
+
 def _kernel_attention(q, k, v):
     return fa_ops.flash_attention(q, k, v, causal=False)
 
@@ -84,7 +107,10 @@ class DiT(nn.Module):
 
     The LayerNorm + modulation sites and the attention go through the
     kernel wrappers (``kernels/adaln_norm``, ``kernels/flash_attention``),
-    which launch the hand-written kernels on CUDA tensors.  A model whose
+    which launch the hand-written kernels on CUDA tensors; with
+    ``dc.bf16_act`` its QKV, output and MLP GEMMs take bf16 operands with
+    fp32 accumulation (``bf16_dense``), as the reference's fused path does
+    under the flag.  A model whose
     ``plain`` attribute is set runs the plain PyTorch versions instead, on
     any device: it is the reference the kernel path is held against.
 
@@ -120,10 +146,15 @@ class DiT(nn.Module):
 
     def forward(self, x_t, t, y=None):
         dc = self.dc
-        if dc.bf16_act:
-            raise NotImplementedError("bf16_act is not ported yet")
         norm = adaln_ref.adaln_norm if self.plain else adaln_ops.adaln_norm
         attend = _plain_attention if self.plain else _kernel_attention
+        # bf16_act acts on the kernel path only, as on the reference's fused
+        # path: the QKV, output and MLP GEMMs in bf16 with fp32 accumulation
+        if dc.bf16_act and not self.plain:
+            dense = bf16_dense
+        else:
+            def dense(lin, v):
+                return lin(v)
         B, H, W, C = x_t.shape
         p, d, nh = dc.patch, dc.d_model, dc.num_heads
         tok = self.patch_in(patchify(x_t, p)) + self.pos
@@ -140,12 +171,13 @@ class DiT(nn.Module):
             sa_shift, sa_scale, sa_gate, ml_shift, ml_scale, ml_gate = \
                 blk.mod(c).chunk(6, dim=-1)
             h = norm(tok, sa_scale, sa_shift)
-            qkv = blk.wqkv(h).view(B, -1, 3, nh, d // nh)
+            qkv = dense(blk.wqkv, h).view(B, -1, 3, nh, d // nh)
             o = attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-            tok = tok + sa_gate[:, None] * blk.wo(o.reshape(B, -1, d))
+            tok = tok + sa_gate[:, None] * dense(blk.wo, o.reshape(B, -1, d))
             h = norm(tok, ml_scale, ml_shift)
             # the reference's gelu is the tanh form; torch defaults to erf
-            h = blk.w_down(F.gelu(blk.w_up(h), approximate="tanh"))
+            h = dense(blk.w_down, F.gelu(dense(blk.w_up, h),
+                                         approximate="tanh"))
             tok = tok + ml_gate[:, None] * h
 
         shift, scale = self.out_mod(c).chunk(2, dim=-1)

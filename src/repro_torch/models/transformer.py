@@ -1,14 +1,14 @@
 """The LM zoo's sequence model: the JAX package's ``models/transformer.py``
-as one ``nn.Module``, for its dense attention stacks (gemma2, and the
-llama/qwen flavours' qkv bias and qk-norm).
+as one ``nn.Module``, for its attention stacks with dense or MoE FFNs
+(gemma2, granite, the qwens, olmoe, phi3.5-moe).
 
 The reference stacks the layers of each period position along a leading
 ``num_groups`` axis and scans over groups; the port keeps one module per
 layer in absolute order (layer ``g · period + p`` is group g's position p;
 ``convert.lm_state_from_jax`` maps the one onto the other).  Mamba, mLSTM
-and sLSTM mixers, MoE FFNs, the audio and vision frontends and the
-encoder head come with later slices and raise ``NotImplementedError``
-here; so does ``loss_fn``, which comes with training.
+and sLSTM mixers, the audio and vision frontends and the encoder head come
+with later slices and raise ``NotImplementedError`` here; so does
+``loss_fn``, which comes with training.
 
 Weights are held in the activation dtype (the reference holds fp32 and
 casts each to it at use, which rounds the same way); norm scales stay fp32.
@@ -17,18 +17,21 @@ the reference's initial weights from a threefry key.
 """
 from __future__ import annotations
 
+import functools
+import itertools
+
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch import prng
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
-from repro_torch.convert import lm_state_from_jax
+from repro_torch.convert import lm_layer_items, lm_state_items
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (MLP, Dense, RMSNorm, embed,
                                        init_embedding, unembed)
-from repro_torch.models.moe import Parallel
+from repro_torch.models.moe import MoE, Parallel, moe_apply
 from repro_torch.utils import resolve_device
 from repro_torch.utils import softcap as _softcap
 
@@ -45,22 +48,30 @@ class Layer(nn.Module):
         if kind not in (ATTN, ATTN_LOCAL):
             raise NotImplementedError(
                 f"{cfg.name}: {kind} layers come with {_LATER.get(kind, kind)}")
-        if cfg.uses_moe(p):
-            raise NotImplementedError(f"{cfg.name}: MoE FFNs come with the "
-                                      "MoE slice")
         dev = kw["device"]
         self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
         self.mixer = attn_mod.Attention(cfg, **kw)
-        self.norm2 = self.mlp = self.post_norm1 = self.post_norm2 = None
-        if cfg.d_ff > 0:
+        self.norm2 = self.mlp = self.moe = None
+        self.post_norm1 = self.post_norm2 = None
+        has_ffn = _has_ffn(cfg, p)
+        if has_ffn:
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.mlp_act,
-                           **kw)
+            if cfg.uses_moe(p):
+                self.moe = MoE(cfg, **kw)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                               cfg.mlp_act, **kw)
         if cfg.post_norms:
             self.post_norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
-            if self.mlp is not None:
+            if has_ffn:
                 self.post_norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
+
+
+def _has_ffn(cfg: ModelConfig, p: int) -> bool:
+    """The reference's rule for an attention layer: an MoE FFN, or a dense
+    one where ``d_ff > 0`` (olmoe and phi3.5 have ``d_ff = 0``)."""
+    return cfg.uses_moe(p) or cfg.d_ff > 0
 
 
 class LM(nn.Module):
@@ -112,8 +123,10 @@ class LM(nn.Module):
 
     def _apply_layer(self, layer: Layer, x, pos, par: Parallel, mode: str,
                      cache=None, decode_pos=None):
-        """mode: train | prefill | decode.  Returns (x, new_cache)."""
+        """mode: train | prefill | decode.  Returns (x, aux, new_cache),
+        aux the MoE router's load-balance loss (None without an MoE)."""
         cfg = self.cfg
+        aux = None
         h = layer.norm1(x)
         new_cache = None
         if mode == "decode":
@@ -129,12 +142,16 @@ class LM(nn.Module):
         if cfg.post_norms:
             h = layer.post_norm1(h)
         x = x + h
-        if layer.mlp is not None:
-            h = layer.mlp(layer.norm2(x))
+        if layer.norm2 is not None:
+            h = layer.norm2(x)
+            if layer.moe is not None:
+                h, aux = moe_apply(layer.moe, cfg, h, par)
+            else:
+                h = layer.mlp(h)
             if cfg.post_norms:
                 h = layer.post_norm2(h)
             x = x + h
-        return x, new_cache
+        return x, aux, new_cache
 
     def _readout(self, x):
         cfg = self.cfg
@@ -153,14 +170,17 @@ class LM(nn.Module):
 
         Returns (logits, aux_loss) for mode="train"; (logits, aux_loss,
         caches) for mode="prefill", caches a list of one ``KVCache`` of
-        (B, S, n_kv, head_dim) per layer.  ``aux_loss`` is the MoE
-        router's, 0 for these dense stacks."""
+        (B, S, n_kv, head_dim) per layer.  ``aux_loss`` sums the MoE
+        routers' load-balance losses over the layers (0 for dense
+        stacks)."""
         x, pos = self._embed_inputs(tokens)
         caches = []
-        for layer in self.layers:
-            x, c = self._apply_layer(layer, x, pos, par, mode)
-            caches.append(c)
         aux = torch.zeros((), device=x.device)
+        for layer in self.layers:
+            x, aux_l, c = self._apply_layer(layer, x, pos, par, mode)
+            if aux_l is not None:
+                aux = aux + aux_l
+            caches.append(c)
         if mode == "prefill" and par.prefill_last_only:
             # serving: only the last position's logits start decode
             return self._readout(x[:, -1:, :]), aux, caches
@@ -186,8 +206,8 @@ class LM(nn.Module):
         x = self._scale_embed(embed(self.embedding, tokens,
                                     self.cfg.act_dtype))
         for layer, cache in zip(self.layers, caches):
-            x, _ = self._apply_layer(layer, x, None, par, "decode",
-                                     cache=cache, decode_pos=pos)
+            x, _, _ = self._apply_layer(layer, x, None, par, "decode",
+                                        cache=cache, decode_pos=pos)
         return self._readout(x), caches
 
 
@@ -218,10 +238,13 @@ def _draw(fn, keys, shape, device) -> torch.Tensor:
     return out.reshape(*batch, *shape)
 
 
-def _lecun(keys, shape, device) -> torch.Tensor:
+def _lecun(keys, shape, device, fan_in_axes=(0,)) -> torch.Tensor:
     """The reference's ``lecun_init``: a truncated normal on [-2, 2] times
-    1/sqrt(shape[0])."""
-    std = float(np.float32(1.0 / np.sqrt(max(shape[0], 1))))
+    1/sqrt(fan-in), the fan-in the product of ``shape`` over
+    ``fan_in_axes`` (axis 0 by default, also for the (E, d, fe) experts,
+    whose std is 1/sqrt(E) there)."""
+    fan_in = int(np.prod([shape[a] for a in fan_in_axes]))
+    std = float(np.float32(1.0 / np.sqrt(max(fan_in, 1))))
     return _draw(lambda k, s, d, o: prng.truncated_normal(k, -2.0, 2.0, s, d,
                                                           o),
                  keys, shape, device).mul_(std)
@@ -231,11 +254,36 @@ def _zeros(keys, shape, device) -> torch.Tensor:
     return torch.zeros((*keys.shape[:-1], *shape), device=device)
 
 
+def _normal(keys, shape, device, stddev: float) -> torch.Tensor:
+    return _draw(prng.normal, keys, shape, device).mul_(
+        float(np.float32(stddev)))
+
+
+# The trees below hold LAZY leaves: each is a zero-argument call that draws
+# it, so that ``init_lm`` can draw one leaf, load it and drop it before the
+# next (``init_lm_tree`` calls them all).
+lazy = functools.partial
+
+
 def _dense(keys, d_in: int, d_out: int, device, bias: bool = False) -> dict:
     kw, _ = np.moveaxis(prng.split(keys), -2, 0)
-    p = {"w": _lecun(kw, (d_in, d_out), device)}
+    p = {"w": lazy(_lecun, kw, (d_in, d_out), device)}
     if bias:
-        p["b"] = _zeros(keys, (d_out,), device)
+        p["b"] = lazy(_zeros, keys, (d_out,), device)
+    return p
+
+
+def _moe_tree(keys, cfg: ModelConfig, device) -> dict:
+    """The reference's ``init_moe``: ``split(key, 4)`` gives the router,
+    up, down and gate."""
+    m = cfg.moe
+    d, fe, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    ks = np.moveaxis(prng.split(keys, 4), -2, 0)
+    p = {"w_router": lazy(_lecun, ks[0], (d, E), device),
+         "experts_up": lazy(_lecun, ks[1], (E, d, fe), device),
+         "experts_down": lazy(_lecun, ks[2], (E, fe, d), device, (1,))}
+    if cfg.gated_mlp:
+        p["experts_gate"] = lazy(_lecun, ks[3], (E, d, fe), device)
     return p
 
 
@@ -252,53 +300,87 @@ def _layer_tree(keys, cfg: ModelConfig, p: int, device) -> dict:
                           cfg.qkv_bias),
              "wo": _dense(a[3], cfg.num_heads * hd, d, device)}
     if cfg.qk_norm:
-        mixer["q_norm"] = {"scale": _zeros(a[4], (hd,), device)}
-        mixer["k_norm"] = {"scale": _zeros(a[5], (hd,), device)}
-    layer = {"norm1": {"scale": _zeros(ks[0], (d,), device)}, "mixer": mixer}
-    if cfg.d_ff > 0:
-        layer["norm2"] = {"scale": _zeros(ks[2], (d,), device)}
-        m = np.moveaxis(prng.split(ks[3], 3), -2, 0)
-        layer["mlp"] = {"w_up": _lecun(m[0], (d, cfg.d_ff), device),
-                        "w_down": _lecun(m[1], (cfg.d_ff, d), device)}
-        if cfg.gated_mlp:
-            layer["mlp"]["w_gate"] = _lecun(m[2], (d, cfg.d_ff), device)
+        mixer["q_norm"] = {"scale": lazy(_zeros, a[4], (hd,), device)}
+        mixer["k_norm"] = {"scale": lazy(_zeros, a[5], (hd,), device)}
+    layer = {"norm1": {"scale": lazy(_zeros, ks[0], (d,), device)},
+             "mixer": mixer}
+    has_ffn = _has_ffn(cfg, p)
+    if has_ffn:
+        layer["norm2"] = {"scale": lazy(_zeros, ks[2], (d,), device)}
+        if cfg.uses_moe(p):
+            layer["moe"] = _moe_tree(ks[3], cfg, device)
+        else:
+            m = np.moveaxis(prng.split(ks[3], 3), -2, 0)
+            layer["mlp"] = {
+                "w_up": lazy(_lecun, m[0], (d, cfg.d_ff), device),
+                "w_down": lazy(_lecun, m[1], (cfg.d_ff, d), device)}
+            if cfg.gated_mlp:
+                layer["mlp"]["w_gate"] = lazy(_lecun, m[2], (d, cfg.d_ff),
+                                              device)
     if cfg.post_norms:
-        layer["post_norm1"] = {"scale": _zeros(ks[4], (d,), device)}
-        if cfg.d_ff > 0:
-            layer["post_norm2"] = {"scale": _zeros(ks[5], (d,), device)}
+        layer["post_norm1"] = {"scale": lazy(_zeros, ks[4], (d,), device)}
+        if has_ffn:
+            layer["post_norm2"] = {"scale": lazy(_zeros, ks[5], (d,),
+                                                 device)}
     return layer
+
+
+def _lazy_tree(key, cfg: ModelConfig, device):
+    """The reference's ``init_lm`` key layout: ``key, gkey = split(key)``;
+    ``split(key, 5)`` gives the embedding (0.02·normal), the final norm
+    (zeros) and the head; ``split(gkey, num_groups)`` one key a group, each
+    split by ``period`` into its layers' keys.  Returns (the tree without
+    ``groups``, the layer keys (num_groups, period, 2))."""
+    LM(cfg, device="meta")                # refuses what the LM refuses
+    key, gkey = prng.split(np.asarray(key, np.uint32))
+    ks = prng.split(key, 5)
+    top = {"embed": {"embedding": lazy(_normal, ks[0], (
+               cfg.padded_vocab, cfg.d_model), device, 0.02)},
+           "final_norm": {"scale": lazy(_zeros, ks[3], (cfg.d_model,),
+                                        device)}}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = _dense(ks[4], cfg.d_model, cfg.padded_vocab, device)
+    return top, prng.split(prng.split(gkey, cfg.num_groups), cfg.period)
+
+
+def _drawn(node):
+    if isinstance(node, dict):
+        return {k: _drawn(v) for k, v in node.items()}
+    return node()
 
 
 def init_lm_tree(key, cfg: ModelConfig, device=None) -> dict:
     """The reference's ``init_lm(key, cfg)`` tree, drawn on ``device`` (the
-    card unless the caller passes ``"cpu"``) in float32, leaf by leaf:
-    ``key, gkey = split(key)``; ``split(key, 5)`` gives the embedding
-    (0.02·normal), the final norm (zeros) and the head; ``split(gkey,
-    num_groups)`` one key a group, each split by ``period`` into its
-    layers' keys.  Within a few ulps of the reference (``prng.normal``,
+    card unless the caller passes ``"cpu"``) in float32, leaf by leaf.
+    Within a few ulps of the reference (``prng.normal``,
     ``prng.truncated_normal``)."""
-    LM(cfg, device="meta")                # refuses what the LM refuses
     device = resolve_device(device)
-    key, gkey = prng.split(np.asarray(key, np.uint32))
-    ks = prng.split(key, 5)
-    emb = _draw(prng.normal, ks[0], (cfg.padded_vocab, cfg.d_model), device)
-    params = {"embed": {"embedding": emb.mul_(float(np.float32(0.02)))},
-              "final_norm": {"scale": _zeros(ks[3], (cfg.d_model,), device)}}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _dense(ks[4], cfg.d_model, cfg.padded_vocab,
-                                   device)
-    lkeys = prng.split(prng.split(gkey, cfg.num_groups), cfg.period)
-    params["groups"] = {f"p{p}": _layer_tree(lkeys[:, p], cfg, p, device)
+    top, lkeys = _lazy_tree(key, cfg, device)
+    params = _drawn(top)
+    params["groups"] = {f"p{p}": _drawn(_layer_tree(lkeys[:, p], cfg, p,
+                                                    device))
                         for p in range(cfg.period)}
     return params
 
 
 def init_lm(key, cfg: ModelConfig, device=None) -> LM:
     """An ``LM`` on ``device`` holding the reference's initial weights for
-    ``key`` (``init_lm_tree``, loaded through
-    ``convert.lm_state_from_jax`` and cast to the activation dtype)."""
+    ``key``: ``init_lm_tree``'s leaves, drawn one at a time in float32 and
+    loaded into the allocated parameters (cast to the activation dtype),
+    group by group.  Under the reference's ``vmap`` each group's draws are
+    its own key's, so a group drawn alone gives the same bits; the peak is
+    the model plus one leaf in float32."""
     device = resolve_device(device)
     lm = LM(cfg, device=device)
-    tree = init_lm_tree(key, cfg, device)
-    lm.load_state_dict(lm_state_from_jax(tree, cfg))
+    state = lm.state_dict()
+    top, lkeys = _lazy_tree(key, cfg, device)
+    items = [lm_state_items(top, cfg)]
+    for g in range(cfg.num_groups):
+        for p in range(cfg.period):
+            items.append(lm_layer_items(
+                f"layers.{g * cfg.period + p}.",
+                _layer_tree(lkeys[g:g + 1, p], cfg, p, device), 0))
+    with torch.no_grad():
+        for name, load in itertools.chain(*items):
+            state[name].copy_(load())
     return lm

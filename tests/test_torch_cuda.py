@@ -9,6 +9,7 @@ so it also runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1515,3 +1516,151 @@ def test_failover_discarding_launched_windows_leaves_no_hazard(dev):
     replay, off, err = child.stdout.split()
     assert (replay, off) == ("1", "1")
     assert float(err) <= 2e-2
+
+
+# -- slice 14: the DiT's bf16_act path, MoE FFNs --------------------------------
+
+def test_bf16_act_kernel_path_holds_the_reference_gate(dev):
+    """The paper preset's DiT (4 layers, 4 heads of 36, 16 px, batch 64)
+    with ``bf16_act`` on the kernel path (its four GEMMs a block on the
+    tensor cores, bf16 operands into fp32) against the plain fp32 path,
+    at the reference's own bf16 gate (``tests/test_dit_fused.py``):
+    max|Δ| < 2e-2·max(max|y|, 1).  The GEMMs are counted; attention stays
+    on the short fp32 kernel."""
+    from repro_torch.diffusion import dit as dit_mod
+    dc = DiffusionConfig(d_model=144, num_layers=4, num_heads=4)
+    model = init_dit(prng.PRNGKey(0), dc, 16, 3, device=dev)
+    with torch.no_grad():
+        for i, p in enumerate(model.parameters()):
+            p.add_(0.05 * _randn(dev, 60 + i, p.shape)[0])
+    plain = copy.deepcopy(model)
+    plain.plain = True
+    model.dc = dataclasses.replace(dc, bf16_act=True)
+    x, y = _randn(dev, 61, (64, 16, 16, 3), (64, 512))
+    t = torch.arange(64, device=dev) * 15
+    calls, short = (dit_mod.bf16_dense.calls,
+                    fa_ops.flash_attention.launches_short)
+    with torch.inference_mode():
+        out = model(x, t, y)
+        ref = plain(x, t, y)
+    assert dit_mod.bf16_dense.calls - calls == 4 * dc.num_layers
+    assert fa_ops.flash_attention.launches_short - short == dc.num_layers
+    scale = max(float(ref.abs().max()), 1.0)
+    err = _err(out, ref)
+    assert out.dtype == torch.float32 and float(ref.abs().max()) > 1e-2
+    assert 0 < err < 2e-2 * scale, err
+
+
+def _moe_smoke(dev, dtype="bfloat16"):
+    from repro_torch.configs import shapes
+    return shapes.smoke_config(get_config("olmoe-1b-7b")).replace(
+        dtype=dtype)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(dev):
+    """An olmoe-smoke MoE layer in bf16 (4 experts top-2, d 256) on 64
+    tokens, card against CPU on the same weights and inputs: the same
+    experts for every token, and the output within two bf16 ulps of its
+    largest value (each expert GEMM and combine add rounds to bf16; the two
+    devices sum in another order)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import init_lm
+    cfg = _moe_smoke(dev)
+    mod = init_lm(prng.PRNGKey(3), cfg, device="cpu").layers[0].moe
+    x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(3)).bfloat16()
+    outs, idxs = [], []
+    for d in ("cpu", dev):
+        m = copy.deepcopy(mod).to(d)
+        with torch.inference_mode():
+            out, aux = moe_mod.moe_apply(m, cfg, x.to(d))
+            idxs.append(moe_mod.route(m.w_router, x.to(d).reshape(
+                -1, cfg.d_model), cfg.moe)[1].cpu())
+        outs.append((out.float().cpu(), float(aux)))
+    assert torch.equal(idxs[0], idxs[1])
+    scale = float(outs[0][0].abs().max())
+    assert _err(outs[1][0], outs[0][0]) <= 2.0 ** -6 * scale
+    assert abs(outs[0][1] - outs[1][1]) < 1e-5
+
+
+def test_olmoe_smoke_prefill_on_the_card_matches_the_cpu(dev):
+    """olmoe-smoke in bf16 on ``init_lm``'s CPU weights: a 2 × 40 prefill
+    on the card (flash attention on the tensor cores) against the CPU's
+    plain route.  Every (token, layer) picks the same experts, except
+    where the CPU's router logits at the top-2 boundary lie within two
+    bf16 ulps of each other (a rounding the card may take otherwise: 4 of
+    the 160 pairs on the CPU, most of them exact ties; the count is
+    printed); the
+    last-position logits agree to 2^-4 of their largest value (bf16
+    residuals through two layers)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import init_lm
+    cfg = _moe_smoke(dev)
+    lm = init_lm(prng.PRNGKey(4), cfg, device="cpu").eval()
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 40)))
+    route = moe_mod.route
+    seen = []
+
+    def recorded(w, x_flat, m):
+        out = route(w, x_flat, m)
+        seen.append((out[1].cpu(), (x_flat @ w.to(x_flat.dtype)).float()
+                     .cpu()))
+        return out
+
+    moe_mod.route = recorded
+    try:
+        last = {}
+        for d in ("cpu", dev):
+            m = copy.deepcopy(lm).to(d)
+            before = fa_ops.flash_attention.launches_tensor_core
+            with torch.inference_mode():
+                last[d] = m(toks.to(d), Parallel(prefill_last_only=True),
+                            mode="prefill")[0][:, -1].float().cpu()
+            if d != "cpu":
+                assert (fa_ops.flash_attention.launches_tensor_core - before
+                        == cfg.num_layers)
+    finally:
+        moe_mod.route = route
+    assert len(seen) == 2 * cfg.num_layers
+    near = 0
+    for (cpu_idx, cpu_logits), (card_idx, _) in zip(seen[:2], seen[2:]):
+        differ = (cpu_idx.sort(-1).values != card_idx.sort(-1).values
+                  ).any(-1)
+        top = cpu_logits.sort(-1, descending=True).values
+        k = cfg.moe.top_k
+        gap = top[:, k - 1] - top[:, k]
+        close = gap <= 2 * 2.0 ** -7 * top[:, k - 1].abs()
+        near += int(close.sum())
+        assert not bool((differ & ~close).any())
+    print(f"olmoe-smoke prefill: {near} (token, layer) pairs within two "
+          f"bf16 ulps at the top-2 boundary")
+    scale = float(last["cpu"].abs().max())
+    assert scale > 1e-2
+    assert _err(last[dev], last["cpu"]) <= 2.0 ** -4 * scale
+
+
+def test_stable_top_k_on_the_card_breaks_ties_lower_first(dev):
+    """bf16 router logits that tie three ways at the top-2 boundary on
+    every token (experts 3, 5 and 6 share a column): the card picks expert
+    3 second, as ``jax.lax.top_k`` does, and ranks all eight experts as the
+    CPU does."""
+    from repro_torch.models import moe as moe_mod
+    cfg = _moe_smoke(dev).replace(
+        moe=dataclasses.replace(_moe_smoke(dev).moe, num_experts=8))
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((48, 64), generator=g).abs()
+    u = torch.randn((64,), generator=g).abs() / 64
+    w = u[:, None] * torch.tensor([3, 1, 0.5, 2, -1, 2, 2, 1.5])[None]
+    got = {}
+    for d in ("cpu", dev):
+        xb = x.to(d).bfloat16()
+        logits = (xb @ w.to(d).bfloat16()).float()
+        assert torch.equal(logits[:, 3], logits[:, 5])
+        gates, idx, _ = moe_mod.route(w.to(d), xb, cfg.moe)
+        got[d] = (idx.cpu(), gates.cpu(),
+                  moe_mod.top_k_lower_first(logits, 8)[1].cpu())
+    assert got[dev][0][:, 1].tolist() == [3] * 48
+    assert torch.equal(got[dev][0], got["cpu"][0])
+    assert torch.equal(got[dev][2], got["cpu"][2])
+    assert _err(got[dev][1], got["cpu"][1]) < 1e-6

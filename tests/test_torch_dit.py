@@ -128,11 +128,70 @@ def test_dit_past_the_short_route_matches_the_reference():
     assert np.max(np.abs(out - fused)) < TOL
 
 
-def test_bf16_act_is_not_ported():
-    model = tdit.DiT(DiffusionConfig(d_model=32, num_layers=1, num_heads=2,
-                                     bf16_act=True), 16, 3, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 16, 16, 3), torch.zeros(1, dtype=torch.int64))
+def _bf16_case():
+    """The paper preset's head dim (36) at two layers, perturbed params, a
+    given and a null conditioning row."""
+    dc = dict(d_model=72, num_layers=2, num_heads=2, patch=4)
+    params = perturbed_params(JDiffusionConfig(**dc), 16, seed=9)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 16, 16, 3)).astype(np.float32)
+    t = rng.integers(0, 1000, 3).astype(np.int32)
+    y = rng.standard_normal((3, 512)).astype(np.float32)
+    return dc, params, x, t, y
+
+
+def test_bf16_act_matches_the_reference_fused_path():
+    """The kernel path under ``bf16_act`` (on the CPU: the operands rounded
+    to bf16 and multiplied in fp32) against the reference's
+    ``dit_apply(use_pallas=True)`` under ``bf16_act`` (``dot_general`` of
+    bf16 operands into fp32).  The same function (one GEMM of the preset's
+    shape agrees to 1.7e-6 at |y| ≤ 6.6), but the two packages' fp32
+    operands differ by ulps (the timestep features by up to 6e-5), and an
+    operand that straddles a bf16 rounding boundary rounds to the other
+    neighbour: one such flip moves its products by a bf16 ulp, as much as
+    bf16 rounding itself does.  So the gate is the reference's own
+    bf16-vs-fp32 distance on the same input (its test holds that at 2e-2
+    of the output's size), halved: measured 1.2e-3 against 3.8e-3."""
+    dc, params, x, t, y = _bf16_case()
+    args = (jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
+    ref16 = np.asarray(jdit.dit_apply(
+        params, JDiffusionConfig(**dc, bf16_act=True), *args,
+        use_pallas=True))
+    ref32 = np.asarray(jdit.dit_apply(params, JDiffusionConfig(**dc), *args))
+    dist = float(np.max(np.abs(ref16 - ref32)))
+    model = port_model(params, {**dc, "bf16_act": True}, 16)
+    calls = tdit.bf16_dense.calls
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(t),
+                    torch.from_numpy(y)).numpy()
+    err = float(np.max(np.abs(out - ref16)))
+    print(f"bf16_act: port vs the reference's bf16 path {err:.3g}; the "
+          f"reference's bf16 vs fp32 path {dist:.3g}")
+    assert tdit.bf16_dense.calls - calls == 4 * dc["num_layers"]
+    assert out.dtype == np.float32 and np.max(np.abs(ref32)) > 1e-2
+    assert dist > 1e-4, "bf16 operands left the output unchanged"
+    assert err <= dist / 2
+
+
+def test_bf16_act_does_nothing_on_the_plain_model():
+    """As on the reference's naive path, the flag is inert without the
+    kernel path: the plain model gives the same bits with and without it,
+    and matches the reference's naive path under the flag at 2e-5."""
+    dc, params, x, t, y = _bf16_case()
+    want = np.asarray(jdit.dit_apply(
+        params, JDiffusionConfig(**dc, bf16_act=True), jnp.asarray(x),
+        jnp.asarray(t), jnp.asarray(y)))
+    outs = []
+    for flag in (True, False):
+        model = port_model(params, {**dc, "bf16_act": flag}, 16)
+        model.plain = True
+        calls = tdit.bf16_dense.calls
+        with torch.no_grad():
+            outs.append(model(torch.from_numpy(x), torch.from_numpy(t),
+                              torch.from_numpy(y)).numpy())
+        assert tdit.bf16_dense.calls == calls
+    assert np.array_equal(outs[0], outs[1])
+    assert np.max(np.abs(outs[0] - want)) < TOL
 
 
 def test_port_init_is_adaln_zero():

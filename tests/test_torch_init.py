@@ -139,16 +139,20 @@ def test_classifier_init_matches_the_reference(name):
                                                     device="meta"))
 
 
-LM_VARIANTS = {"gemma2": {}, "head_bias_qknorm": dict(
-    num_kv_heads=2, qkv_bias=True, qk_norm=True, tie_embeddings=False)}
+LM_VARIANTS = {"gemma2": ("gemma2-2b", {}),
+               "head_bias_qknorm": ("gemma2-2b", dict(
+                   num_kv_heads=2, qkv_bias=True, qk_norm=True,
+                   tie_embeddings=False)),
+               "granite": ("granite-20b", {}), "qwen2": ("qwen2-7b", {}),
+               "qwen3": ("qwen3-32b", {})}
 
 
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("variant", list(LM_VARIANTS))
 def test_init_lm_matches_the_reference(variant):
-    kw = LM_VARIANTS[variant]
-    jcfg = jshapes.smoke_config(jget_config("gemma2-2b")).replace(**kw)
-    tcfg = tshapes.smoke_config(get_config("gemma2-2b")).replace(**kw)
+    name, kw = LM_VARIANTS[variant]
+    jcfg = jshapes.smoke_config(jget_config(name)).replace(**kw)
+    tcfg = tshapes.smoke_config(get_config(name)).replace(**kw)
     key = jax.random.PRNGKey(11)
     ref = jax.jit(jlm.init_lm, static_argnums=1)(key, jcfg)
     want = lm_state_from_jax(jax.tree.map(np.asarray, ref), tcfg)

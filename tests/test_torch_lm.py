@@ -8,7 +8,11 @@ would leave those paths untested), carried across by
 ``convert.lm_state_from_jax``.  Sizes are ``smoke_config(gemma2-2b)``
 (4 layers, d 256, 4 heads of 64, window 8) with 20-token prompts, so the
 local layers' window masks, and the same config with 2 kv heads, qkv bias
-and qk-norm (GQA and the qwen-style flags).
+and qk-norm (GQA and the qwen-style flags); the LM's prefill and decode
+also run the smoke configs of granite-20b (MQA, qkv bias, a non-gated
+gelu MLP, tied embeddings), qwen2-7b (GQA, qkv bias, rope θ 1e6) and
+qwen3-32b (qk-norm, a q projection wider than d_model), and
+``test_torch_moe.py`` those of the MoE configs.
 
 Tolerance: 2e-5 in fp32 wherever the two packages compute the same
 function, the gate the reference holds its own Pallas kernels to against
@@ -45,16 +49,24 @@ from torch_one_thread import one_thread  # noqa: F401
 
 TOL = 2e-5
 S = 20                                   # > the smoke window of 8
-VARIANTS = {"gemma2": {}, "gqa_bias_qknorm": dict(num_kv_heads=2,
+# variant -> (registered config, fields replaced in its smoke config)
+VARIANTS = {"gemma2": ("gemma2-2b", {}),
+            "gqa_bias_qknorm": ("gemma2-2b", dict(num_kv_heads=2,
                                                   qkv_bias=True,
-                                                  qk_norm=True)}
+                                                  qk_norm=True))}
+LM_VARIANTS = {**VARIANTS, "granite": ("granite-20b", {}),
+               "qwen2": ("qwen2-7b", {}), "qwen3": ("qwen3-32b", {}),
+               "olmoe": ("olmoe-1b-7b", {}),
+               "phi35_moe": ("phi3.5-moe-42b-a6.6b", {})}
+NEW_CONFIGS = ["granite-20b", "qwen2-7b", "qwen3-32b", "olmoe-1b-7b",
+               "phi3.5-moe-42b-a6.6b"]
 
 
 def smoke_pair(variant: str):
     """(reference config, port config) of one variant."""
-    kw = VARIANTS[variant]
-    return (jshapes.smoke_config(jget_config("gemma2-2b")).replace(**kw),
-            tshapes.smoke_config(get_config("gemma2-2b")).replace(**kw))
+    name, kw = LM_VARIANTS[variant]
+    return (jshapes.smoke_config(jget_config(name)).replace(**kw),
+            tshapes.smoke_config(get_config(name)).replace(**kw))
 
 
 def perturbed(tree, seed: int, scale: float = 0.05):
@@ -75,7 +87,8 @@ def lm_pair(variant: str, seed: int = 0):
     return jcfg, tcfg, jax.tree.map(jnp.asarray, params), lm
 
 
-@pytest.fixture(scope="module", params=list(VARIANTS))
+@pytest.fixture(scope="module",
+                params=list(VARIANTS) + ["granite", "qwen2", "qwen3"])
 def pair(request):
     return lm_pair(request.param)
 
@@ -92,7 +105,7 @@ def _err(a, b):
 
 # --- configs ----------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["gemma2-2b", "gemma2-2b-swa"])
+@pytest.mark.parametrize("name", ["gemma2-2b", "gemma2-2b-swa"] + NEW_CONFIGS)
 def test_config_fields_and_derived_values_match_reference(name):
     jc, tc = jget_config(name), get_config(name)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
@@ -113,7 +126,8 @@ def test_config_fields_and_derived_values_match_reference(name):
             jshapes.resolve_decode_config(jc, shape).name
     assert tshapes.smoke_shape("decode", 16, 3) == \
         tbase.InputShape("smoke_decode", 16, 3, "decode")
-    assert set(list_configs()) == {"gemma2-2b", "gemma2-2b-swa"}
+    assert set(list_configs()) == {"gemma2-2b", "gemma2-2b-swa",
+                                   *NEW_CONFIGS}
 
 
 def test_sub_config_defaults_match_reference():
@@ -310,7 +324,6 @@ def test_lm_refuses_unported_layers_and_frontends():
     base = tshapes.smoke_config(get_config("gemma2-2b"))
     for kw, what in ((dict(layer_pattern=("mamba", "attn")), "Mamba"),
                      (dict(layer_pattern=("mlstm", "slstm")), "xLSTM"),
-                     (dict(moe=tbase.MoEConfig(4, 2, 64)), "MoE"),
                      (dict(frontend="vision_patches"), "frontend")):
         with pytest.raises(NotImplementedError, match=what):
             LM(base.replace(**kw), device="cpu")

@@ -1,5 +1,6 @@
 """The port's ``ServeEngine`` against the JAX package's on the same
-parameters (``test_torch_lm.lm_pair``: gemma2-smoke, perturbed): the same
+parameters (``test_torch_lm.lm_pair``: gemma2-smoke and olmoe-smoke, whose
+MoE FFNs route each decode step's B tokens, perturbed): the same
 greedy tokens and the same ``stats`` for an equal-length wave, for mixed
 lengths split into waves, with EOS, and batched against solo.
 
@@ -28,7 +29,8 @@ pytestmark = pytest.mark.usefixtures("one_thread")
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
-@pytest.fixture(scope="module", params=["gemma2", "gqa_bias_qknorm"])
+@pytest.fixture(scope="module", params=["gemma2", "gqa_bias_qknorm",
+                                        "olmoe"])
 def pair(request):
     return lm_pair(request.param, seed=1)
 
