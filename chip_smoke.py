@@ -118,6 +118,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      8f. granite-20b, qwen2-7b and qwen3-32b at full width and 2 layers:
          a bf16 2 × 1024 prefill and 16 decode tokens served twice, and
          the fp32 weights' kernel route against their plain route;
+     8g. jamba-1.5-large at full width (d 8192, GQA 64/8 heads of 128,
+         Mamba d_inner 16384, vocab 65536) with one period of its 72
+         layers (7 Mamba, 1 attention, 4 MoE and 4 dense FFNs) and 8 of
+         its 16 experts, bf16, ``init_lm`` from key 28 on the card: two
+         rounds of 2 × 2048 and 8 × 256 prompts (16 new tokens; one
+         tensor-core flash launch a prefill, 0 expert drops), a traced
+         prefill (Mamba, MoE and flash shares) and decode step, and layer
+         0's Mamba mixer in fp32, card against CPU;
+     8h. xlstm-125m at full width and depth (12 blocks of mLSTM and
+         sLSTM), bf16, key 29: two rounds of 4 × 1024 and 16 × 256
+         prompts (32 new tokens, no flash launch), a traced prefill (the
+         sLSTM time loop's launches) and decode step, and the whole model
+         in fp32, card against CPU (logits and 8 greedy tokens);
   9. the OSCAR pipeline at phase 4's preset and random DiT:
      ``run_oscar`` twice from one key (D_syn and the global ResNet-18
      bit-identical, synthesis and training seconds apart, training
@@ -196,6 +209,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -239,6 +253,11 @@ TOL_ADALN_BF16_ULP = 2.0 ** -7
 # in another order); 26 layers of a random-weight residual stream carry
 # that to the logits (|logit| < 30 after the final soft cap)
 TOL_LM_LOGITS = 1e-3
+# 8d: a (token, layer) pair whose expert set differs between the fp32
+# kernel and plain routes must sit at a near-tie of the router's k-th and
+# (k+1)-th probabilities: within this many fp32 ulps, or within twice how
+# far the routes moved that token's probabilities
+MARGIN_ULPS = 4
 TOL_DIT, TOL_E2E, TOL_E2E_DEEP = 2e-5, 5e-4, 2e-2
 # 3c / 7b: the DiT with bf16_act (bf16 GEMM operands, fp32 accumulation)
 # against the plain fp32 path, the reference's own gate
@@ -505,11 +524,12 @@ def attn_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def device_busy(fn, trace_path: Path, region: str | None = None) -> dict:
+def device_busy(fn, trace_path: Path, region=()) -> dict:
     """Run ``fn`` once under the profiler; the device's busy time is the
-    union of the kernel and copy intervals inside the call's span.  With
-    ``region``, also the device time of the kernels inside the device-side
-    ranges of the ``record_function(region)`` blocks ``fn`` ran."""
+    union of the kernel and copy intervals inside the call's span.  For
+    each name in ``region`` (a name or a tuple of them), also the device
+    time and the count of the kernels inside the device-side ranges of the
+    ``record_function(name)`` blocks ``fn`` ran."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -537,15 +557,18 @@ def device_busy(fn, trace_path: Path, region: str | None = None) -> dict:
     check(busy > 0, "the profiler trace holds no device work")
     traced_wall = (hi - lo) * 1e-6
     extra = {}
-    if region is not None:
-        marks = [(e["ts"], e["ts"] + e["dur"]) for e in events
-                 if e.get("ph") == "X" and e.get("name") == region
-                 and e.get("cat") == "gpu_user_annotation"]
-        inside = sum(b - a for a, b, _ in work if b > a and any(
-            m0 <= a and b <= m1 for m0, m1 in marks))
-        extra = {f"{region}_ranges": len(marks),
-                 f"{region}_device_s": inside * 1e-6 if marks else None,
-                 f"{region}_share_of_busy": inside / busy if marks else None}
+    for name in ((region,) if isinstance(region, str) else region):
+        marks = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("ph") == "X" and e.get("name") == name
+                       and e.get("cat") == "gpu_user_annotation")
+        inner = [b - a for a, b, _ in work if b > a and any(
+            m0 <= a and b <= m1 for m0, m1 in marks)]
+        inside = sum(inner)
+        extra.update({
+            f"{name}_ranges": len(marks),
+            f"{name}_kernels": len(inner),
+            f"{name}_device_s": inside * 1e-6 if marks else None,
+            f"{name}_share_of_busy": inside / busy if marks else None})
     return {**extra, "kernels": len(work), "traced_wall_s": traced_wall,
             "device_busy_s": busy * 1e-6,
             "device_idle_share": 1 - busy * 1e-6 / traced_wall,
@@ -684,16 +707,21 @@ def phase_7c(run, model, model16, fp32_images, fp32_rounds, fns, want: dict,
 
 class RouteLog:
     """While entered, keeps the expert indices (T, k) of every call of
-    ``models/moe.py::route``, on the device, in call order."""
+    ``models/moe.py::route``, on the device, in call order; with
+    ``probs``, also each call's router probabilities (T, E) in fp32."""
 
-    def __init__(self):
+    def __init__(self, probs: bool = False):
         from repro_torch.models import moe as moe_mod
         self.mod, self.route, self.calls = moe_mod, moe_mod.route, []
+        self.probs, self.keep_probs = [], probs
 
     def __enter__(self):
         def recorded(w, x_flat, m):
             out = self.route(w, x_flat, m)
             self.calls.append(out[1])
+            if self.keep_probs:
+                self.probs.append(torch.softmax(
+                    (x_flat @ w.to(x_flat.dtype)).float(), dim=-1))
             return out
         self.mod.route = recorded
         return self
@@ -702,13 +730,20 @@ class RouteLog:
         self.mod.route = self.route
 
 
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` whose mixer is attention: one flash launch
+    each a prefill (jamba 1 a period, xLSTM none)."""
+    return sum(cfg.layer_kind(i) in ("attn", "attn_local")
+               for i in range(cfg.num_layers))
+
+
 def serve_twice(tag: str, cfg, lm, waves: dict, budget: dict, fns: dict,
                 smi: str, log: RouteLog | None = None):
     """Two rounds of ``waves`` (name → prompts) through ``ServeEngine`` in
     the activation dtype, last-position read-out after prefill: stats,
     prefill and decode tokens/s, every flash launch on the tensor-core
-    kernel (one a layer a prefill, none in decode), the other kernels not
-    launched, and the same tokens in both rounds.  With ``log``, each
+    kernel (one an attention layer a prefill, none in decode), the other
+    kernels not launched, and the same tokens in both rounds.  With ``log``, each
     wave's prefill also reports the tokens each expert received (summed
     over layers: min and max) and the drops against capacity.  Returns
     (the rounds, the last engine)."""
@@ -717,6 +752,7 @@ def serve_twice(tag: str, cfg, lm, waves: dict, budget: dict, fns: dict,
     fa = fns["flash_attention"]
     par = Parallel(prefill_last_only=True)
     fwd, stat = lm.forward, {}
+    n_attn = attention_layers(cfg)
 
     def timed_forward(*args, **kwargs):        # the engine's prefill call
         n0 = (fa.launches, fa.launches_tensor_core, fa.launches_cuda_core,
@@ -767,12 +803,12 @@ def serve_twice(tag: str, cfg, lm, waves: dict, budget: dict, fns: dict,
                     len(res[r]) == budget[name] for r in rids),
                     f"{tag} wave {name}: results "
                     f"{[len(res.get(r, [])) for r in rids]}")
-                check(stat["launches"] == stat["tc"] == cfg.num_layers
+                check(stat["launches"] == stat["tc"] == n_attn
                       and stat["cc"] == 0 and stat["decode_launches"] == 0,
                       f"{tag} wave {name}: {stat['launches']} flash launches"
                       f" in prefill ({stat['tc']} on the tensor cores, "
                       f"{stat['cc']} on the CUDA cores; want "
-                      f"{cfg.num_layers}, all on the tensor cores), "
+                      f"{n_attn}, all on the tensor cores), "
                       f"{stat['decode_launches']} in decode (want 0)")
                 out.update(res)
                 w = dict(wave=name, requests=nb, prompt=L,
@@ -808,7 +844,7 @@ def serve_twice(tag: str, cfg, lm, waves: dict, budget: dict, fns: dict,
                        if "expert_tokens" in w else "") + f" ({smi})")
             launches = {name: fn.launches for name, fn in fns.items()}
             want = {name: 0 for name in fns}
-            want["flash_attention"] = len(waves) * cfg.num_layers
+            want["flash_attention"] = len(waves) * n_attn
             check(launches == want, f"{tag} round {rnd}: launches "
                   f"{launches} != expected {want}")
             want_stats = dict(
@@ -822,44 +858,84 @@ def serve_twice(tag: str, cfg, lm, waves: dict, budget: dict, fns: dict,
             rounds.append(dict(round=rnd, waves=per_wave, stats=eng.stats,
                                launches=launches))
     finally:
-        lm.forward = fwd
+        del lm.forward                   # the class's method again, no cycle
     check(tokens[0] == tokens[1], f"{tag}: round 2's tokens differ from "
           "round 1's, same weights and prompts")
     return rounds, eng
 
 
+def differing_expert_sets(experts: dict, probs: dict) -> list:
+    """Each (layer, token) whose sorted expert set (``experts[route]``, a
+    (T, k) tensor a layer) differs between the kernel route (True) and
+    the plain route (False), with the plain route's margin between its
+    k-th and (k+1)-th router probability (``probs[route]``, (T, E) a
+    layer), in fp32 ulps of the k-th too, how far the token's router
+    probabilities moved between the routes, and whether the margin is
+    within ``MARGIN_ULPS`` ulps or twice that movement."""
+    pairs = []
+    for layer, (a, b, pk, pp) in enumerate(zip(
+            experts[True], experts[False], probs[True], probs[False])):
+        k = a.shape[-1]
+        for r in (a != b).any(-1).nonzero().flatten().tolist():
+            top = pp[r].sort(descending=True).values
+            ulp = float(np.spacing(np.float32(float(top[k - 1]))))
+            margin = float(top[k - 1] - top[k])
+            moved = float((pk[r] - pp[r]).abs().max())
+            pairs.append(dict(layer=layer, token=r, margin=margin,
+                              margin_ulps=margin / ulp, moved=moved,
+                              explained=margin <= max(MARGIN_ULPS * ulp,
+                                                      2 * moved)))
+    return pairs
+
+
 def kernel_vs_plain_fp32(tag: str, cfg32, lm32, prompt, fns, smi: str,
                          new: int = 8) -> dict:
     """One request in fp32 through the kernel route (the CUDA-core flash
-    kernel, one launch a layer a prefill) and the plain route on the same
-    weights: the last-position logits gated at ``TOL_LM_LOGITS``, the
-    greedy tokens compared, and for an MoE the (token, layer) pairs whose
-    expert set differs between the routes counted."""
+    kernel, one launch an attention layer a prefill) and the plain route on
+    the same weights: the last-position logits gated at ``TOL_LM_LOGITS``,
+    the greedy tokens compared, and for an MoE each (token, layer) pair
+    whose expert set differs between the routes printed with its margin,
+    the plain route's k-th router probability less its (k+1)-th: a pair
+    fails unless that margin is within ``MARGIN_ULPS`` fp32 ulps of the
+    k-th probability or twice how far that token's router probabilities
+    moved between the routes (the routes' attention sums in other orders,
+    which moves the router's inputs)."""
     from repro_torch.models.moe import Parallel
     from repro_torch.serve.engine import ServeEngine
     fa = fns["flash_attention"]
     toks = torch.as_tensor(prompt[None], device=lm32.device)
-    last, gen, experts = {}, {}, {}
+    last, gen, experts, probs = {}, {}, {}, {}
+    n_attn = attention_layers(cfg32)
     for use_kernels in (True, False):
         par = Parallel(use_kernels=use_kernels, prefill_last_only=True)
         fa.launches = fa.launches_short = fa.launches_tensor_core = 0
         fa.launches_cuda_core = 0
-        with RouteLog() as log, torch.inference_mode():
+        with RouteLog(probs=True) as log, torch.inference_mode():
             last[use_kernels] = lm32(toks, par, mode="prefill")[0][0, -1]
             experts[use_kernels] = [i.sort(-1).values for i in log.calls]
+            probs[use_kernels] = log.probs
         eng = ServeEngine(cfg32, lm32, max_len=len(prompt) + new, par=par)
         rid = eng.submit(prompt, max_new=new)
         gen[use_kernels] = eng.run()[rid]
         routes = (fa.launches_short, fa.launches_tensor_core,
                   fa.launches_cuda_core)
-        want = 2 * cfg32.num_layers if use_kernels else 0
+        want = 2 * n_attn if use_kernels else 0
         check(fa.launches == want and routes == (0, 0, want),
               f"{tag} use_kernels={use_kernels}: {fa.launches} flash "
               f"launches, routes (short, tensor core, CUDA core) {routes}, "
               f"want {want} on the CUDA cores")
     err = max_err(last[True], last[False])
-    differ = sum(int((a != b).any(-1).sum())
-                 for a, b in zip(experts[True], experts[False]))
+    pairs = differing_expert_sets(experts, probs)
+    differ = len(pairs)
+    for pair in pairs:
+        say(f"[{tag}] expert set differs at layer {pair['layer']} token "
+            f"{pair['token']}: k-th minus (k+1)-th probability "
+            f"{pair['margin']:.3g} ({pair['margin_ulps']:.1f} fp32 ulps), "
+            f"router probabilities moved {pair['moved']:.3g} between the "
+            f"routes")
+    check(all(p["explained"] for p in pairs), f"{tag}: an expert set "
+          f"differs away from a near-tie: "
+          f"{[p for p in pairs if not p['explained']]}")
     check(bool(torch.isfinite(last[True]).all())
           and float(last[False].abs().max()) > 1e-1,
           f"{tag}: vacuous or non-finite fp32 logits")
@@ -867,14 +943,95 @@ def kernel_vs_plain_fp32(tag: str, cfg32, lm32, prompt, fns, smi: str,
            "tol": TOL_LM_LOGITS, "max_abs_logit":
            float(last[False].abs().max()), "tokens_kernel": gen[True],
            "tokens_plain": gen[False], "tokens_agree": gen[True] == gen[False],
-           "flash_launches_cuda_core": 2 * cfg32.num_layers,
+           "flash_launches_cuda_core": 2 * n_attn,
            "token_layer_pairs": sum(len(e) for e in experts[True]) or None,
            "expert_sets_differing": differ if experts[True] else None,
+           "differing_pairs": pairs,
            "card": smi}
     say(json.dumps({f"{tag}_kernel_vs_plain_fp32": out}))
     check(err <= TOL_LM_LOGITS, f"{tag}: fp32 prefill logits kernel vs "
           f"plain {err:.3g} > {TOL_LM_LOGITS:g}")
     return out
+
+
+def drawn_on_card(tag: str, name: str, cfg, key: int, dev, smi: str):
+    """``init_lm`` of ``cfg`` from ``key`` on the card: the LM, its
+    parameter count and the seconds; prints them with the weights' GiB and
+    the peak above what the earlier phases hold."""
+    from repro_torch import prng
+    from repro_torch.models.transformer import init_lm
+    gc.collect()                    # earlier phases' models held in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()     # what earlier phases hold
+    t0 = time.perf_counter()
+    lm = init_lm(prng.PRNGKey(key), cfg, device=dev).eval()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    n_params = sum(p.numel() for p in lm.parameters())
+    gib = sum(p.numel() * p.element_size() for p in lm.parameters()) / 2**30
+    say(f"[{tag}] {name}: {n_params} parameters ({gib:.2f} GiB) drawn by "
+        f"init_lm from key {key} on the card in {t_init:.2f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB above the {start / 2**30:.2f} GiB earlier "
+        f"phases hold ({smi})")
+    return lm, dict(params=n_params, init_s=t_init, model_gib=gib,
+                    init_peak_gib_above_start=peak / 2**30,
+                    allocated_at_start_gib=start / 2**30)
+
+
+@contextlib.contextmanager
+def annotated(*names):
+    """While entered, the MoE FFN (``"moe"``) and each listed recurrent
+    mixer's full-sequence forward run inside ``record_function(name)``."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tlm
+    saved, dense = dict(tlm.RECURRENT), moe_mod.moe_dense
+
+    def wrap(name, fn):
+        def annotated_call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return annotated_call
+
+    for name in names:
+        if name == "moe":
+            moe_mod.moe_dense = wrap(name, dense)
+        else:
+            mod, fwd, dec, init = saved[name]
+            tlm.RECURRENT[name] = (mod, wrap(name, fwd), dec, init)
+    try:
+        yield
+    finally:
+        tlm.RECURRENT.update(saved)
+        moe_mod.moe_dense = dense
+
+
+def traced_decode(lm, eng, toks, par, trace_path: Path, untraced_s: float):
+    """One decode step after a prefill of ``toks`` under the profiler: its
+    launches and device time beside the untraced step, and the step's
+    memory peak above what it starts with."""
+    from repro_torch.serve.steps import make_serve_step
+    B, L = toks.shape
+    with torch.inference_mode():
+        logits, _, caches = lm(toks, par, mode="prefill")
+        full = eng._pad_caches(caches, B, L)
+        del caches
+        cur = torch.argmax(logits[:, -1, :lm.cfg.vocab_size],
+                           -1)[:, None].to(torch.int32)
+        del logits
+        step = make_serve_step(lm, par)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trace = device_busy(lambda: step(cur, full, L), trace_path)
+        trace["step_peak_gib_above_start"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+    trace["untraced_step_s"] = untraced_s
+    trace["device_idle_share_of_untraced_step"] = \
+        1 - trace["device_busy_s"] / untraced_s
+    return trace
 
 
 def phase_8d(dev, fns, smi: str) -> dict:
@@ -887,30 +1044,12 @@ def phase_8d(dev, fns, smi: str) -> dict:
     device time) and decode step (its launches); then the same weights in
     fp32 (kernel route against plain route on one 2048-token request).
     Returns the tensor-core flash launches of round 1."""
-    from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import BUILD_DIR
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models.moe import Parallel
-    from repro_torch.models.transformer import LM, init_lm
-    from repro_torch.serve.steps import make_serve_step
+    from repro_torch.models.transformer import LM
     cfg = get_config("olmoe-1b-7b")
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.memory_allocated()     # what earlier phases hold
-    t0 = time.perf_counter()
-    lm = init_lm(prng.PRNGKey(25), cfg, device=dev).eval()
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated() - start
-    n_params = sum(p.numel() for p in lm.parameters())
-    model_gib = sum(p.numel() * p.element_size()
-                    for p in lm.parameters()) / 2**30
-    say(f"[8d] olmoe-1b-7b: {n_params} parameters ({model_gib:.2f} GiB) in "
-        f"bf16 drawn by init_lm from key 25 on the card in {t_init:.2f} s, "
-        f"peak memory {init_peak / 2**30:.2f} GiB above the "
-        f"{start / 2**30:.2f} GiB earlier phases hold ({smi})")
+    lm, init = drawn_on_card("8d", "olmoe-1b-7b", cfg, 25, dev, smi)
     rng = np.random.default_rng(25)
     waves = {"A": [rng.integers(0, cfg.vocab_size, 2048) for _ in range(4)],
              "B": [rng.integers(0, cfg.vocab_size, 256) for _ in range(16)]}
@@ -919,31 +1058,14 @@ def phase_8d(dev, fns, smi: str) -> dict:
         rounds, eng = serve_twice("8d", cfg, lm, waves, budget, fns, smi, log)
     par = Parallel(prefill_last_only=True)
     toks = torch.as_tensor(np.stack(waves["A"]), device=dev)
-    dense = moe_mod.moe_dense
-
-    def annotated(*args, **kwargs):
-        with torch.profiler.record_function("moe"):
-            return dense(*args, **kwargs)
-
-    with torch.inference_mode():
-        logits, _, caches = lm(toks, par, mode="prefill")
-        full = eng._pad_caches(caches, 4, 2048)
-        del caches
-        cur = torch.argmax(logits[:, -1, :cfg.vocab_size],
-                           -1)[:, None].to(torch.int32)
-        step = make_serve_step(lm, par)
-        moe_mod.moe_dense = annotated
-        try:
-            trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
-                                    BUILD_DIR / "olmoe_prefill_trace.json",
-                                    region="moe")
-        finally:
-            moe_mod.moe_dense = dense
-        trace_dec = device_busy(lambda: step(cur, full, 2048),
-                                BUILD_DIR / "olmoe_decode_trace.json")
-    del full, logits
+    with annotated("moe"), torch.inference_mode():
+        trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
+                                BUILD_DIR / "olmoe_prefill_trace.json",
+                                region="moe")
     wave_a = rounds[-1]["waves"][0]
-    trace_dec["untraced_step_s"] = wave_a["decode_s"] / (budget["A"] - 1)
+    trace_dec = traced_decode(lm, eng, toks, par,
+                              BUILD_DIR / "olmoe_decode_trace.json",
+                              wave_a["decode_s"] / (budget["A"] - 1))
     say(f"[8d] traced wave-A prefill: device busy "
         f"{trace_pre['device_busy_s']:.4f} s over {trace_pre['kernels']} "
         f"kernels, MoE {trace_pre['moe_device_s']} s "
@@ -955,17 +1077,14 @@ def phase_8d(dev, fns, smi: str) -> dict:
         f"{1e3 * trace_dec['device_busy_s']:.2f} ms, untraced step "
         f"{1e3 * trace_dec['untraced_step_s']:.2f} ms ({smi})")
     say(json.dumps({"olmoe_serving": {
-        "model": cfg.name, "params": n_params, "dtype": "bfloat16",
-        "init_s": t_init, "model_gib": model_gib,
-        "init_peak_gib_above_start": init_peak / 2**30,
-        "allocated_at_start_gib": start / 2**30,
+        "model": cfg.name, "dtype": "bfloat16", **init,
         "rounds": rounds, "prefill_trace_wave_A": trace_pre,
         "decode_step_trace_wave_A": trace_dec, "card": smi}}))
     # the same weights in fp32 (bf16 values are exact in fp32)
     cfg32 = cfg.replace(dtype="float32")
     lm32 = LM(cfg32, device=dev)
     lm32.load_state_dict(lm.state_dict())
-    del lm, eng, step
+    del lm, eng
     torch.cuda.empty_cache()
     kernel_vs_plain_fp32("8d", cfg32, lm32.eval(), waves["A"][0], fns, smi)
     del lm32
@@ -1034,6 +1153,228 @@ def phase_8f(dev, fns, smi: str) -> None:
                              smi)
         del lm32
         torch.cuda.empty_cache()
+
+
+# -- slice 15: the recurrent mixers: jamba-1.5-large and xlstm-125m ----------
+
+def phase_8g(dev, fns, smi: str) -> int:
+    """8g. jamba-1.5-large at full width (d 8192, GQA 64/8 heads of 128,
+    d_ff 24576, Mamba d_inner 16384, N 16, d_conv 4, vocab 65536) with
+    one period of its 72 layers (7 Mamba, 1 attention; 4 MoE FFNs, 4
+    dense) and 8 of its 16 experts (top-2 of d_ff 24576), bf16, drawn by
+    ``init_lm`` from key 28 on the card; ``ServeEngine`` serving two
+    rounds of wave A (2 × 2048-token prompts) and wave B (8 × 256), 16 new
+    tokens each (one tensor-core flash launch a prefill, 0 expert drops);
+    a traced wave-A prefill (Mamba, MoE and flash shares of device time),
+    a traced decode step; then layer 0's Mamba mixer in fp32, card
+    against CPU over a 256-token prefill at chunk 128 and 4 decode steps.
+    Returns the tensor-core flash launches of round 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.moe import Parallel
+    full_cfg = get_config("jamba-1.5-large-398b")
+    cfg = full_cfg.replace(num_layers=8, moe=dataclasses.replace(
+        full_cfg.moe, num_experts=8))
+    lm, init = drawn_on_card("8g", "jamba-1.5-large (1 period, 8 experts)",
+                             cfg, 28, dev, smi)
+    rng = np.random.default_rng(28)
+    waves = {"A": [rng.integers(0, cfg.vocab_size, 2048) for _ in range(2)],
+             "B": [rng.integers(0, cfg.vocab_size, 256) for _ in range(8)]}
+    budget = {"A": 16, "B": 16}
+    with RouteLog() as log:
+        rounds, eng = serve_twice("8g", cfg, lm, waves, budget, fns, smi, log)
+    dropped = [w["expert_tokens"]["dropped"] for r in rounds
+               for w in r["waves"]]
+    check(dropped == [0] * len(dropped), f"8g: expert drops {dropped}")
+    par = Parallel(prefill_last_only=True)
+    toks = torch.as_tensor(np.stack(waves["A"]), device=dev)
+    with annotated(MAMBA, "moe"), torch.inference_mode():
+        trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
+                                BUILD_DIR / "jamba_prefill_trace.json",
+                                region=(MAMBA, "moe"))
+    wave_a = rounds[-1]["waves"][0]
+    trace_pre["device_idle_share_of_untraced_wall"] = \
+        1 - trace_pre["device_busy_s"] / wave_a["prefill_s"]
+    trace_dec = traced_decode(lm, eng, toks, par,
+                              BUILD_DIR / "jamba_decode_trace.json",
+                              wave_a["decode_s"] / (budget["A"] - 1))
+    say(f"[8g] traced wave-A prefill: device busy "
+        f"{trace_pre['device_busy_s']:.4f} s over {trace_pre['kernels']} "
+        f"kernels ({100 * trace_pre['device_idle_share']:.1f}% idle), Mamba "
+        f"{trace_pre['mamba_device_s']} s ({trace_pre['mamba_share_of_busy']}"
+        f" of it, {trace_pre['mamba_kernels']} kernels), MoE "
+        f"{trace_pre['moe_device_s']} s ({trace_pre['moe_share_of_busy']}), "
+        f"flash attention {trace_pre['flash_attention_device_s']:.4f} s "
+        f"({100 * trace_pre['flash_attention_share_of_busy']:.2f}%); decode "
+        f"step: {trace_dec['kernels']} launches, device busy "
+        f"{1e3 * trace_dec['device_busy_s']:.2f} ms, untraced step "
+        f"{1e3 * trace_dec['untraced_step_s']:.2f} ms, step peak "
+        f"{trace_dec['step_peak_gib_above_start']:.3f} GiB above its start "
+        f"({smi})")
+
+    # layer 0's Mamba mixer in fp32 (bf16 values are exact in fp32), card
+    # against CPU: 1 x 256 tokens at chunk 128, then 4 decode steps
+    cfg32 = cfg.replace(dtype="float32")
+    mix = ssm_mod.Mamba(cfg32, device=dev)
+    mix.load_state_dict(lm.layers[0].mixer.state_dict())
+    del lm, eng
+    torch.cuda.empty_cache()
+    mix_cpu = copy.deepcopy(mix).cpu()
+    x = torch.randn((1, 260, cfg.d_model),
+                    generator=torch.Generator().manual_seed(28))
+    outs = []
+    for m, d in ((mix_cpu, "cpu"), (mix, dev)):
+        with torch.inference_mode():
+            y, state = ssm_mod.mamba_forward(m, cfg32, x[:, :256].to(d),
+                                             chunk=128, return_state=True)
+            got = [y]
+            for t in range(256, 260):
+                y, state = ssm_mod.mamba_decode(m, cfg32, x[:, t:t + 1].to(d),
+                                                state)
+                got.append(y)
+        outs.append([g.cpu() for g in got] + [t.cpu() for t in state])
+    scale = max(float(t.abs().max()) for t in outs[0][:5])
+    mamba_err = max(max_err(a, b) for a, b in zip(*outs))
+    mamba_tol = 1e-4 * max(1.0, scale)
+    say(f"[8g] layer 0's Mamba mixer in fp32, card vs CPU (256-token "
+        f"prefill at chunk 128, 4 decode steps, final state): max|Δ| "
+        f"{mamba_err:.3g} at max|y| {scale:.3g}, gate {mamba_tol:.3g} "
+        f"({smi})")
+    check(mamba_err <= mamba_tol and scale > 1e-3,
+          f"8g: fp32 Mamba card vs CPU {mamba_err:.3g} > {mamba_tol:.3g} "
+          f"(max|y| {scale:.3g})")
+    del mix, mix_cpu
+    torch.cuda.empty_cache()
+    say(json.dumps({"jamba_serving": {
+        "model": cfg.name, "layers": cfg.num_layers,
+        "experts": cfg.moe.num_experts, "dtype": "bfloat16", **init,
+        "rounds": rounds, "prefill_trace_wave_A": trace_pre,
+        "decode_step_trace_wave_A": trace_dec,
+        "mamba_fp32_card_vs_cpu": dict(max_abs_err=mamba_err,
+                                       max_abs_y=scale, tol=mamba_tol),
+        "card": smi}}))
+    return sum(w["prefill_flash_launches_tensor_core"]
+               for w in rounds[0]["waves"])
+
+
+def phase_8h(dev, fns, smi: str) -> None:
+    """8h. xlstm-125m at full width and depth (12 blocks alternating mLSTM
+    and sLSTM, d 768, 4 heads, vocab 50304, tied embeddings) in bf16,
+    drawn by ``init_lm`` from key 29 on the card; ``ServeEngine`` serving
+    two rounds of wave A (4 × 1024-token prompts) and wave B (16 × 256),
+    32 new tokens each (no flash launch: no attention); a traced wave-B
+    prefill (the sLSTM time loop's launches) and a traced decode step;
+    then the whole model in fp32, card against CPU, at 16- and 512-token
+    prompts (last-position logits and layer 0's output), and 8 greedy
+    tokens after the 16-token prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLSTM, SLSTM
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.models.moe import Parallel
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("xlstm-125m")
+    lm, init = drawn_on_card("8h", "xlstm-125m", cfg, 29, dev, smi)
+    rng = np.random.default_rng(29)
+    waves = {"A": [rng.integers(0, cfg.vocab_size, 1024) for _ in range(4)],
+             "B": [rng.integers(0, cfg.vocab_size, 256) for _ in range(16)]}
+    budget = {"A": 32, "B": 32}
+    rounds, eng = serve_twice("8h", cfg, lm, waves, budget, fns, smi)
+    par = Parallel(prefill_last_only=True)
+    toks = torch.as_tensor(np.stack(waves["B"]), device=dev)
+    with annotated(MLSTM, SLSTM), torch.inference_mode():
+        trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
+                                BUILD_DIR / "xlstm_prefill_trace.json",
+                                region=(MLSTM, SLSTM))
+    wave_b = rounds[-1]["waves"][1]
+    trace_pre["device_idle_share_of_untraced_wall"] = \
+        1 - trace_pre["device_busy_s"] / wave_b["prefill_s"]
+    n_slstm = sum(cfg.layer_kind(i) == SLSTM for i in range(cfg.num_layers))
+    trace_pre["slstm_kernels_per_position_per_layer"] = \
+        trace_pre["slstm_kernels"] / (256 * n_slstm)
+    trace_dec = traced_decode(lm, eng, toks, par,
+                              BUILD_DIR / "xlstm_decode_trace.json",
+                              wave_b["decode_s"] / (budget["B"] - 1))
+    say(f"[8h] traced wave-B prefill (16 x 256): {trace_pre['kernels']} "
+        f"kernels, device busy {trace_pre['device_busy_s']:.4f} s "
+        f"({100 * trace_pre['device_idle_share']:.1f}% idle), sLSTM "
+        f"{trace_pre['slstm_kernels']} kernels "
+        f"({trace_pre['slstm_kernels_per_position_per_layer']:.1f} a "
+        f"position a layer, {trace_pre['slstm_device_s']} s on the device), "
+        f"mLSTM {trace_pre['mlstm_kernels']} kernels "
+        f"({trace_pre['mlstm_device_s']} s); decode step: "
+        f"{trace_dec['kernels']} launches, device busy "
+        f"{1e3 * trace_dec['device_busy_s']:.2f} ms, untraced step "
+        f"{1e3 * trace_dec['untraced_step_s']:.2f} ms ({smi})")
+
+    # the whole model in fp32 (bf16 values are exact in fp32), card
+    # against CPU.  At full width the sLSTM's recurrent weights, drawn at
+    # the reference's std 1/√H = 0.5, make the function chaotic: a one-ulp
+    # change of the weights moves the reference's own logits by O(1) within
+    # ~128 positions (tools/xlstm_chaos.py, PERF.md §6).  Gated: the
+    # residual after layer 0 (an mLSTM, before any sLSTM) at 1e-4 of its
+    # size at 16 and 512 tokens; a 16-token prompt's last-position logits
+    # at TOL_LM_LOGITS and its 8 greedy tokens equal.  The 512-token
+    # prompt's logits are printed, not gated
+    cfg32 = cfg.replace(dtype="float32")
+    state = lm.state_dict()
+    del lm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lms = {}
+    for d in ("cpu", dev):
+        lms[d] = LM(cfg32, device=d)
+        lms[d].load_state_dict(state)
+        lms[d].eval()
+    del state
+    fp32 = {}
+    for L in (16, 512):
+        prompt = waves["A"][0][:L]
+        last, first = {}, {}
+        for name, m in lms.items():
+            hook = m.layers[1].norm1.register_forward_pre_hook(
+                lambda mod, args, name=name: first.__setitem__(
+                    name, args[0].float().cpu()))
+            with torch.inference_mode():
+                last[name] = m(torch.as_tensor(prompt[None], device=m.device),
+                               Parallel(prefill_last_only=True),
+                               mode="prefill")[0][0, -1].float().cpu()
+            hook.remove()
+        fp32[L] = dict(
+            last_logits_max_abs_err=max_err(last[dev], last["cpu"]),
+            max_abs_logit=float(last["cpu"].abs().max()),
+            layer0_max_abs_err=max_err(first[dev], first["cpu"]),
+            layer0_max_abs=float(first["cpu"].abs().max()))
+    prompt, gen = waves["A"][0][:16], {}
+    for name in ("cpu", dev):
+        eng32 = ServeEngine(cfg32, lms[name], max_len=24,
+                            par=Parallel(prefill_last_only=True))
+        rid = eng32.submit(prompt, max_new=8)
+        gen[name] = eng32.run()[rid]
+    fp32[16].update(tokens_card=gen[dev], tokens_cpu=gen["cpu"],
+                    tokens_agree=gen[dev] == gen["cpu"])
+    del lms, eng32
+    say(json.dumps({"xlstm_fp32_card_vs_cpu": {
+        "tol": TOL_LM_LOGITS, "gated_logits": "prompt_16",
+        **{f"prompt_{L}": v for L, v in fp32.items()}, "card": smi}}))
+    for L, r in fp32.items():
+        check(math.isfinite(r["last_logits_max_abs_err"])
+              and r["max_abs_logit"] > 1e-1, f"8h: vacuous or non-finite "
+              f"fp32 logits at {L} tokens")
+        check(r["layer0_max_abs_err"] <= 1e-4 * max(1.0, r["layer0_max_abs"]),
+              f"8h: fp32 layer 0 (mLSTM) card vs CPU "
+              f"{r['layer0_max_abs_err']:.3g} at {L} tokens")
+    check(fp32[16]["last_logits_max_abs_err"] <= TOL_LM_LOGITS
+          and fp32[16]["tokens_agree"], f"8h: fp32 16-token prompt card vs "
+          f"CPU: logits {fp32[16]['last_logits_max_abs_err']:.3g}, tokens "
+          f"{fp32[16]['tokens_card']} / {fp32[16]['tokens_cpu']}")
+    torch.cuda.empty_cache()
+    say(json.dumps({"xlstm_serving": {
+        "model": cfg.name, "layers": cfg.num_layers, "dtype": "bfloat16",
+        **init, "rounds": rounds, "prefill_trace_wave_B": trace_pre,
+        "decode_step_trace_wave_B": trace_dec, "card": smi}}))
 
 
 def main() -> int:
@@ -2872,6 +3213,51 @@ def main() -> int:
     del o_ref
     del bhsd_o, qo, ko, vo
 
+    # the tensor-core kernel at jamba-1.5-large's attention layer (8g's wave
+    # A: B 2, S 2048, GQA 64/8 heads of 128, bf16, causal), drawn from a
+    # generator of its own.  The library column is SDPA with
+    # ``enable_gqa`` (causal, no window or softcap: the same function)
+    g28 = torch.Generator(dev).manual_seed(28)
+    qj = torch.randn((2, 2048, 64, 128), generator=g28,
+                     device=dev).bfloat16()
+    kj, vj = (torch.randn((2, 2048, 8, 128), generator=g28,
+                          device=dev).bfloat16() for _ in range(2))
+    n_tc = fa.launches_tensor_core
+    j_out = fa(qj, kj, vj, **kw_o)
+    check(fa.launches_tensor_core == n_tc + 1, "jamba's attention layer did "
+          "not take the tensor-core kernel")
+    j_ref = plain_lm_attn(qj, kj, vj, **kw_o)
+    j_err, j_rel = max_err(j_out, j_ref), row_rel_err(j_out, j_ref)
+    check(j_err <= TOL_ATTN_BF16 and j_rel <= TOL_ATTN_BF16_ROW,
+          f"flash_attention at jamba's layer: max abs error {j_err:.3g}, "
+          f"row-relative {j_rel:.3g}")
+    bhsd_j = [t.transpose(1, 2) for t in (qj, kj, vj)]
+
+    def sdpa_j():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *bhsd_j, is_causal=True, enable_gqa=True)
+
+    record("flash_attention_lm_jamba", "cuda",
+           "src/repro_torch/kernels/flash_attention/csrc/"
+           "flash_attention_tc.cu",
+           "src/repro/kernels/flash_attention/kernel.py:85", TOL_ATTN_BF16,
+           [dict(mode="jamba_causal_gqa", shape=[2, 2048, 64, 8, 128],
+                 max_abs_err=j_err, max_row_rel_err=j_rel)],
+           lambda: fa(qj, kj, vj, **kw_o),
+           lambda: plain_lm_attn(qj, kj, vj, **kw_o), sdpa_j,
+           2 * (2 * qj.numel() + kj.numel() + vj.numel()),
+           4 * 128 * 2 * 64 * attn_pairs(2048, 2048, True, 0),
+           [2, 2048, 64, 8, 128], peak=BF16_FLOPS, iters=5, phase=8,
+           mode="causal, GQA 64/8, head dim 128, bf16 (jamba-1.5-large, 8g's "
+                "wave A prefill), tensor-core kernel",
+           launch_floor_ms=graph_ms(lambda: empty_launch(
+               (fa_kernel.work_list(2048, 2048, True, 0).shape[0] * 2 * 64,
+                1), 384, 1024 + 6 * (128 // 64) * 64 * 128 + 64,
+               torch.cuda.current_device())),
+           library_call="scaled_dot_product_attention, is_causal, enable_gqa",
+           library_max_abs_err=max_err(sdpa_j().transpose(1, 2), j_ref))
+    del j_out, j_ref, bhsd_j, qj, kj, vj
+
     # the CUDA-core kernel at 8c's layer: one 4608-token request of gemma2
     # in fp32, local mode (window 4096, softcap 50, GQA 8/4); its launches
     # are counted in 8c.  The library column is flex_attention compiled for
@@ -3165,9 +3551,20 @@ def main() -> int:
     del lm32, eng32              # the engine holds the model
 
     # -- 8d-8f. MoE FFNs and the dense decoder configs -----------------------
+    t8 = time.perf_counter()
     kernels["flash_attention_lm_olmoe"]["launches"] = phase_8d(dev, fns, smi)
     phase_8e(dev, fns, smi)
     phase_8f(dev, fns, smi)
+    say(f"[8d-8f] MoE and dense decoder configs: "
+        f"{time.perf_counter() - t8:.1f} s")
+
+    # -- 8g-8h. the recurrent mixers: jamba-1.5-large and xlstm-125m ---------
+    t8 = time.perf_counter()
+    kernels["flash_attention_lm_jamba"]["launches"] = phase_8g(dev, fns, smi)
+    say(f"[8g] jamba: {time.perf_counter() - t8:.1f} s")
+    t8 = time.perf_counter()
+    phase_8h(dev, fns, smi)
+    say(f"[8h] xlstm-125m: {time.perf_counter() - t8:.1f} s")
 
     # -- 9. the paper's methods end to end -----------------------------------
     # benchmarks/common.py's paper preset: phase 4's data and DiT, 30

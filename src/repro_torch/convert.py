@@ -107,18 +107,20 @@ def _lm_leaf(a, g=None, transpose=False):
     return load
 
 
+# The only bare (in, out) matrices of the reference's LM tree: the dense
+# MLP's.  Every other bare leaf (the experts, ``w_router``, Mamba's
+# ``conv_w``, ``conv_b``, ``A_log`` and ``D``, sLSTM's ``w_r`` and ``b``) is
+# a parameter of the same name in the reference's layout.
+_MLP_MATRICES = ("w_up", "w_gate", "w_down")
+
+
 def lm_layer_items(prefix: str, node, g=None):
     """(state name, load) of every leaf of a subtree of the reference's LM
     tree.  Dense ``w`` (and the MLP's bare ``w_up``, ``w_gate``,
-    ``w_down``) is (in, out) there and (out, in) in ``nn.Linear``; the
-    MoE's leaves (``w_router`` (d, E), the experts (E, in, out)) keep the
-    reference's layout; norms carry ``scale`` in both."""
-    if not isinstance(node, dict):         # the MLP's bare (in, out) matrices
-        yield f"{prefix}weight", _lm_leaf(node, g, True)
-    elif "w_router" in node:
-        for k, v in node.items():
-            yield f"{prefix}{k}", _lm_leaf(v, g)
-    elif "w" in node:
+    ``w_down``) is (in, out) there and (out, in) in ``nn.Linear``; every
+    other bare leaf keeps its name and the reference's layout; norms carry
+    ``scale`` in both."""
+    if "w" in node:
         yield f"{prefix}weight", _lm_leaf(node["w"], g, True)
         if "b" in node:
             yield f"{prefix}bias", _lm_leaf(node["b"], g)
@@ -126,7 +128,12 @@ def lm_layer_items(prefix: str, node, g=None):
         yield f"{prefix}scale", _lm_leaf(node["scale"], g)
     else:
         for k, v in node.items():
-            yield from lm_layer_items(f"{prefix}{k}.", v, g)
+            if isinstance(v, dict):
+                yield from lm_layer_items(f"{prefix}{k}.", v, g)
+            elif k in _MLP_MATRICES:
+                yield f"{prefix}{k}.weight", _lm_leaf(v, g, True)
+            else:
+                yield f"{prefix}{k}", _lm_leaf(v, g)
 
 
 def lm_state_items(params, cfg):

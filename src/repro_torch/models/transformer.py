@@ -1,17 +1,22 @@
 """The LM zoo's sequence model: the JAX package's ``models/transformer.py``
-as one ``nn.Module``, for its attention stacks with dense or MoE FFNs
-(gemma2, granite, the qwens, olmoe, phi3.5-moe).
+as one ``nn.Module``, for its token-frontend decoders: attention, Mamba,
+mLSTM and sLSTM mixers, with dense or MoE FFNs (gemma2, granite, the qwens,
+olmoe, phi3.5-moe, jamba, xlstm).
 
 The reference stacks the layers of each period position along a leading
 ``num_groups`` axis and scans over groups; the port keeps one module per
 layer in absolute order (layer ``g · period + p`` is group g's position p;
-``convert.lm_state_from_jax`` maps the one onto the other).  Mamba, mLSTM
-and sLSTM mixers, the audio and vision frontends and the encoder head come
-with later slices and raise ``NotImplementedError`` here; so does
-``loss_fn``, which comes with training.
+``convert.lm_state_from_jax`` maps the one onto the other).  A layer's
+decode cache is a ``KVCache`` (attention, written in place) or its mixer's
+recurrent state (Mamba, mLSTM, sLSTM; replaced each step).  The audio and
+vision frontends and the encoder head come with a later slice and raise
+``NotImplementedError`` here; so does ``loss_fn``, which comes with
+training.
 
 Weights are held in the activation dtype (the reference holds fp32 and
-casts each to it at use, which rounds the same way); norm scales stay fp32.
+casts each to it at use, which rounds the same way); norm scales, Mamba's
+``A_log`` and ``D`` and sLSTM's ``w_r`` and ``b``, which the reference uses
+uncast, stay fp32.
 ``LM(cfg)`` allocates them and draws nothing; ``init_lm(key, cfg)`` draws
 the reference's initial weights from a threefry key.
 """
@@ -25,18 +30,28 @@ import torch
 from torch import nn
 
 from repro_torch import prng
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MLSTM, SLSTM,
+                                      ModelConfig)
 from repro_torch.convert import lm_layer_items, lm_state_items
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (MLP, Dense, RMSNorm, embed,
                                        init_embedding, unembed)
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.moe import MoE, Parallel, moe_apply
 from repro_torch.utils import resolve_device
 from repro_torch.utils import softcap as _softcap
 
-_LATER = {"mamba": "the Mamba slice", "mlstm": "the xLSTM slice",
-          "slstm": "the xLSTM slice"}
+# kind -> (mixer module, full-sequence forward, decode step, initial state)
+RECURRENT = {
+    MAMBA: (ssm_mod.Mamba, ssm_mod.mamba_forward, ssm_mod.mamba_decode,
+            ssm_mod.init_mamba_state),
+    MLSTM: (xlstm_mod.mLSTM, xlstm_mod.mlstm_forward, xlstm_mod.mlstm_decode,
+            xlstm_mod.init_mlstm_state),
+    SLSTM: (xlstm_mod.sLSTM, xlstm_mod.slstm_forward, xlstm_mod.slstm_decode,
+            xlstm_mod.init_slstm_state),
+}
 
 
 class Layer(nn.Module):
@@ -45,13 +60,15 @@ class Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, p: int, **kw):
         super().__init__()
         kind = cfg.layer_kind(p)
-        if kind not in (ATTN, ATTN_LOCAL):
-            raise NotImplementedError(
-                f"{cfg.name}: {kind} layers come with {_LATER.get(kind, kind)}")
         dev = kw["device"]
         self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
-        self.mixer = attn_mod.Attention(cfg, **kw)
+        if kind in (ATTN, ATTN_LOCAL):
+            self.mixer = attn_mod.Attention(cfg, **kw)
+        elif kind in RECURRENT:
+            self.mixer = RECURRENT[kind][0](cfg, **kw)
+        else:
+            raise ValueError(kind)
         self.norm2 = self.mlp = self.moe = None
         self.post_norm1 = self.post_norm2 = None
         has_ffn = _has_ffn(cfg, p)
@@ -69,9 +86,11 @@ class Layer(nn.Module):
 
 
 def _has_ffn(cfg: ModelConfig, p: int) -> bool:
-    """The reference's rule for an attention layer: an MoE FFN, or a dense
-    one where ``d_ff > 0`` (olmoe and phi3.5 have ``d_ff = 0``)."""
-    return cfg.uses_moe(p) or cfg.d_ff > 0
+    """The reference's rule: an MoE FFN, or a dense one where ``d_ff > 0``
+    (olmoe and phi3.5 have ``d_ff = 0``) and the mixer is not an xLSTM
+    block, which carries its own projections."""
+    return cfg.uses_moe(p) or (cfg.d_ff > 0 and
+                               cfg.layer_kind(p) not in (MLSTM, SLSTM))
 
 
 class LM(nn.Module):
@@ -129,7 +148,15 @@ class LM(nn.Module):
         aux = None
         h = layer.norm1(x)
         new_cache = None
-        if mode == "decode":
+        if layer.kind in RECURRENT:
+            _, forward, decode, _ = RECURRENT[layer.kind]
+            if mode == "decode":
+                h, new_cache = decode(layer.mixer, cfg, h, cache)
+            elif mode == "prefill":
+                h, new_cache = forward(layer.mixer, cfg, h, return_state=True)
+            else:
+                h = forward(layer.mixer, cfg, h)
+        elif mode == "decode":
             h, new_cache = attn_mod.attention_decode(
                 layer.mixer, cfg, h, cache, decode_pos, kind=layer.kind)
         else:
@@ -169,8 +196,9 @@ class LM(nn.Module):
         """Full-sequence pass over tokens (B, S).
 
         Returns (logits, aux_loss) for mode="train"; (logits, aux_loss,
-        caches) for mode="prefill", caches a list of one ``KVCache`` of
-        (B, S, n_kv, head_dim) per layer.  ``aux_loss`` sums the MoE
+        caches) for mode="prefill", caches a list with one entry per layer:
+        a ``KVCache`` of (B, S, n_kv, head_dim), or the mixer's recurrent
+        state after the last position.  ``aux_loss`` sums the MoE
         routers' load-balance losses over the layers (0 for dense
         stacks)."""
         x, pos = self._embed_inputs(tokens)
@@ -191,23 +219,27 @@ class LM(nn.Module):
 
     # -- decode ---------------------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=None):
-        """One zero ``KVCache`` of (batch, max_len, n_kv, head_dim) per
-        layer."""
-        dtype = dtype or self.cfg.act_dtype
-        return [attn_mod.init_kv_cache(self.cfg, batch, max_len, dtype,
+        """One cache per layer: a zero ``KVCache`` of (batch, max_len,
+        n_kv, head_dim), or the mixer's initial recurrent state."""
+        cfg, dtype = self.cfg, dtype or self.cfg.act_dtype
+        return [RECURRENT[layer.kind][3](cfg, batch, dtype, self.device)
+                if layer.kind in RECURRENT else
+                attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
                                        self.device)
-                for _ in self.layers]
+                for layer in self.layers]
 
     def decode_step(self, tokens, caches, pos: int,
                     par: Parallel = Parallel()):
         """One decode step.  tokens: (B, 1); pos: the current write
-        position.  Returns (logits (B,1,V), caches), the caches updated in
-        place."""
+        position.  Returns (logits (B,1,V), caches): the same list, its
+        KV caches written in place and its recurrent states replaced by
+        the new ones."""
         x = self._scale_embed(embed(self.embedding, tokens,
                                     self.cfg.act_dtype))
-        for layer, cache in zip(self.layers, caches):
-            x, _, _ = self._apply_layer(layer, x, None, par, "decode",
-                                        cache=cache, decode_pos=pos)
+        for i, layer in enumerate(self.layers):
+            x, _, caches[i] = self._apply_layer(layer, x, None, par,
+                                                "decode", cache=caches[i],
+                                                decode_pos=pos)
         return self._readout(x), caches
 
 
@@ -273,6 +305,84 @@ def _dense(keys, d_in: int, d_out: int, device, bias: bool = False) -> dict:
     return p
 
 
+def _fill(keys, values, device) -> torch.Tensor:
+    """A constant leaf: ``values`` (a 1-D float32 array) for every key of
+    the batch."""
+    return torch.tensor(values, device=device).expand(
+        *keys.shape[:-1], len(values)).clone()
+
+
+def _dt_bias(keys, din: int, device) -> torch.Tensor:
+    return ssm_mod.dt_bias(prng.uniform(keys, (din,), device=device))
+
+
+def _a_log(keys, din: int, N: int, device) -> torch.Tensor:
+    a = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=device))
+    return a.expand(*keys.shape[:-1], din, N).clone()
+
+
+def _mamba_tree(keys, cfg: ModelConfig, device) -> dict:
+    """The reference's ``init_mamba``: ``split(key, 8)``; ks[0] draws the
+    dt bias (the inverse softplus of a log-uniform dt on [1e-3, 1e-1]),
+    ``A_log`` is log(1..N) for every channel, ``D`` ones, ``conv_b``
+    zeros; the projections and the conv take ks[1], ks[2], ks[4], ks[5]
+    and ks[6] straight (no ``init_dense`` split), each at its axis-0 fan-in
+    (the (d_conv, d_inner) conv at std 1/√d_conv)."""
+    mc, din, dtr = ssm_mod._dims(cfg)
+    d, N = cfg.d_model, mc.d_state
+    ks = np.moveaxis(prng.split(keys, 8), -2, 0)
+    return {"in_proj": {"w": lazy(_lecun, ks[1], (d, 2 * din), device)},
+            "conv_w": lazy(_lecun, ks[2], (mc.d_conv, din), device),
+            "conv_b": lazy(_zeros, ks[3], (din,), device),
+            "x_proj": {"w": lazy(_lecun, ks[4], (din, dtr + 2 * N), device)},
+            "dt_proj": {"w": lazy(_lecun, ks[5], (dtr, din), device),
+                        "b": lazy(_dt_bias, ks[0], din, device)},
+            "A_log": lazy(_a_log, keys, din, N, device),
+            "D": lazy(_fill, keys, np.ones(din, np.float32), device),
+            "out_proj": {"w": lazy(_lecun, ks[6], (din, d), device)}}
+
+
+def _mlstm_tree(keys, cfg: ModelConfig, device) -> dict:
+    """The reference's ``init_mlstm``: ``split(key, 10)``; the input gate's
+    weight and (zero) bias both take ks[6], the forget gate's bias is 3.0
+    (open forget gates)."""
+    xc = xlstm_mod._xc(cfg)
+    d, H = cfg.d_model, cfg.num_heads
+    din = int(xc.proj_factor * d)
+    ks = np.moveaxis(prng.split(keys, 10), -2, 0)
+    return {"in_proj": {"w": lazy(_lecun, ks[0], (d, 2 * din), device)},
+            "conv_w": lazy(_lecun, ks[1], (xc.conv_kernel, din), device),
+            "conv_b": lazy(_zeros, ks[2], (din,), device),
+            "wq": {"w": lazy(_lecun, ks[3], (din, din), device)},
+            "wk": {"w": lazy(_lecun, ks[4], (din, din), device)},
+            "wv": {"w": lazy(_lecun, ks[5], (din, din), device)},
+            "w_igate": {"w": lazy(_lecun, ks[6], (din, H), device),
+                        "b": lazy(_zeros, ks[6], (H,), device)},
+            "w_fgate": {"w": lazy(_lecun, ks[7], (din, H), device),
+                        "b": lazy(_fill, keys, np.full(H, 3.0, np.float32),
+                                  device)},
+            "head_norm": {"scale": lazy(_zeros, ks[8], (din,), device)},
+            "out_proj": {"w": lazy(_lecun, ks[9], (din, d), device)}}
+
+
+def _slstm_tree(keys, cfg: ModelConfig, device) -> dict:
+    """The reference's ``init_slstm``: ``split(key, 7)``; ``w_r`` (H, hd,
+    4·hd) at its axis-0 fan-in (std 1/√H), the bias zeros for the z and i
+    gates, 3.0 for f, zeros for o."""
+    xc = xlstm_mod._xc(cfg)
+    d, H = cfg.d_model, cfg.num_heads
+    hd = d // H
+    dff = int(xc.slstm_proj_factor * d)
+    ks = np.moveaxis(prng.split(keys, 7), -2, 0)
+    b = np.concatenate([np.zeros(2 * d), np.full(d, 3.0), np.zeros(d)])
+    return {"w_x": {"w": lazy(_lecun, ks[0], (d, 4 * d), device)},
+            "w_r": lazy(_lecun, ks[1], (H, hd, 4 * hd), device),
+            "b": lazy(_fill, keys, b.astype(np.float32), device),
+            "head_norm": {"scale": lazy(_zeros, ks[2], (d,), device)},
+            "up_proj": {"w": lazy(_lecun, ks[3], (d, 2 * dff), device)},
+            "down_proj": {"w": lazy(_lecun, ks[4], (dff, d), device)}}
+
+
 def _moe_tree(keys, cfg: ModelConfig, device) -> dict:
     """The reference's ``init_moe``: ``split(key, 4)`` gives the router,
     up, down and gate."""
@@ -287,12 +397,11 @@ def _moe_tree(keys, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def _layer_tree(keys, cfg: ModelConfig, p: int, device) -> dict:
-    """The reference's ``_init_layer`` for the batch ``keys`` (G, 2), one
-    per group: every leaf stacked along G, as its ``vmap`` stacks them."""
-    ks = np.moveaxis(prng.split(keys, 6), -2, 0)
+def _attention_tree(keys, cfg: ModelConfig, device) -> dict:
+    """The reference's ``init_attention``: ``split(key, 6)`` gives q, k, v,
+    o and the two qk-norms."""
     d, hd = cfg.d_model, cfg.head_dim
-    a = np.moveaxis(prng.split(ks[1], 6), -2, 0)
+    a = np.moveaxis(prng.split(keys, 6), -2, 0)
     mixer = {"wq": _dense(a[0], d, cfg.num_heads * hd, device, cfg.qkv_bias),
              "wk": _dense(a[1], d, cfg.num_kv_heads * hd, device,
                           cfg.qkv_bias),
@@ -302,8 +411,20 @@ def _layer_tree(keys, cfg: ModelConfig, p: int, device) -> dict:
     if cfg.qk_norm:
         mixer["q_norm"] = {"scale": lazy(_zeros, a[4], (hd,), device)}
         mixer["k_norm"] = {"scale": lazy(_zeros, a[5], (hd,), device)}
+    return mixer
+
+
+_MIXER_TREES = {ATTN: _attention_tree, ATTN_LOCAL: _attention_tree,
+                MAMBA: _mamba_tree, MLSTM: _mlstm_tree, SLSTM: _slstm_tree}
+
+
+def _layer_tree(keys, cfg: ModelConfig, p: int, device) -> dict:
+    """The reference's ``_init_layer`` for the batch ``keys`` (G, 2), one
+    per group: every leaf stacked along G, as its ``vmap`` stacks them."""
+    ks = np.moveaxis(prng.split(keys, 6), -2, 0)
+    kind, d = cfg.layer_kind(p), cfg.d_model
     layer = {"norm1": {"scale": lazy(_zeros, ks[0], (d,), device)},
-             "mixer": mixer}
+             "mixer": _MIXER_TREES[kind](ks[1], cfg, device)}
     has_ffn = _has_ffn(cfg, p)
     if has_ffn:
         layer["norm2"] = {"scale": lazy(_zeros, ks[2], (d,), device)}

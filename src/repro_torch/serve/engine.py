@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import KVCache
 from repro_torch.models.moe import Parallel
 from repro_torch.models.transformer import LM
 from repro_torch.obs.metrics import MetricsRegistry
@@ -74,13 +75,18 @@ class ServeEngine:
 
     # -- internals --------------------------------------------------------
     def _pad_caches(self, caches, B: int, L: int):
-        """The prefill's (B, L, ...) caches copied into zero caches of
-        max_len positions, as the reference pads them."""
-        full = self.lm.init_caches(B, self.max_len, caches[0].k.dtype)
-        for dst, src in zip(full, caches):
-            dst.k[:, :L] = src.k
-            dst.v[:, :L] = src.v
-        return full
+        """The prefill's (B, L, ...) KV caches copied into zero caches of
+        max_len positions, as the reference pads them; recurrent states
+        (Mamba, mLSTM, sLSTM) pass through."""
+        def pad(c):
+            if not isinstance(c, KVCache):
+                return c
+            full = KVCache(*(t.new_zeros((B, self.max_len, *t.shape[2:]))
+                             for t in c))
+            full.k[:, :L] = c.k
+            full.v[:, :L] = c.v
+            return full
+        return [pad(c) for c in caches]
 
     @torch.inference_mode()
     def _run_wave(self, wave, results):

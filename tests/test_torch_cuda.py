@@ -1551,6 +1551,40 @@ def test_bf16_act_kernel_path_holds_the_reference_gate(dev):
     assert 0 < err < 2e-2 * scale, err
 
 
+@pytest.mark.parametrize("name,layer", [("jamba-1.5-large-398b", 0),
+                                        ("xlstm-125m", 0),
+                                        ("xlstm-125m", 1)])
+def test_recurrent_mixer_on_the_card_matches_the_cpu(dev, name, layer):
+    """A Mamba, an mLSTM and an sLSTM mixer of ``init_lm``'s smoke weights in
+    fp32: a 2 × 32 forward (chunk 8, so the state crosses chunk
+    boundaries) with its final state, then 4 decode steps from it, card
+    against CPU, each output and state leaf within 1e-4 of its size (fp32
+    sums in another order; the sLSTM carries them along the sequence)."""
+    from repro_torch.configs import shapes
+    from repro_torch.models.transformer import RECURRENT
+    cfg = shapes.smoke_config(get_config(name))
+    kind = cfg.layer_kind(layer)
+    _, forward, decode, _ = RECURRENT[kind]
+    mixer = init_lm(prng.PRNGKey(6), cfg, device="cpu").layers[layer].mixer
+    x = 0.5 * torch.randn((2, 36, cfg.d_model),
+                          generator=torch.Generator().manual_seed(6))
+    kw = {} if kind == "slstm" else {"chunk": 8}
+    outs = []
+    for d in ("cpu", dev):
+        m = copy.deepcopy(mixer).to(d)
+        with torch.inference_mode():
+            y, state = forward(m, cfg, x[:, :32].to(d), return_state=True,
+                               **kw)
+            got = [y, *state]
+            for t in range(32, 36):
+                y, state = decode(m, cfg, x[:, t:t + 1].to(d), state)
+                got += [y, *state]
+        outs.append([t.float().cpu() for t in got])
+    for a, b in zip(*outs):
+        assert _err(b, a) <= 1e-4 * max(1.0, float(a.abs().max()))
+    assert float(outs[0][0].abs().max()) > 1e-2
+
+
 def _moe_smoke(dev, dtype="bfloat16"):
     from repro_torch.configs import shapes
     return shapes.smoke_config(get_config("olmoe-1b-7b")).replace(

@@ -11,12 +11,17 @@ relative 3·2^-23.  Scaling by a float32 constant keeps the relative error
 and each side rounds its product or quotient once more (2^-24 each), so
 the inits are gated at a relative 4·2^-23 per element (zeros exactly).
 The LM's ``init_lm`` is held the same way at a gemma2 smoke config, with
-and without an untied head, qkv bias and qk-norm.
+and without an untied head, qkv bias and qk-norm, and at the smoke configs
+of jamba (Mamba's dt bias from a uniform draw, ``A_log``, ``D``) and
+xlstm (mLSTM's and sLSTM's gate biases, sLSTM's recurrent weights).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import shapes as jshapes
@@ -46,9 +51,19 @@ def ulps(a, b) -> int:
 
 
 def assert_states_within_rounding(want: dict, got: dict) -> None:
+    """Every leaf within TOL_REL of the other's, but Mamba's dt bias:
+    dt + log1p(-exp(-dt)) at dt in [1e-3, 1e-1] cancels, so an ulp of
+    exp(-dt) (2^-24 just below 1; XLA's and torch's exp differ by one)
+    moves it by 2^-24/(1 - exp(-dt)), up to 6e-5 at dt = 1e-3: held at
+    four such ulps."""
     assert sorted(want) == sorted(got)
     for k, v in got.items():
         w, g = want[k].double().numpy(), v.double().numpy()
+        if k.endswith("dt_proj.bias"):
+            one_minus = -np.expm1(-np.log1p(np.exp(w)))   # 1 - exp(-dt)
+            err = np.abs(g - w) * one_minus / 2.0 ** -24
+            assert np.all(err <= 4), (k, float(err.max()))
+            continue
         rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-300)
         assert np.all((g == w) | (rel <= TOL_REL)), (k, float(rel.max()))
 
@@ -144,7 +159,9 @@ LM_VARIANTS = {"gemma2": ("gemma2-2b", {}),
                    num_kv_heads=2, qkv_bias=True, qk_norm=True,
                    tie_embeddings=False)),
                "granite": ("granite-20b", {}), "qwen2": ("qwen2-7b", {}),
-               "qwen3": ("qwen3-32b", {})}
+               "qwen3": ("qwen3-32b", {}),
+               "jamba": ("jamba-1.5-large-398b", dict(num_layers=8)),
+               "xlstm": ("xlstm-125m", {})}
 
 
 @pytest.mark.usefixtures("one_thread")
@@ -176,3 +193,53 @@ def test_init_lm_draws_a_leaf_in_pieces_with_one_draws_bits(monkeypatch):
     assert len(flat_a) == len(flat_b) > 0
     assert all(np.array_equal(a, b) for a, b in zip(flat_a, flat_b))
     assert whole["embed"]["embedding"].numel() >= 8 << 14
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_lm_converter_takes_both_trees_of_the_recurrent_configs(name):
+    """``lm_state_from_jax`` on the reference's ``init_lm`` tree and on the
+    port's ``init_lm_tree``, at 2 groups (jamba 16 layers with narrow FFNs,
+    xlstm 4 layers): the names and shapes ``LM`` holds, within rounding of
+    each other; bare leaves keep their name and the reference's layout
+    (layer g·period + p takes slice g), the dense matrices are transposed.
+    The fan-in quirk is kept: ``lecun_init`` takes axis 0, so Mamba's
+    (d_conv, d_inner) conv is drawn at std 1/√d_conv and sLSTM's (H, hd,
+    4·hd) recurrent weights at 1/√H."""
+    jcfg = jshapes.smoke_config(jget_config(name))
+    tcfg = tshapes.smoke_config(get_config(name))
+    if tcfg.moe is not None:          # the FFNs' widths do not matter here
+        narrow = dict(d_ff=64, moe=dataclasses.replace(tcfg.moe,
+                                                       d_ff_expert=64))
+        jcfg, tcfg = jcfg.replace(**narrow), tcfg.replace(**narrow)
+    assert tcfg.num_groups == 2
+    key = jax.random.PRNGKey(17)
+    ref = jax.tree.map(np.asarray,
+                       jax.jit(jlm.init_lm, static_argnums=1)(key, jcfg))
+    want = lm_state_from_jax(ref, tcfg)
+    mine = lm_state_from_jax(tlm.init_lm_tree(np.asarray(key), tcfg, "cpu"),
+                             tcfg)
+    state = tlm.LM(tcfg, device="meta").state_dict()
+    assert sorted(want) == sorted(mine) == sorted(state)
+    assert all(v.shape == state[k].shape for k, v in want.items())
+    assert_states_within_rounding(want, mine)
+    g, p = 1, 1                                   # layer period + 1
+    leaf = ref["groups"][f"p{p}"]["mixer"]
+    i = g * tcfg.period + p
+    if tcfg.mamba is not None:
+        bare = ("conv_w", "conv_b", "A_log", "D")
+        dense = leaf["dt_proj"]["w"][g].T
+        got_dense = want[f"layers.{i}.mixer.dt_proj.weight"]
+        fan_in = ("conv_w", tcfg.mamba.d_conv)
+    else:
+        bare = ("w_r", "b")
+        dense = leaf["w_x"]["w"][g].T
+        got_dense = want[f"layers.{i}.mixer.w_x.weight"]
+        fan_in = ("w_r", tcfg.num_heads)
+    for k in bare:
+        np.testing.assert_array_equal(want[f"layers.{i}.mixer.{k}"].numpy(),
+                                      leaf[k][g])
+    np.testing.assert_array_equal(got_dense.numpy(), dense)
+    bound = float(mine[f"layers.{i}.mixer.{fan_in[0]}"].abs().max()) \
+        * np.sqrt(fan_in[1])
+    assert 1.9 < bound <= 2.0                   # truncated at 2 std

@@ -11,15 +11,32 @@ local layers' window masks, and the same config with 2 kv heads, qkv bias
 and qk-norm (GQA and the qwen-style flags); the LM's prefill and decode
 also run the smoke configs of granite-20b (MQA, qkv bias, a non-gated
 gelu MLP, tied embeddings), qwen2-7b (GQA, qkv bias, rope θ 1e6) and
-qwen3-32b (qk-norm, a q projection wider than d_model), and
-``test_torch_moe.py`` those of the MoE configs.
+qwen3-32b (qk-norm, a q projection wider than d_model), and those of
+jamba-1.5-large at one period (8 layers: 7 Mamba and 1 attention, MoE FFNs
+every 2nd layer) and xlstm-125m (2 periods of mLSTM and sLSTM, no FFN),
+whose caches are recurrent states; ``test_torch_moe.py`` runs those of the
+MoE configs.
 
 Tolerance: 2e-5 in fp32 wherever the two packages compute the same
 function, the gate the reference holds its own Pallas kernels to against
 its oracle (``tests/test_kernels.py``); what differs is only the order of
-fp32 sums in XLA's and torch's CPU kernels.
+fp32 sums in XLA's and torch's CPU kernels.  The LMs with recurrent
+mixers (jamba, xlstm) are worse conditioned than that gate: jamba-smoke's
+MoE experts, drawn at the reference's std 1/√E = 0.5, grow the residual
+stream to ~300 over its 8 layers (an fp32 ulp there is 3e-5), and
+xlstm-smoke's sLSTM (recurrent weights at std 1/√H = 0.5, exponential
+gates) carries its states' roundings along the sequence.  Moving every
+reference weight by one fp32 ulp moves the reference's own outputs there
+by more than 2e-5.  So their outputs are held leaf by leaf at max(2e-5, 4·p), p how far that
+one-ulp nudge moves the reference's leaf (``probe_gates``; the factor of
+4 is ``chip_smoke.py``'s ``K_PROBE``); the mixers alone are held at 2e-5
+(``test_torch_ssm.py``).  The same gate holds the whole of xlstm-125m at
+full width, on the reference's own draw, over 16 and 64 tokens: there the
+nudge moves the reference's logits by 3e-4 and 3e-2
+(``tools/xlstm_chaos.py``).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +49,8 @@ from repro.configs import get_config as jget_config
 from repro.configs import shapes as jshapes
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models import ssm as jssm
+from repro.models import xlstm as jxlstm
 from repro.models.moe import Parallel as JParallel
 from repro.models.transformer import (decode_step as jdecode_step,
                                       forward as jforward, init_lm)
@@ -57,9 +76,14 @@ VARIANTS = {"gemma2": ("gemma2-2b", {}),
 LM_VARIANTS = {**VARIANTS, "granite": ("granite-20b", {}),
                "qwen2": ("qwen2-7b", {}), "qwen3": ("qwen3-32b", {}),
                "olmoe": ("olmoe-1b-7b", {}),
-               "phi35_moe": ("phi3.5-moe-42b-a6.6b", {})}
+               "phi35_moe": ("phi3.5-moe-42b-a6.6b", {}),
+               "jamba": ("jamba-1.5-large-398b", dict(num_layers=8)),
+               "xlstm": ("xlstm-125m", {})}
 NEW_CONFIGS = ["granite-20b", "qwen2-7b", "qwen3-32b", "olmoe-1b-7b",
-               "phi3.5-moe-42b-a6.6b"]
+               "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b", "xlstm-125m"]
+# the reference's cache types, by the name of the port's
+JCACHES = {"KVCache": jattn.KVCache, "MambaState": jssm.MambaState,
+           "MLSTMState": jxlstm.MLSTMState, "SLSTMState": jxlstm.SLSTMState}
 
 
 def smoke_pair(variant: str):
@@ -88,9 +112,37 @@ def lm_pair(variant: str, seed: int = 0):
 
 
 @pytest.fixture(scope="module",
-                params=list(VARIANTS) + ["granite", "qwen2", "qwen3"])
+                params=list(VARIANTS) + ["granite", "qwen2", "qwen3", "jamba",
+                                         "xlstm"])
 def pair(request):
     return lm_pair(request.param)
+
+
+def pad_caches(lm, caches, max_len: int):
+    """The prefill's caches as the engine pads them: each ``KVCache`` copied
+    into a zero cache of ``max_len`` positions, recurrent states as they
+    are."""
+    full = lm.init_caches(caches[0][0].shape[0], max_len)
+    for i, c in enumerate(caches):
+        if isinstance(c, tattn.KVCache):
+            P = c.k.shape[1]
+            full[i].k[:, :P], full[i].v[:, :P] = c.k, c.v
+        else:
+            full[i] = c
+    return full
+
+
+def stacked(caches, cfg):
+    """The port's per-layer caches as the reference's: for each period
+    position, its cache type with every leaf stacked along the groups."""
+    out = {}
+    for p in range(cfg.period):
+        per_group = [caches[g * cfg.period + p]
+                     for g in range(cfg.num_groups)]
+        out[f"p{p}"] = JCACHES[type(per_group[0]).__name__](*(
+            jnp.asarray(np.stack([c[i].float().numpy() for c in per_group]))
+            for i in range(len(per_group[0]))))
+    return out
 
 
 def _tokens(seed, B=2, L=S, vocab=512):
@@ -101,6 +153,25 @@ def _tokens(seed, B=2, L=S, vocab=512):
 def _err(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float32) -
                                np.asarray(b, np.float32))))
+
+
+K_PROBE = 4.0
+
+
+def probe_gates(fn, params, out, cfg):
+    """The gate of each leaf of ``out = fn(params)``: TOL for the attention
+    stacks; for the recurrent ones max(TOL, K_PROBE·p), p how far moving
+    every weight by one fp32 ulp (random signs from a numpy seed) moves
+    the reference's leaf."""
+    if cfg.mamba is None and cfg.xlstm is None:
+        return jax.tree.map(lambda _: TOL, out)
+    rng = np.random.default_rng(99)
+    nudged = jax.tree.map(lambda a: a * jnp.asarray(
+        1 + 2.0 ** -23 * rng.choice([-1.0, 1.0], a.shape), jnp.float32),
+        params)
+    return jax.tree.map(
+        lambda a, b: max(TOL, K_PROBE * float(jnp.max(jnp.abs(a - b)))),
+        out, fn(nudged))
 
 
 # --- configs ----------------------------------------------------------------
@@ -256,22 +327,30 @@ def test_make_mask_matches_reference():
 def test_prefill_logits_and_caches_match_reference(pair, use_kernels):
     jcfg, tcfg, jp, lm = pair
     toks = _tokens(6)
-    want, _, jcaches = jax.jit(
-        lambda p, t: jforward(p, jcfg, {"tokens": t},
-                              JParallel(use_pallas=use_kernels),
-                              mode="prefill"))(jp, jnp.asarray(toks))
+    fn = jax.jit(lambda p: jforward(p, jcfg, {"tokens": jnp.asarray(toks)},
+                                    JParallel(use_pallas=use_kernels),
+                                    mode="prefill"))
+    want, jaux, jcaches = fn(jp)
+    tol, _, tol_caches = probe_gates(fn, jp, (want, jaux, jcaches), tcfg)
     with torch.no_grad():
         got, aux, caches = lm(torch.from_numpy(toks),
                               Parallel(use_kernels=use_kernels),
                               mode="prefill")
-    assert got.shape == (2, S, tcfg.padded_vocab) and float(aux) == 0.0
+    assert got.shape == (2, S, tcfg.padded_vocab)
+    if tcfg.moe is None:
+        assert float(aux) == 0.0
+    else:
+        assert abs(float(aux) - float(jaux)) < 1e-5
     assert float(jnp.max(jnp.abs(want))) > 1e-1
-    assert _err(got, want) < TOL
+    assert _err(got, want) < tol
     assert len(caches) == tcfg.num_layers
     for i, c in enumerate(caches):
         g, p = divmod(i, tcfg.period)
-        assert _err(c.k, jcaches[f"p{p}"].k[g]) < TOL
-        assert _err(c.v, jcaches[f"p{p}"].v[g]) < TOL
+        jc = jcaches[f"p{p}"]
+        assert type(c).__name__ == type(jc).__name__
+        # k, v or the state's leaves
+        for a, b, t in zip(c, jc, tol_caches[f"p{p}"]):
+            assert _err(a, b[g]) < t
 
 
 def test_prefill_last_only_and_train_mode(pair):
@@ -292,39 +371,98 @@ def test_prefill_then_decode_matches_forward_and_reference(pair):
     """Prefill 16 tokens, pad the caches to 19, decode 3 more: each step's
     logits against the full forward of all 19 (as the reference's
     ``test_prefill_decode_matches_forward`` does, at its 5e-4) and against
-    the reference's ``decode_step`` on the same caches (2e-5)."""
+    the reference's ``decode_step`` along its own caches (2e-5); each new
+    cache against the reference's step from the same caches, a recurrent
+    layer's new state stored back into the caches list."""
     jcfg, tcfg, jp, lm = pair
     toks = _tokens(8, L=19)
     P, K = 16, 3
     with torch.no_grad():
         full, _ = lm(torch.from_numpy(toks))
         lp, _, caches = lm(torch.from_numpy(toks[:, :P]), mode="prefill")
-    padded = lm.init_caches(2, P + K)
-    for dst, src in zip(padded, caches):
-        dst.k[:, :P], dst.v[:, :P] = src.k, src.v
-    jcaches = {f"p{p}": jattn.KVCache(
-        jnp.asarray(np.stack([padded[g * tcfg.period + p].k.numpy()
-                              for g in range(tcfg.num_groups)])),
-        jnp.asarray(np.stack([padded[g * tcfg.period + p].v.numpy()
-                              for g in range(tcfg.num_groups)])))
-        for p in range(tcfg.period)}
+    padded = pad_caches(lm, caches, P + K)
+    jcaches = stacked(padded, tcfg)
     step = jax.jit(lambda p, t, c, i: jdecode_step(p, jcfg, t, c, i))
     errs = [_err(lp[:, -1], full[:, P - 1])]
     for i in range(K):
-        t = toks[:, P + i:P + i + 1]
+        t, ji = jnp.asarray(toks[:, P + i:P + i + 1]), jnp.int32(P + i)
+        before, jin = list(padded), stacked(padded, tcfg)
         with torch.no_grad():
-            lg, padded = lm.decode_step(torch.from_numpy(t), padded, P + i)
-        jlg, jcaches = step(jp, jnp.asarray(t), jcaches, jnp.int32(P + i))
+            lg, out = lm.decode_step(torch.from_numpy(toks[:, P + i:P + i + 1]),
+                                     padded, P + i)
+        own = functools.partial(step, t=t, c=jcaches, i=ji)
+        jlg, jcaches = own(jp)
+        tol, _ = probe_gates(own, jp, (jlg, jcaches), tcfg)
         errs.append(_err(lg[:, 0], full[:, P + i]))
-        assert _err(lg, jlg) < TOL
+        assert out is padded and _err(lg, jlg) < tol
+        same = functools.partial(step, t=t, c=jin, i=ji)
+        want = same(jp)
+        _, tol_caches = probe_gates(same, jp, want, tcfg)
+        for j, c in enumerate(padded):
+            assert (c is before[j]) == isinstance(c, tattn.KVCache)
+            g, p = divmod(j, tcfg.period)
+            for a, b, gate in zip(c, want[1][f"p{p}"], tol_caches[f"p{p}"]):
+                assert _err(a, b[g]) < gate
     assert max(errs) < 5e-4, errs
 
 
+@pytest.fixture(scope="module")
+def xlstm_full():
+    """xlstm-125m at full width and depth in fp32: the reference's
+    ``init_lm`` draw from key 29 (``chip_smoke.py`` 8h's key) and the port
+    on the same weights."""
+    jcfg = jget_config("xlstm-125m").replace(dtype="float32")
+    tcfg = get_config("xlstm-125m").replace(dtype="float32")
+    params = jax.jit(init_lm, static_argnums=1)(jax.random.PRNGKey(29), jcfg)
+    lm = LM(tcfg, device="cpu")
+    lm.load_state_dict(lm_state_from_jax(jax.tree.map(np.asarray, params),
+                                         tcfg))
+    return jcfg, tcfg, params, lm.eval()
+
+
+@pytest.mark.parametrize("L", [16, 64])
+def test_xlstm_125m_full_width_matches_reference(xlstm_full, L):
+    """The whole of xlstm-125m (12 blocks, d 768) against the reference on
+    the same weights: an L-token prefill's logits and every layer's state,
+    each leaf at max(2e-5, 4·p), p how far a one-ulp nudge of every weight
+    moves the reference's own leaf.  At this width the sLSTM makes the
+    function chaotic (``tools/xlstm_chaos.py``): p grows from ~3e-4 at 16
+    tokens to ~3e-2 at 64 and to the logits' own size by 128."""
+    jcfg, tcfg, params, lm = xlstm_full
+    toks = np.random.default_rng(29).integers(
+        0, tcfg.vocab_size, (1, L)).astype(np.int32)
+    fn = jax.jit(lambda p: jforward(p, jcfg, {"tokens": jnp.asarray(toks)},
+                                    JParallel(), mode="prefill"))
+    want, jaux, jcaches = fn(params)
+    tol, _, tol_caches = probe_gates(fn, params, (want, jaux, jcaches), tcfg)
+    with torch.no_grad():
+        got, aux, caches = lm(torch.from_numpy(toks), Parallel(),
+                              mode="prefill")
+    assert float(aux) == 0.0 and got.shape == (1, L, tcfg.padded_vocab)
+    assert float(jnp.max(jnp.abs(want))) > 1e-1
+    assert _err(got, want) < tol, (_err(got, want), tol)
+    for i, c in enumerate(caches):
+        g, p = divmod(i, tcfg.period)
+        for a, b, t in zip(c, jcaches[f"p{p}"], tol_caches[f"p{p}"]):
+            assert _err(a, b[g]) < t
+
+
 def test_lm_refuses_unported_layers_and_frontends():
+    """Mamba and xLSTM layers build (their mixers and the reference's FFN
+    rule: none beside an xLSTM block); the vision and audio frontends and
+    the encoder head still raise."""
     base = tshapes.smoke_config(get_config("gemma2-2b"))
-    for kw, what in ((dict(layer_pattern=("mamba", "attn")), "Mamba"),
-                     (dict(layer_pattern=("mlstm", "slstm")), "xLSTM"),
-                     (dict(frontend="vision_patches"), "frontend")):
+    for pattern, mixers, ffn in ((("mamba", "attn"), ("Mamba", "Attention"),
+                                  True),
+                                 (("mlstm", "slstm"), ("mLSTM", "sLSTM"),
+                                  False)):
+        lm = LM(base.replace(layer_pattern=pattern), device="meta")
+        assert [type(layer.mixer).__name__ for layer in lm.layers] == \
+            list(mixers) * (base.num_layers // 2)
+        assert all((layer.mlp is not None) == ffn for layer in lm.layers)
+    for kw, what in ((dict(frontend="vision_patches"), "frontend"),
+                     (dict(frontend="audio_frames"), "frontend"),
+                     (dict(is_encoder=True), "encoder head")):
         with pytest.raises(NotImplementedError, match=what):
             LM(base.replace(**kw), device="cpu")
 

@@ -2,7 +2,10 @@
 parameters (``test_torch_lm.lm_pair``: gemma2-smoke and olmoe-smoke, whose
 MoE FFNs route each decode step's B tokens, perturbed): the same
 greedy tokens and the same ``stats`` for an equal-length wave, for mixed
-lengths split into waves, with EOS, and batched against solo.
+lengths split into waves, with EOS, and batched against solo; and
+jamba-smoke (one period: Mamba, attention and MoE layers) and xlstm-smoke
+(mLSTM and sLSTM), whose decode carries recurrent states past the padded
+KV caches, for mixed lengths split into waves.
 
 Tokens are argmaxes of logits that agree to 2e-5 (``test_torch_lm``);
 these prompts leave no top-2 gap that small, so the tokens must be equal.
@@ -129,3 +132,17 @@ def test_serving_modules_import_without_jax():
                           text=True, env={"PYTHONPATH": str(SRC),
                                           "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+@pytest.mark.parametrize("variant", ["jamba", "xlstm"])
+def test_recurrent_mixers_serve_like_reference(variant):
+    """Two waves (20- and 12-token prompts, 3 to 5 new tokens): the
+    prefill's recurrent states pass through the engine's cache padding and
+    each decode step stores the new ones; the same tokens and stats as the
+    reference's engine."""
+    pair = lm_pair(variant, seed=1)
+    jobs = [(p, n, None) for p, n in zip(_prompts(2, [20, 12, 20, 12]),
+                                         [4, 5, 3, 5])]
+    (toks, stats), (want, want_stats) = _both(pair, jobs)
+    assert toks == want and [len(t) for t in toks] == [4, 5, 3, 5]
+    assert stats == want_stats and stats["waves"] == 2
