@@ -124,13 +124,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          its 16 experts, bf16, ``init_lm`` from key 28 on the card: two
          rounds of 2 × 2048 and 8 × 256 prompts (16 new tokens; one
          tensor-core flash launch a prefill, 0 expert drops), a traced
-         prefill (Mamba, MoE and flash shares) and decode step, and layer
-         0's Mamba mixer in fp32, card against CPU;
+         decode step, and layer 0's Mamba mixer in fp32, card against CPU;
      8h. xlstm-125m at full width and depth (12 blocks of mLSTM and
          sLSTM), bf16, key 29: two rounds of 4 × 1024 and 16 × 256
-         prompts (32 new tokens, no flash launch), a traced prefill (the
-         sLSTM time loop's launches) and decode step, and the whole model
-         in fp32, card against CPU (logits and 8 greedy tokens);
+         prompts (32 new tokens, no flash launch), a traced decode step,
+         and the whole model in fp32, card against CPU (logits and 8
+         greedy tokens);
+     8i. hubert-xlarge at full width and depth (48 layers, d 1280, 16/16
+         heads of 80), bf16, ``init_lm`` from key 30: two rounds encoding
+         8 × 1024 frames with a 30% mask (frames/s, 48 tensor-core flash
+         launches a forward, non-causal), a traced forward, the
+         masked-prediction loss, and the kernel route against the plain
+         route (2 layers in fp32 on the CUDA-core kernel's class 96, layer
+         0's attention in bf16);
+     8j. internvl2-1b at full width and depth (24 layers, d 896, GQA 14/2
+         heads of 64), bf16, key 31: two rounds of a prefill of 8 × (256
+         patches + 256 tokens) (24 tensor-core launches) and 32 greedy
+         tokens of ``decode_step`` (none), a traced prefill and decode
+         step, and 2 layers in fp32 kernel route against plain route;
+     8k. LM training on the plain route: 3 train steps of hubert-,
+         internvl- and olmoe-smoke card against CPU (metrics, and every
+         parameter inside ``adamw_update_bound``), internvl2-1b at full
+         width 20 AdamW steps on fp32 master weights (4 × (256 patches +
+         256 Markov-corpus tokens); seconds a step, peak memory, the loss
+         gated to fall, a traced step), hubert-xlarge 3 steps on 2 × 1024
+         frames without and with ``remat="full"`` (the same losses; peak
+         memory of a forward and backward alone);
   9. the OSCAR pipeline at phase 4's preset and random DiT:
      ``run_oscar`` twice from one key (D_syn and the global ResNet-18
      bit-identical, synthesis and training seconds apart, training
@@ -982,29 +1001,19 @@ def drawn_on_card(tag: str, name: str, cfg, key: int, dev, smi: str):
 
 
 @contextlib.contextmanager
-def annotated(*names):
-    """While entered, the MoE FFN (``"moe"``) and each listed recurrent
-    mixer's full-sequence forward run inside ``record_function(name)``."""
+def annotated_moe():
+    """While entered, the MoE FFN runs inside ``record_function("moe")``."""
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models import transformer as tlm
-    saved, dense = dict(tlm.RECURRENT), moe_mod.moe_dense
+    dense = moe_mod.moe_dense
 
-    def wrap(name, fn):
-        def annotated_call(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return annotated_call
+    def annotated_call(*args, **kwargs):
+        with torch.profiler.record_function("moe"):
+            return dense(*args, **kwargs)
 
-    for name in names:
-        if name == "moe":
-            moe_mod.moe_dense = wrap(name, dense)
-        else:
-            mod, fwd, dec, init = saved[name]
-            tlm.RECURRENT[name] = (mod, wrap(name, fwd), dec, init)
+    moe_mod.moe_dense = annotated_call
     try:
         yield
     finally:
-        tlm.RECURRENT.update(saved)
         moe_mod.moe_dense = dense
 
 
@@ -1058,7 +1067,7 @@ def phase_8d(dev, fns, smi: str) -> dict:
         rounds, eng = serve_twice("8d", cfg, lm, waves, budget, fns, smi, log)
     par = Parallel(prefill_last_only=True)
     toks = torch.as_tensor(np.stack(waves["A"]), device=dev)
-    with annotated("moe"), torch.inference_mode():
+    with annotated_moe(), torch.inference_mode():
         trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
                                 BUILD_DIR / "olmoe_prefill_trace.json",
                                 region="moe")
@@ -1165,12 +1174,12 @@ def phase_8g(dev, fns, smi: str) -> int:
     ``init_lm`` from key 28 on the card; ``ServeEngine`` serving two
     rounds of wave A (2 × 2048-token prompts) and wave B (8 × 256), 16 new
     tokens each (one tensor-core flash launch a prefill, 0 expert drops);
-    a traced wave-A prefill (Mamba, MoE and flash shares of device time),
     a traced decode step; then layer 0's Mamba mixer in fp32, card
     against CPU over a 256-token prefill at chunk 128 and 4 decode steps.
-    Returns the tensor-core flash launches of round 1."""
+    (The traced prefill that split its device time into the Mamba scans,
+    the MoE and flash is cut for the script's time limit: PERF.md keeps
+    its numbers.)  Returns the tensor-core flash launches of round 1."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import MAMBA
     from repro_torch.kernels.build import BUILD_DIR
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.moe import Parallel
@@ -1190,25 +1199,12 @@ def phase_8g(dev, fns, smi: str) -> int:
     check(dropped == [0] * len(dropped), f"8g: expert drops {dropped}")
     par = Parallel(prefill_last_only=True)
     toks = torch.as_tensor(np.stack(waves["A"]), device=dev)
-    with annotated(MAMBA, "moe"), torch.inference_mode():
-        trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
-                                BUILD_DIR / "jamba_prefill_trace.json",
-                                region=(MAMBA, "moe"))
     wave_a = rounds[-1]["waves"][0]
-    trace_pre["device_idle_share_of_untraced_wall"] = \
-        1 - trace_pre["device_busy_s"] / wave_a["prefill_s"]
     trace_dec = traced_decode(lm, eng, toks, par,
                               BUILD_DIR / "jamba_decode_trace.json",
                               wave_a["decode_s"] / (budget["A"] - 1))
-    say(f"[8g] traced wave-A prefill: device busy "
-        f"{trace_pre['device_busy_s']:.4f} s over {trace_pre['kernels']} "
-        f"kernels ({100 * trace_pre['device_idle_share']:.1f}% idle), Mamba "
-        f"{trace_pre['mamba_device_s']} s ({trace_pre['mamba_share_of_busy']}"
-        f" of it, {trace_pre['mamba_kernels']} kernels), MoE "
-        f"{trace_pre['moe_device_s']} s ({trace_pre['moe_share_of_busy']}), "
-        f"flash attention {trace_pre['flash_attention_device_s']:.4f} s "
-        f"({100 * trace_pre['flash_attention_share_of_busy']:.2f}%); decode "
-        f"step: {trace_dec['kernels']} launches, device busy "
+    say(f"[8g] traced wave-A decode step: {trace_dec['kernels']} launches, "
+        f"device busy "
         f"{1e3 * trace_dec['device_busy_s']:.2f} ms, untraced step "
         f"{1e3 * trace_dec['untraced_step_s']:.2f} ms, step peak "
         f"{trace_dec['step_peak_gib_above_start']:.3f} GiB above its start "
@@ -1250,8 +1246,7 @@ def phase_8g(dev, fns, smi: str) -> int:
     say(json.dumps({"jamba_serving": {
         "model": cfg.name, "layers": cfg.num_layers,
         "experts": cfg.moe.num_experts, "dtype": "bfloat16", **init,
-        "rounds": rounds, "prefill_trace_wave_A": trace_pre,
-        "decode_step_trace_wave_A": trace_dec,
+        "rounds": rounds, "decode_step_trace_wave_A": trace_dec,
         "mamba_fp32_card_vs_cpu": dict(max_abs_err=mamba_err,
                                        max_abs_y=scale, tol=mamba_tol),
         "card": smi}}))
@@ -1264,13 +1259,13 @@ def phase_8h(dev, fns, smi: str) -> None:
     and sLSTM, d 768, 4 heads, vocab 50304, tied embeddings) in bf16,
     drawn by ``init_lm`` from key 29 on the card; ``ServeEngine`` serving
     two rounds of wave A (4 × 1024-token prompts) and wave B (16 × 256),
-    32 new tokens each (no flash launch: no attention); a traced wave-B
-    prefill (the sLSTM time loop's launches) and a traced decode step;
-    then the whole model in fp32, card against CPU, at 16- and 512-token
-    prompts (last-position logits and layer 0's output), and 8 greedy
-    tokens after the 16-token prompt."""
+    32 new tokens each (no flash launch: no attention); a traced decode
+    step; then the whole model in fp32, card against CPU, at 16- and
+    512-token prompts (last-position logits and layer 0's output), and 8
+    greedy tokens after the 16-token prompt.  (The traced prefill that
+    counted the sLSTM loop's launches is cut for the script's time limit:
+    PERF.md keeps its numbers.)"""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import MLSTM, SLSTM
     from repro_torch.kernels.build import BUILD_DIR
     from repro_torch.models.moe import Parallel
     from repro_torch.models.transformer import LM
@@ -1284,28 +1279,11 @@ def phase_8h(dev, fns, smi: str) -> None:
     rounds, eng = serve_twice("8h", cfg, lm, waves, budget, fns, smi)
     par = Parallel(prefill_last_only=True)
     toks = torch.as_tensor(np.stack(waves["B"]), device=dev)
-    with annotated(MLSTM, SLSTM), torch.inference_mode():
-        trace_pre = device_busy(lambda: lm(toks, par, mode="prefill"),
-                                BUILD_DIR / "xlstm_prefill_trace.json",
-                                region=(MLSTM, SLSTM))
     wave_b = rounds[-1]["waves"][1]
-    trace_pre["device_idle_share_of_untraced_wall"] = \
-        1 - trace_pre["device_busy_s"] / wave_b["prefill_s"]
-    n_slstm = sum(cfg.layer_kind(i) == SLSTM for i in range(cfg.num_layers))
-    trace_pre["slstm_kernels_per_position_per_layer"] = \
-        trace_pre["slstm_kernels"] / (256 * n_slstm)
     trace_dec = traced_decode(lm, eng, toks, par,
                               BUILD_DIR / "xlstm_decode_trace.json",
                               wave_b["decode_s"] / (budget["B"] - 1))
-    say(f"[8h] traced wave-B prefill (16 x 256): {trace_pre['kernels']} "
-        f"kernels, device busy {trace_pre['device_busy_s']:.4f} s "
-        f"({100 * trace_pre['device_idle_share']:.1f}% idle), sLSTM "
-        f"{trace_pre['slstm_kernels']} kernels "
-        f"({trace_pre['slstm_kernels_per_position_per_layer']:.1f} a "
-        f"position a layer, {trace_pre['slstm_device_s']} s on the device), "
-        f"mLSTM {trace_pre['mlstm_kernels']} kernels "
-        f"({trace_pre['mlstm_device_s']} s); decode step: "
-        f"{trace_dec['kernels']} launches, device busy "
+    say(f"[8h] traced wave-B decode step: {trace_dec['kernels']} launches, device busy "
         f"{1e3 * trace_dec['device_busy_s']:.2f} ms, untraced step "
         f"{1e3 * trace_dec['untraced_step_s']:.2f} ms ({smi})")
 
@@ -1373,8 +1351,454 @@ def phase_8h(dev, fns, smi: str) -> None:
     torch.cuda.empty_cache()
     say(json.dumps({"xlstm_serving": {
         "model": cfg.name, "layers": cfg.num_layers, "dtype": "bfloat16",
-        **init, "rounds": rounds, "prefill_trace_wave_B": trace_pre,
-        "decode_step_trace_wave_B": trace_dec, "card": smi}}))
+        **init, "rounds": rounds, "decode_step_trace_wave_B": trace_dec,
+        "card": smi}}))
+
+
+# -- slice 16: the frontends, the encoder head and LM training ---------------
+
+def lm_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """The reference's batch of ``B`` sequences of ``S`` positions for
+    ``cfg``'s frontend, seeded: tokens; ``num_prefix_tokens`` normal patch
+    embeddings and the rest tokens; or normal frame embeddings (1024 frames
+    are 20 s at HuBERT's 50 Hz) with a 30% mask and k-means labels."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.randn((B, S, cfg.frontend_dim), generator=g,
+                                      device=dev),
+                "mask": torch.rand((B, S), generator=g, device=dev) < 0.3,
+                "labels": tokens(B, S)}
+    P = cfg.num_prefix_tokens
+    batch = {"tokens": tokens(B, S - P)}
+    if P:
+        batch["patches"] = torch.randn((B, P, cfg.frontend_dim),
+                                       generator=g, device=dev)
+    return batch
+
+
+def first_layers(lm, cfg, n: int, dtype: str, dev):
+    """An LM of ``cfg`` cut to its first ``n`` layers in ``dtype`` on
+    ``lm``'s weights (bf16 values are exact in fp32)."""
+    from repro_torch.models.transformer import LM
+    cut = LM(cfg.replace(num_layers=n, dtype=dtype), device=dev)
+    state = lm.state_dict()
+    cut.load_state_dict({k: state[k] for k in cut.state_dict()})
+    return cut.eval()
+
+
+def routes_of(fa) -> tuple:
+    return (fa.launches, fa.launches_tensor_core, fa.launches_cuda_core,
+            fa.launches_short)
+
+
+def phase_8i(dev, fns, smi: str) -> dict:
+    """8i. hubert-xlarge at full width and depth (48 layers, d 1280, 16/16
+    heads of 80, d_ff 5120 gelu, 504 k-means targets), bf16, drawn by
+    ``init_lm`` from key 30 on the card: two rounds encoding 8 clips of
+    1024 frames with a seeded 30% mask (frames/s; 48 tensor-core flash
+    launches a forward, non-causal), a traced forward (flash's share of
+    device time), the masked-prediction ``loss_fn``; then the kernel route
+    against the plain route: the first 2 layers in fp32 (the CUDA-core
+    kernel, class 96) on 2 clips at ``TOL_LM_LOGITS``, and layer 0 in
+    bf16, its attention output within the bf16 gates.  Returns the
+    kernel rows' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.models.moe import Parallel
+    from repro_torch.models.transformer import loss_fn
+    fa = fns["flash_attention"]
+    cfg = get_config("hubert-xlarge")
+    lm, init = drawn_on_card("8i", "hubert-xlarge", cfg, 30, dev, smi)
+    batch = lm_batch(cfg, 8, 1024, 30, dev)
+    rounds = []
+    for fn in fns.values():
+        fn.launches = 0
+    fa.launches_tensor_core = fa.launches_cuda_core = fa.launches_short = 0
+    for rnd in (1, 2):
+        n0 = routes_of(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, aux = lm(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = [a - b for a, b in zip(routes_of(fa), n0)]
+        check(d == [cfg.num_layers, cfg.num_layers, 0, 0],
+              f"8i round {rnd}: flash launches (all, tensor core, CUDA "
+              f"core, short) {d}, want {cfg.num_layers} on the tensor cores")
+        check(tuple(logits.shape) == (*batch["mask"].shape,
+                                      cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"8i: logits {tuple(logits.shape)} not finite or misshapen")
+        rounds.append(dict(round=rnd, s=wall, frames_per_s=8 * 1024 / wall,
+                           flash_launches_tensor_core=d[1]))
+        say(f"[8i] round {rnd}: 8 x 1024 frames in {wall:.4f} s, "
+            f"{8 * 1024 / wall:.1f} frames/s, {d[1]} tensor-core flash "
+            f"launches ({smi})")
+        del logits
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {name: 0 for name in fns}
+    want["flash_attention"] = 2 * cfg.num_layers
+    check(launches == want, f"8i: launches {launches} != {want}")
+    with torch.inference_mode():
+        loss, metrics = loss_fn(lm, batch, Parallel())
+        trace = device_busy(lambda: lm(batch),
+                            BUILD_DIR / "hubert_encode_trace.json")
+    check(math.isfinite(float(loss)) and float(metrics["aux"]) == 0.0,
+          f"8i: masked-prediction loss {float(loss)}")
+    say(f"[8i] masked-prediction loss {float(loss):.4f} (ln 504 = "
+        f"{math.log(504):.4f}); traced forward: device busy "
+        f"{trace['device_busy_s']:.4f} s over {trace['kernels']} kernels "
+        f"({100 * trace['device_idle_share']:.1f}% idle), flash attention "
+        f"{trace['flash_attention_device_s']:.4f} s "
+        f"({100 * trace['flash_attention_share_of_busy']:.2f}%) ({smi})")
+
+    # the kernel route against the plain route: 2 layers in fp32 on 2 clips
+    # (the CUDA-core kernel, class 96, non-causal), and layer 0 in bf16,
+    # its attention output (the input of wo) within the bf16 gates
+    small = {k: v[:2] for k, v in batch.items()}
+    lm32 = first_layers(lm, cfg, 2, "float32", dev)
+    lm16 = first_layers(lm, cfg, 1, "bfloat16", dev)
+    del lm
+    torch.cuda.empty_cache()
+    out, attn, cc = {}, {}, {}
+    for use_kernels in (True, False):
+        par = Parallel(use_kernels=use_kernels)
+        n0 = routes_of(fa)
+        hook = lm16.layers[0].mixer.wo.register_forward_pre_hook(
+            lambda mod, args, u=use_kernels: attn.__setitem__(u, args[0]))
+        with torch.inference_mode():
+            out[use_kernels] = lm32(small, par)[0]
+            lm16(small, par)
+        hook.remove()
+        cc[use_kernels] = [a - b for a, b in zip(routes_of(fa), n0)]
+    check(cc[True] == [3, 1, 2, 0] and cc[False] == [0, 0, 0, 0],
+          f"8i: kernel-route launches {cc}, want 2 on the CUDA cores (fp32) "
+          f"and 1 on the tensor cores (bf16); none on the plain route")
+    err32 = max_err(out[True], out[False])
+    a16, r16 = (attn[True].float(), attn[False].float())
+    err16 = max_err(a16, r16)
+    rel16 = row_rel_err(a16, r16)
+    res = dict(last_logits_max_abs_err=err32, tol=TOL_LM_LOGITS,
+               max_abs_logit=float(out[False].abs().max()),
+               bf16_layer0_attention_max_abs_err=err16,
+               bf16_layer0_attention_max_row_rel_err=rel16,
+               bf16_tol=TOL_ATTN_BF16, bf16_row_tol=TOL_ATTN_BF16_ROW)
+    say(json.dumps({"hubert_kernel_vs_plain": {**res, "card": smi}}))
+    check(err32 <= TOL_LM_LOGITS and res["max_abs_logit"] > 1e-1
+          and bool(torch.isfinite(out[True]).all()),
+          f"8i: fp32 logits kernel vs plain {err32:.3g} > {TOL_LM_LOGITS:g}")
+    check(err16 <= TOL_ATTN_BF16 and rel16 <= TOL_ATTN_BF16_ROW,
+          f"8i: bf16 layer-0 attention kernel vs plain {err16:.3g}, "
+          f"row-relative {rel16:.3g}")
+    del lm32, lm16, out, attn, batch, small
+    torch.cuda.empty_cache()
+    say(json.dumps({"hubert_encoding": {
+        "model": cfg.name, "dtype": "bfloat16", **init, "batch": [8, 1024],
+        "rounds": rounds, "loss": float(loss), "trace": trace,
+        "kernel_vs_plain": res, "card": smi}}))
+    return {"flash_attention_lm_hubert": rounds[0][
+                "flash_launches_tensor_core"],
+            "flash_attention_fp32_hd80": cc[True][2]}
+
+
+def phase_8j(dev, fns, smi: str) -> int:
+    """8j. internvl2-1b at full width and depth (24 layers, d 896, GQA 14/2
+    heads of 64, qkv bias, tied embeddings, vocab 151655), bf16, drawn by
+    ``init_lm`` from key 31 on the card: two rounds of a prefill of 8 ×
+    (256 patches + 256 tokens) (24 tensor-core flash launches, causal) and
+    32 greedy tokens of ``decode_step`` (no flash launch), prefill and
+    decode tokens/s, a traced decode step (its launches); then the first 2
+    layers in fp32, kernel route (the CUDA-core kernel, GQA 7) against
+    plain route on one image and 256 tokens at ``TOL_LM_LOGITS``.  Returns
+    the tensor-core flash launches of round 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.moe import Parallel
+    from repro_torch.serve.steps import make_serve_step
+    fa = fns["flash_attention"]
+    cfg = get_config("internvl2-1b")
+    lm, init = drawn_on_card("8j", "internvl2-1b", cfg, 31, dev, smi)
+    batch = lm_batch(cfg, 8, 512, 31, dev)
+    B, L, new = 8, cfg.num_prefix_tokens + batch["tokens"].shape[1], 32
+    par = Parallel(prefill_last_only=True)
+    step = make_serve_step(lm, par)
+    rounds, tokens = [], []
+    for fn in fns.values():
+        fn.launches = 0
+    fa.launches_tensor_core = fa.launches_cuda_core = fa.launches_short = 0
+    for rnd in (1, 2):
+        n0 = routes_of(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _, caches = lm(batch, par, mode="prefill")
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        d_pre = [a - b for a, b in zip(routes_of(fa), n0)]
+        with torch.inference_mode():
+            full = lm.init_caches(B, L + new)
+            for f, c in zip(full, caches):
+                f.k[:, :L], f.v[:, :L] = c.k, c.v
+            del caches
+            cur = torch.argmax(logits[:, -1, :cfg.vocab_size],
+                               -1)[:, None].to(torch.int32)
+        out = [cur]
+        n0 = routes_of(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(new - 1):
+            cur, _, full = step(cur, full, L + i)
+            out.append(cur)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        d_dec = [a - b for a, b in zip(routes_of(fa), n0)]
+        check(d_pre == [cfg.num_layers, cfg.num_layers, 0, 0]
+              and d_dec == [0, 0, 0, 0], f"8j round {rnd}: flash launches "
+              f"in prefill {d_pre} (want {cfg.num_layers} on the tensor "
+              f"cores), in decode {d_dec} (want none)")
+        tokens.append(torch.cat(out, 1).cpu())
+        rounds.append(dict(round=rnd, prefill_s=t_pre,
+                           prefill_tokens_per_s=B * L / t_pre,
+                           decode_s=t_dec,
+                           decode_tokens_per_s=B * (new - 1) / t_dec,
+                           flash_launches_tensor_core=d_pre[1]))
+        say(f"[8j] round {rnd}: prefill 8 x (256 patches + 256 tokens) "
+            f"{B * L / t_pre:.1f} tokens/s ({t_pre:.4f} s), decode "
+            f"{B * (new - 1) / t_dec:.1f} tokens/s ({t_dec:.4f} s for "
+            f"{new - 1} steps), {d_pre[1]} tensor-core flash launches "
+            f"({smi})")
+    check(torch.equal(tokens[0], tokens[1]), "8j: round 2's tokens differ "
+          "from round 1's, same weights and batch")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    want = {name: 0 for name in fns}
+    want["flash_attention"] = 2 * cfg.num_layers
+    check(launches == want, f"8j: launches {launches} != {want}")
+    with torch.inference_mode():
+        trace = device_busy(lambda: step(cur, full, L + new - 1),
+                            BUILD_DIR / "internvl_decode_trace.json")
+        trace_pre = device_busy(lambda: lm(batch, par, mode="prefill"),
+                                BUILD_DIR / "internvl_prefill_trace.json")
+    trace["untraced_step_s"] = rounds[-1]["decode_s"] / (new - 1)
+    trace_pre["device_idle_share_of_untraced_wall"] = \
+        1 - trace_pre["device_busy_s"] / rounds[-1]["prefill_s"]
+    say(f"[8j] traced prefill: device busy {trace_pre['device_busy_s']:.4f} "
+        f"s over {trace_pre['kernels']} kernels "
+        f"({100 * trace_pre['device_idle_share']:.1f}% idle), flash "
+        f"attention {trace_pre['flash_attention_device_s']:.4f} s "
+        f"({100 * trace_pre['flash_attention_share_of_busy']:.2f}%); "
+        f"decode step: {trace['kernels']} launches, device busy "
+        f"{1e3 * trace['device_busy_s']:.2f} ms, untraced step "
+        f"{1e3 * trace['untraced_step_s']:.2f} ms ({smi})")
+    del full, logits
+
+    # 2 layers in fp32, kernel route against plain route on one image
+    lm32 = first_layers(lm, cfg, 2, "float32", dev)
+    del lm, step
+    torch.cuda.empty_cache()
+    one = {k: v[:1] for k, v in batch.items()}
+    last, cc = {}, {}
+    for use_kernels in (True, False):
+        n0 = routes_of(fa)
+        with torch.inference_mode():
+            last[use_kernels] = lm32(one, Parallel(
+                use_kernels=use_kernels, prefill_last_only=True),
+                mode="prefill")[0][0, -1]
+        cc[use_kernels] = [a - b for a, b in zip(routes_of(fa), n0)]
+    check(cc[True] == [2, 0, 2, 0] and cc[False] == [0, 0, 0, 0],
+          f"8j: fp32 launches {cc}, want 2 on the CUDA cores")
+    err = max_err(last[True], last[False])
+    res = dict(last_logits_max_abs_err=err, tol=TOL_LM_LOGITS,
+               max_abs_logit=float(last[False].abs().max()))
+    check(err <= TOL_LM_LOGITS and res["max_abs_logit"] > 1e-1
+          and bool(torch.isfinite(last[True]).all()),
+          f"8j: fp32 logits kernel vs plain {err:.3g} > {TOL_LM_LOGITS:g}")
+    del lm32
+    torch.cuda.empty_cache()
+    say(json.dumps({"internvl_serving": {
+        "model": cfg.name, "dtype": "bfloat16", **init,
+        "batch": [8, 256, 256], "new_tokens": new, "rounds": rounds,
+        "prefill_trace": trace_pre, "decode_step_trace": trace,
+        "kernel_vs_plain_fp32": res,
+        "card": smi}}))
+    return rounds[0]["flash_launches_tensor_core"]
+
+
+def train_card_vs_cpu(name: str, dev, smi: str) -> dict:
+    """Three ``make_train_step`` steps of ``name``'s smoke config on the
+    card and on the CPU from one set of fp32 weights (``init_train_state``
+    from key 32 on the CPU): the loss and metrics within ``TOL_TRAIN``
+    relative, each parameter within ``TOL_TRAIN`` of its leaf's largest
+    element plus ``adamw_update_bound`` of the CPU run's moments (AdamW
+    normalises a gradient that is rounding noise to ~lr on either
+    device)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import smoke_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim.optimizers import adamw_update_bound, init_adamw
+    from repro_torch.train.steps import (TrainState, init_train_state,
+                                         make_train_step)
+    cfg = smoke_config(get_config(name))
+    cpu = init_train_state(prng.PRNGKey(32), cfg, device="cpu")
+    lm = LM(cfg, device=dev, param_dtype=torch.float32)
+    lm.load_state_dict(cpu.params.state_dict())
+    card = TrainState(lm, init_adamw({k: v.detach()
+                                      for k, v in lm.named_parameters()}))
+    step = make_train_step(cfg)
+    drift = {k: 0.0 for k in cpu.opt.mu}
+    metric_err = param_excess = plain_rel = 0.0
+    for i in range(3):
+        batch = lm_batch(cfg, 2, 24, 32 + i, "cpu")
+        prev = cpu.opt
+        cpu, m_cpu = step(cpu, batch)
+        card, m_card = step(card, {k: v.to(dev) for k, v in batch.items()})
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            a, b = float(m_card[k]), float(m_cpu[k])
+            metric_err = max(metric_err, abs(a - b) / max(abs(b), 1.0))
+        bound = adamw_update_bound(prev, cpu.opt, lr=3e-4, rel=TOL_TRAIN)
+        want, got = cpu.params.state_dict(), card.params.state_dict()
+        for k, w in want.items():
+            drift[k] = drift[k] + bound[k]
+            err = (got[k].cpu() - w).abs()
+            scale = float(w.abs().max())
+            plain_rel = max(plain_rel, float(err.max()) / scale)
+            param_excess = max(param_excess, float(
+                (err - TOL_TRAIN * scale - drift[k]).max()))
+    res = dict(config=cfg.name, loss=float(m_cpu["loss"]),
+               aux=float(m_cpu["aux"]), metrics_max_rel_err=metric_err,
+               params_max_rel_err=plain_rel,
+               params_excess_over_gate=param_excess, tol=TOL_TRAIN)
+    say(f"[8k] {cfg.name}: 3 train steps card vs CPU: metrics "
+        f"{metric_err:.3g} relative, parameters {plain_rel:.3g} of their "
+        f"leaf's largest, excess over the gate {param_excess:.3g} ({smi})")
+    check(metric_err <= TOL_TRAIN and param_excess <= 0.0,
+          f"8k: {cfg.name} train steps card vs CPU: {res}")
+    return res
+
+
+def phase_8k(dev, fns, smi: str) -> None:
+    """8k. LM training on the card (the plain route: no kernel launch).
+    Card against CPU: hubert-, internvl- and olmoe-smoke (the MoE aux
+    term), 3 steps each (``train_card_vs_cpu``).  At full width and depth:
+    internvl2-1b from ``init_train_state`` (fp32 master weights, key 32),
+    20 AdamW steps on 4 × (256 patches + 256 tokens), the tokens from
+    ``make_lm_dataset`` (a Markov corpus, 20480 tokens) and the patches
+    seeded normal: seconds a step, peak memory, the loss of every step
+    (the last gated below the first); hubert-xlarge 3 steps on 2 × 1024
+    frames with ``remat="full"`` (its config's) and without: seconds a
+    step and peak memory of each."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import make_lm_dataset
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.models.moe import Parallel
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train.steps import init_train_state, make_train_step
+    for fn in fns.values():
+        fn.launches = 0
+    smoke = [train_card_vs_cpu(name, dev, smi) for name in
+             ("hubert-xlarge", "internvl2-1b", "olmoe-1b-7b")]
+    check(smoke[2]["aux"] > 0, "8k: olmoe-smoke's aux term is 0")
+
+    def trained(cfg, batches, tag, trace_path=None):
+        """Steps of ``cfg`` from key 32 over ``batches``: the losses,
+        seconds a step after the first and the first's, the peak above the
+        start and the GiB of the state (weights and two moments); then the
+        peak of one forward and backward alone above the state, and, with
+        ``trace_path``, one more step traced."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        state = init_train_state(prng.PRNGKey(32), cfg, device=dev)
+        step = make_train_step(cfg)
+        losses, secs = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        losses = torch.stack(losses).tolist()
+        out = dict(steps=len(batches), losses=losses,
+                   first_step_s=secs[0],
+                   s_per_step=sum(secs[1:]) / max(len(secs) - 1, 1),
+                   peak_gib_above_start=(torch.cuda.max_memory_allocated()
+                                         - start) / 2**30,
+                   state_gib=3 * sum(p.numel() for p in
+                                     state.params.parameters()) * 4 / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            loss, _ = loss_fn(state.params, batches[-1],
+                              Parallel(use_kernels=False))
+            grads = torch.autograd.grad(loss, list(
+                state.params.parameters()), allow_unused=True)
+        out["forward_backward_peak_gib_above_state"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+        del loss, grads
+        if trace_path is not None:
+            out["trace"] = device_busy(lambda: step(state, batches[-1]),
+                                       trace_path)
+        check(all(math.isfinite(x) for x in losses),
+              f"8k: {tag} losses {losses}")
+        say(f"[8k] {tag}: {len(batches)} steps, {out['s_per_step']:.4f} s a "
+            f"step after a first of {secs[0]:.3f} s, peak "
+            f"{out['peak_gib_above_start']:.2f} GiB (weights and two "
+            f"moments {out['state_gib']:.2f} GiB; a forward and backward "
+            f"alone {out['forward_backward_peak_gib_above_state']:.2f} GiB "
+            f"above them), loss "
+            f"{', '.join(f'{x:.4f}' for x in losses)}"
+            + (f"; traced step: device busy "
+               f"{out['trace']['device_busy_s']:.4f} s over "
+               f"{out['trace']['kernels']} kernels "
+               f"({100 * out['trace']['device_idle_share']:.1f}% idle)"
+               if trace_path else "") + f" ({smi})")
+        del state, step
+        return out
+
+    cfg = get_config("internvl2-1b")
+    t0 = time.perf_counter()
+    data = make_lm_dataset(cfg.vocab_size, seq_len=256, n_tokens=20 * 4 * 256,
+                           kind="markov", seed=32)
+    data_s = time.perf_counter() - t0
+    g = torch.Generator(dev).manual_seed(32)
+    batches = [{"tokens": torch.as_tensor(b["tokens"], device=dev),
+                "patches": torch.randn((4, cfg.num_prefix_tokens,
+                                        cfg.frontend_dim), generator=g,
+                                       device=dev)}
+               for b in data.batches(4, seed=32, epochs=1)]
+    check(len(batches) == 20, f"8k: {len(batches)} batches of internvl data")
+    vlm = trained(cfg, batches, "internvl2-1b full width, fp32 master",
+                  BUILD_DIR / "internvl_train_step_trace.json")
+    check(vlm["losses"][-1] < vlm["losses"][0], f"8k: internvl2-1b's loss "
+          f"did not fall over 20 steps: {vlm['losses']}")
+    del batches
+    hub = {}
+    full = get_config("hubert-xlarge")
+    frames = [lm_batch(full, 2, 1024, 33 + i, dev) for i in range(3)]
+    for remat in ("none", "full"):
+        hub[remat] = trained(full.replace(remat=remat), frames,
+                             f"hubert-xlarge full width, remat {remat}")
+    check(hub["full"]["losses"] == hub["none"]["losses"],
+          f"8k: hubert-xlarge's losses with remat {hub['full']['losses']} "
+          f"differ from those without {hub['none']['losses']}")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    check(launches == {name: 0 for name in fns},
+          f"8k: training launched kernels {launches}")
+    say(json.dumps({"lm_training": {
+        "card_vs_cpu_smoke": smoke,
+        "internvl2_1b": dict(batch=[4, 256, 256], data_s=data_s, **vlm),
+        "hubert_xlarge": dict(batch=[2, 1024], **hub), "card": smi}}))
 
 
 def main() -> int:
@@ -3258,6 +3682,93 @@ def main() -> int:
            library_max_abs_err=max_err(sdpa_j().transpose(1, 2), j_ref))
     del j_out, j_ref, bhsd_j, qj, kj, vj
 
+    # the tensor-core kernel at the frontend models' prefill layers (8i's
+    # hubert-xlarge encoder: B 8, 1024 frames, 16/16 heads of 80, non-causal,
+    # the 128-column class with columns 80-127 zero; 8j's internvl2-1b: B 8,
+    # 256 patches + 256 tokens, GQA 14/2 heads of 64, causal), and the
+    # CUDA-core kernel at hubert's heads in fp32 (8i's fp32 gate: B 2, the
+    # class of 96), each from a generator of its own.  The library column
+    # is SDPA, there the same function (non-causal; causal with
+    # ``enable_gqa``); the launches are 8i's and 8j's (set there)
+    for tag, seed, shape, causal, dtype in (
+            ("flash_attention_lm_hubert", 30, (8, 1024, 16, 16, 80), False,
+             torch.bfloat16),
+            ("flash_attention_lm_internvl", 31, (8, 512, 14, 2, 64), True,
+             torch.bfloat16),
+            ("flash_attention_fp32_hd80", 30, (2, 1024, 16, 16, 80), False,
+             torch.float32)):
+        Bf, Sf, hqf, hkvf, hdf = shape
+        gf = torch.Generator(dev).manual_seed(seed)
+        qf = torch.randn((Bf, Sf, hqf, hdf), generator=gf, device=dev)
+        kf, vf = (torch.randn((Bf, Sf, hkvf, hdf), generator=gf, device=dev)
+                  for _ in range(2))
+        qf, kf, vf = (t.to(dtype) for t in (qf, kf, vf))
+        kw_f = dict(causal=causal, window=0, softcap=0.0)
+        tc = dtype == torch.bfloat16
+        n_route = (fa.launches_tensor_core, fa.launches_cuda_core)
+        f_out = fa(qf, kf, vf, **kw_f)
+        check((fa.launches_tensor_core - n_route[0],
+               fa.launches_cuda_core - n_route[1]) == ((1, 0) if tc
+                                                       else (0, 1)),
+              f"{tag}: the call did not take the "
+              f"{'tensor-core' if tc else 'CUDA-core'} kernel")
+        f_ref = plain_lm_attn(qf, kf, vf, **kw_f)
+        f_err = max_err(f_out, f_ref)
+        f_check = dict(mode=f"{'causal' if causal else 'noncausal'}_"
+                       f"{hqf}_{hkvf}_hd{hdf}", shape=list(shape),
+                       max_abs_err=f_err)
+        if tc:
+            f_check["max_row_rel_err"] = row_rel_err(f_out, f_ref)
+            check(f_err <= TOL_ATTN_BF16
+                  and f_check["max_row_rel_err"] <= TOL_ATTN_BF16_ROW,
+                  f"{tag}: max abs error {f_err:.3g}, row-relative "
+                  f"{f_check['max_row_rel_err']:.3g}")
+        del f_out
+        bhsd_f = [t.transpose(1, 2) for t in (qf, kf, vf)]
+
+        def sdpa_f(bhsd_f=bhsd_f, causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                *bhsd_f, is_causal=causal, enable_gqa=True)
+
+        hdp = 128 if hdf > 64 else 64            # the tensor-core class
+        floor = (
+            (lambda: empty_launch(
+                (fa_kernel.work_list(Sf, Sf, causal, 0).shape[0] * Bf * hqf,
+                 1), 384, 1024 + 6 * (hdp // 64) * 64 * 128 + 64,
+                torch.cuda.current_device())) if tc else
+            (lambda: fa_kernel.cuda_core_empty_launch(qf, kf, vf)))
+        record(tag, "cuda",
+               "src/repro_torch/kernels/flash_attention/csrc/"
+               + ("flash_attention_tc.cu" if tc else "flash_attention.cu"),
+               "src/repro/kernels/flash_attention/kernel.py:85",
+               TOL_ATTN_BF16 if tc else TOL_ATTN, [f_check],
+               lambda: fa(qf, kf, vf, **kw_f),
+               lambda: plain_lm_attn(qf, kf, vf, **kw_f), sdpa_f,
+               qf.element_size() * (2 * qf.numel() + kf.numel()
+                                    + vf.numel()),
+               4 * hdf * Bf * hqf * attn_pairs(Sf, Sf, causal, 0),
+               list(shape), peak=BF16_FLOPS if tc else FP32_FLOPS, iters=5,
+               phase=8,
+               mode={"flash_attention_lm_hubert":
+                     "non-causal, MHA 16/16, head dim 80 (the 128-column "
+                     "class), bf16 (hubert-xlarge, 8i's encoder), "
+                     "tensor-core kernel",
+                     "flash_attention_lm_internvl":
+                     "causal, GQA 14/2, head dim 64, bf16 (internvl2-1b, "
+                     "8j's prefill of 256 patches and 256 tokens), "
+                     "tensor-core kernel",
+                     "flash_attention_fp32_hd80":
+                     "non-causal, MHA 16/16, head dim 80 (the class of 96),"
+                     " fp32 (hubert-xlarge, 8i's fp32 gate), CUDA-core "
+                     "kernel"}[tag],
+               launch_floor_ms=graph_ms(floor),
+               library_call="scaled_dot_product_attention"
+                            + (", is_causal, enable_gqa" if causal else ""),
+               library_max_abs_err=max_err(sdpa_f().transpose(1, 2), f_ref),
+               hd_class=hdp if tc else 96,
+               useful_share_of_products=hdf / (hdp if tc else 96))
+        del f_ref, bhsd_f, qf, kf, vf
+
     # the CUDA-core kernel at 8c's layer: one 4608-token request of gemma2
     # in fp32, local mode (window 4096, softcap 50, GQA 8/4); its launches
     # are counted in 8c.  The library column is flex_attention compiled for
@@ -3565,6 +4076,19 @@ def main() -> int:
     t8 = time.perf_counter()
     phase_8h(dev, fns, smi)
     say(f"[8h] xlstm-125m: {time.perf_counter() - t8:.1f} s")
+
+    # -- 8i-8k. the frontends, the encoder head and LM training -------------
+    t8 = time.perf_counter()
+    for name, n in phase_8i(dev, fns, smi).items():
+        kernels[name]["launches"] = n
+    say(f"[8i] hubert-xlarge: {time.perf_counter() - t8:.1f} s")
+    t8 = time.perf_counter()
+    kernels["flash_attention_lm_internvl"]["launches"] = phase_8j(dev, fns,
+                                                                  smi)
+    say(f"[8j] internvl2-1b: {time.perf_counter() - t8:.1f} s")
+    t8 = time.perf_counter()
+    phase_8k(dev, fns, smi)
+    say(f"[8k] LM training: {time.perf_counter() - t8:.1f} s")
 
     # -- 9. the paper's methods end to end -----------------------------------
     # benchmarks/common.py's paper preset: phase 4's data and DiT, 30

@@ -13,6 +13,8 @@ from repro_torch.configs import olmoe_1b_7b  # noqa: F401
 from repro_torch.configs import qwen3_32b  # noqa: F401
 from repro_torch.configs import jamba_15_large  # noqa: F401
 from repro_torch.configs import xlstm_125m  # noqa: F401
+from repro_torch.configs import hubert_xlarge  # noqa: F401
+from repro_torch.configs import internvl2_1b  # noqa: F401
 from repro_torch.configs.shapes import smoke_config, smoke_shape
 
 __all__ = ["DataConfig", "DiffusionConfig", "OscarConfig", "INPUT_SHAPES",

@@ -2,9 +2,10 @@
 
 Field for field the same as the JAX package's ``configs/base.py`` (same
 names, defaults, layer kinds and parameter counts), kept as a copy so the
-port never imports it; ``act_dtype`` is a torch dtype here.  Only the
-configs the port can run register: gemma2-2b, granite-20b, qwen2-7b,
-qwen3-32b, olmoe-1b-7b, phi3.5-moe, jamba-1.5-large and xlstm-125m.
+port never imports it; ``act_dtype`` is a torch dtype here.  Every config
+of the reference registers: gemma2-2b, granite-20b, qwen2-7b, qwen3-32b,
+olmoe-1b-7b, phi3.5-moe, jamba-1.5-large, xlstm-125m, hubert-xlarge and
+internvl2-1b.
 """
 from __future__ import annotations
 

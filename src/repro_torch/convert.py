@@ -142,9 +142,14 @@ def lm_state_items(params, cfg):
     stacked along a leading ``num_groups`` axis: absolute layer
     ``g · period + p`` takes slice g of ``p{p}``."""
     yield "embedding", _lm_leaf(params["embed"]["embedding"])
+    if "frontend_proj" in params:
+        yield from lm_layer_items("frontend_proj.", params["frontend_proj"])
+    if "mask_embed" in params:
+        yield "mask_embed", _lm_leaf(params["mask_embed"])
     yield from lm_layer_items("final_norm.", params["final_norm"])
-    if "lm_head" in params:
-        yield from lm_layer_items("lm_head.", params["lm_head"])
+    for head in ("lm_head", "enc_head"):
+        if head in params:
+            yield from lm_layer_items(f"{head}.", params[head])
     for g in range(cfg.num_groups if "groups" in params else 0):
         for p in range(cfg.period):
             yield from lm_layer_items(f"layers.{g * cfg.period + p}.",
@@ -155,3 +160,4 @@ def lm_state_from_jax(params, cfg) -> dict:
     """``init_lm(key, cfg)`` tree (the reference's, or the port's
     ``init_lm_tree``) → ``LM.load_state_dict`` input."""
     return {name: load() for name, load in lm_state_items(params, cfg)}
+

@@ -102,15 +102,18 @@ def _attend(q, k, v, mask, cfg: ModelConfig, window: int):
     operands are contracted as they are stored, with fp32 output, as the
     reference's ``preferred_element_type=float32`` does: decode reads the
     whole cache every step, and an fp32 copy of it would cost more than the
-    products.  On the CPU (no ``bmm`` with an fp32 output for bf16) the
-    contractions run on fp32 copies, which give the same products.
+    products.  On the CPU (no ``bmm`` with an fp32 output for bf16), and
+    where a gradient flows (``bmm`` with an fp32 output has no derivative),
+    the contractions run on fp32 copies, which give the same products.
     """
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
     scale = hd ** -0.5
     qs = (q * scale).reshape(B, Sq, Hkv, rep, hd)
-    in_place = q.device.type == "cuda" and k.dtype != torch.float32
+    in_place = (q.device.type == "cuda" and k.dtype != torch.float32
+                and not (torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (q, k, v))))
     if in_place:
         logits = _scores_f32(qs, k)
     else:

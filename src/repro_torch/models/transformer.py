@@ -1,22 +1,21 @@
 """The LM zoo's sequence model: the JAX package's ``models/transformer.py``
-as one ``nn.Module``, for its token-frontend decoders: attention, Mamba,
-mLSTM and sLSTM mixers, with dense or MoE FFNs (gemma2, granite, the qwens,
-olmoe, phi3.5-moe, jamba, xlstm).
+as one ``nn.Module``: attention, Mamba, mLSTM and sLSTM mixers, with dense
+or MoE FFNs (gemma2, granite, the qwens, olmoe, phi3.5-moe, jamba, xlstm),
+the audio and vision frontends (hubert's frames, internvl's patches) and
+the encoder head, and ``loss_fn``, the loss the trainers take.
 
 The reference stacks the layers of each period position along a leading
 ``num_groups`` axis and scans over groups; the port keeps one module per
 layer in absolute order (layer ``g · period + p`` is group g's position p;
 ``convert.lm_state_from_jax`` maps the one onto the other).  A layer's
 decode cache is a ``KVCache`` (attention, written in place) or its mixer's
-recurrent state (Mamba, mLSTM, sLSTM; replaced each step).  The audio and
-vision frontends and the encoder head come with a later slice and raise
-``NotImplementedError`` here; so does ``loss_fn``, which comes with
-training.
+recurrent state (Mamba, mLSTM, sLSTM; replaced each step).
 
-Weights are held in the activation dtype (the reference holds fp32 and
-casts each to it at use, which rounds the same way); norm scales, Mamba's
-``A_log`` and ``D`` and sLSTM's ``w_r`` and ``b``, which the reference uses
-uncast, stay fp32.
+Weights are held in the activation dtype for serving (the reference holds
+fp32 and casts each to it at use, which rounds the same way), or in fp32
+for training (``param_dtype``; every layer casts at use, so the forward is
+the reference's); norm scales, Mamba's ``A_log`` and ``D`` and sLSTM's
+``w_r`` and ``b``, which the reference uses uncast, stay fp32.
 ``LM(cfg)`` allocates them and draws nothing; ``init_lm(key, cfg)`` draws
 the reference's initial weights from a threefry key.
 """
@@ -27,7 +26,9 @@ import itertools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MLSTM, SLSTM,
@@ -52,6 +53,9 @@ RECURRENT = {
     SLSTM: (xlstm_mod.sLSTM, xlstm_mod.slstm_forward, xlstm_mod.slstm_decode,
             xlstm_mod.init_slstm_state),
 }
+
+
+FRONTENDS = ("token", "vision_patches", "audio_frames")
 
 
 class Layer(nn.Module):
@@ -94,28 +98,41 @@ def _has_ffn(cfg: ModelConfig, p: int) -> bool:
 
 
 class LM(nn.Module):
-    """Token-frontend decoder.  ``forward(tokens, par, mode=)`` is the
-    reference's ``forward``; ``decode_step`` and ``init_caches`` its
-    decode half.  Parameters live on ``device``: the card unless the caller
-    passes ``"cpu"``.  They are allocated, not drawn (norm scales and qkv
-    biases zero): ``init_lm`` draws them from a key, or
-    ``convert.lm_state_from_jax`` loads a reference tree."""
+    """The reference's sequence model.  ``forward(batch, par, mode=)`` is
+    its ``forward``; ``decode_step`` and ``init_caches`` its decode half
+    (not for an encoder).  Parameters live on ``device``: the card unless
+    the caller passes ``"cpu"``; their dtype is ``param_dtype``, the
+    activation dtype unless given (training holds fp32).  They are
+    allocated, not drawn (norm scales and qkv biases zero): ``init_lm``
+    draws them from a key, or ``convert.lm_state_from_jax`` loads a
+    reference tree."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, param_dtype=None):
         super().__init__()
-        if cfg.frontend != "token" or cfg.is_encoder:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend} frontend"
-                f"{' and encoder head' if cfg.is_encoder else ''} come with "
-                "a later slice")
+        if cfg.frontend not in FRONTENDS:
+            raise ValueError(cfg.frontend)
         device = resolve_device(device)
-        dt = cfg.act_dtype
+        dt = param_dtype or cfg.act_dtype
         self.cfg = cfg
+        # an encoder never reads its token table; the reference draws it all
+        # the same, so the trees line up
         self.embedding = init_embedding(cfg.padded_vocab, cfg.d_model,
                                         device, dt)
+        self.frontend_proj = self.mask_embed = None
+        if cfg.frontend != "token":
+            self.frontend_proj = Dense(cfg.frontend_dim, cfg.d_model,
+                                       device=device, dtype=dt)
+        if cfg.frontend == "audio_frames":
+            self.mask_embed = nn.Parameter(torch.empty(cfg.d_model,
+                                                       device=device,
+                                                       dtype=dt))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.lm_head = None if cfg.tie_embeddings else Dense(
-            cfg.d_model, cfg.padded_vocab, device=device, dtype=dt)
+        head = Dense(cfg.d_model, cfg.padded_vocab, device=device, dtype=dt)
+        self.lm_head = self.enc_head = None
+        if cfg.is_encoder:
+            self.enc_head = head
+        elif not cfg.tie_embeddings:
+            self.lm_head = head
         self.layers = nn.ModuleList(
             Layer(cfg, i % cfg.period, device=device, dtype=dt)
             for i in range(cfg.num_layers))
@@ -125,13 +142,24 @@ class LM(nn.Module):
         return self.embedding.device
 
     # -- forward (train / prefill) ------------------------------------------
-    def _embed_inputs(self, tokens):
-        """Returns (x (B,S,d), positions (B,S))."""
+    def _embed_inputs(self, batch):
+        """Returns (x (B,S,d), positions (B,S)) for the reference's batch
+        of tensors on the LM's device: ``{"tokens"}``, ``{"patches",
+        "tokens"}`` (the projected patches before the token embeddings) or
+        ``{"frames", "mask"}`` (the projected frames, ``mask_embed`` where
+        the mask is True)."""
         cfg, dt = self.cfg, self.cfg.act_dtype
-        x = embed(self.embedding, tokens, dt)
-        B, S = tokens.shape
+        if cfg.frontend == "audio_frames":
+            x = torch.where(batch["mask"][..., None], self.mask_embed.to(dt),
+                            self.frontend_proj(batch["frames"].to(dt)))
+        else:
+            x = embed(self.embedding, batch["tokens"], dt)
+            if cfg.frontend == "vision_patches":
+                x = torch.cat([self.frontend_proj(batch["patches"].to(dt)),
+                               x], 1)
+        B, S = x.shape[:2]
         pos = torch.arange(S, dtype=torch.int32,
-                           device=tokens.device).expand(B, S)
+                           device=x.device).expand(B, S)
         return self._scale_embed(x), pos
 
     def _scale_embed(self, x):
@@ -183,7 +211,9 @@ class LM(nn.Module):
     def _readout(self, x):
         cfg = self.cfg
         x = self.final_norm(x)
-        if cfg.tie_embeddings:
+        if cfg.is_encoder:
+            logits = self.enc_head(x)
+        elif cfg.tie_embeddings:
             logits = unembed(self.embedding, x)
         else:
             logits = self.lm_head(x)
@@ -191,21 +221,34 @@ class LM(nn.Module):
             logits = _softcap(logits.float(), cfg.final_softcap)
         return logits
 
-    def forward(self, tokens, par: Parallel = Parallel(), *,
+    def forward(self, batch, par: Parallel = Parallel(), *,
                 mode: str = "train"):
-        """Full-sequence pass over tokens (B, S).
+        """Full-sequence pass over ``batch``: the reference's batch dict
+        (``_embed_inputs``), or a token tensor (B, S).
 
         Returns (logits, aux_loss) for mode="train"; (logits, aux_loss,
         caches) for mode="prefill", caches a list with one entry per layer:
         a ``KVCache`` of (B, S, n_kv, head_dim), or the mixer's recurrent
         state after the last position.  ``aux_loss`` sums the MoE
         routers' load-balance losses over the layers (0 for dense
-        stacks)."""
-        x, pos = self._embed_inputs(tokens)
+        stacks).  With ``cfg.remat == "full"`` and grad on, each layer's
+        forward is recomputed in the backward (``torch.utils.checkpoint``),
+        as the reference's ``jax.checkpoint`` of each group: the same
+        numbers, less memory."""
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        x, pos = self._embed_inputs(batch)
         caches = []
         aux = torch.zeros((), device=x.device)
+        remat = (self.cfg.remat == "full" and mode == "train"
+                 and torch.is_grad_enabled())
         for layer in self.layers:
-            x, aux_l, c = self._apply_layer(layer, x, pos, par, mode)
+            if remat:
+                x, aux_l = checkpoint(self._remat_layer, layer, x, pos, par,
+                                      use_reentrant=False)
+                c = None
+            else:
+                x, aux_l, c = self._apply_layer(layer, x, pos, par, mode)
             if aux_l is not None:
                 aux = aux + aux_l
             caches.append(c)
@@ -216,6 +259,10 @@ class LM(nn.Module):
         if mode == "prefill":
             return logits, aux, caches
         return logits, aux
+
+    def _remat_layer(self, layer: Layer, x, pos, par: Parallel):
+        x, aux, _ = self._apply_layer(layer, x, pos, par, "train")
+        return x, aux
 
     # -- decode ---------------------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=None):
@@ -241,6 +288,46 @@ class LM(nn.Module):
                                                 "decode", cache=caches[i],
                                                 decode_pos=pos)
         return self._readout(x), caches
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def _nll(logits, labels):
+    """-log softmax(logits)[label] per position, in fp32."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
+def loss_fn(lm: LM, batch, par: Parallel = Parallel(use_kernels=False)):
+    """The reference's ``loss_fn``: the masked-prediction loss of an
+    encoder (the mean NLL of ``labels`` over the masked frames, the count
+    at least 1), next-token cross-entropy over the text of a VLM (the
+    patch positions excluded), or over the tokens; plus the MoE routers'
+    load-balance loss, ``router_aux_weight · aux / num_layers``.  Returns
+    (loss, {"ce", "aux"}), 0-d fp32 tensors on the LM's device.  By
+    default on the plain attention route, as the reference's (its
+    ``Parallel`` leaves Pallas off): a loss is for training, and the
+    kernels have no backward."""
+    cfg = lm.cfg
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    logits, aux = lm(batch, par, mode="train")
+    logits = logits.float()
+    if cfg.is_encoder:
+        m = batch["mask"]
+        nll = _nll(logits, batch["labels"])
+        ce = (nll * m).sum() / torch.clamp(m.sum(), min=1)
+    else:
+        tokens = batch["tokens"]
+        if cfg.frontend == "vision_patches":
+            logits = logits[:, batch["patches"].shape[1]:]
+        ce = _nll(logits[:, :-1], tokens[:, 1:]).mean()
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    loss = ce + aux_w * aux / max(cfg.num_layers, 1)
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -448,19 +535,28 @@ def _layer_tree(keys, cfg: ModelConfig, p: int, device) -> dict:
 
 def _lazy_tree(key, cfg: ModelConfig, device):
     """The reference's ``init_lm`` key layout: ``key, gkey = split(key)``;
-    ``split(key, 5)`` gives the embedding (0.02·normal), the final norm
-    (zeros) and the head; ``split(gkey, num_groups)`` one key a group, each
-    split by ``period`` into its layers' keys.  Returns (the tree without
+    ``split(key, 5)`` gives the embedding (0.02·normal), the frontend's
+    projection, the audio mask embedding (0.02·normal), the final norm
+    (zeros) and the head (``lm_head``, or an encoder's ``enc_head``);
+    ``split(gkey, num_groups)`` one key a group, each split by ``period``
+    into its layers' keys.  Returns (the tree without
     ``groups``, the layer keys (num_groups, period, 2))."""
     LM(cfg, device="meta")                # refuses what the LM refuses
     key, gkey = prng.split(np.asarray(key, np.uint32))
     ks = prng.split(key, 5)
+    d = cfg.d_model
     top = {"embed": {"embedding": lazy(_normal, ks[0], (
-               cfg.padded_vocab, cfg.d_model), device, 0.02)},
-           "final_norm": {"scale": lazy(_zeros, ks[3], (cfg.d_model,),
-                                        device)}}
-    if not cfg.tie_embeddings:
-        top["lm_head"] = _dense(ks[4], cfg.d_model, cfg.padded_vocab, device)
+               cfg.padded_vocab, d), device, 0.02)}}
+    if cfg.frontend != "token":
+        top["frontend_proj"] = _dense(ks[1], cfg.frontend_dim, d, device)
+        if cfg.frontend == "audio_frames":
+            top["mask_embed"] = lazy(_normal, ks[2], (d,), device, 0.02)
+    top["final_norm"] = {"scale": lazy(_zeros, ks[3], (d,), device)}
+    # an encoder's head takes the key an untied LM head would
+    if not cfg.tie_embeddings and not cfg.is_encoder:
+        top["lm_head"] = _dense(ks[4], d, cfg.padded_vocab, device)
+    if cfg.is_encoder:
+        top["enc_head"] = _dense(ks[4], d, cfg.padded_vocab, device)
     return top, prng.split(prng.split(gkey, cfg.num_groups), cfg.period)
 
 
@@ -484,15 +580,15 @@ def init_lm_tree(key, cfg: ModelConfig, device=None) -> dict:
     return params
 
 
-def init_lm(key, cfg: ModelConfig, device=None) -> LM:
+def init_lm(key, cfg: ModelConfig, device=None, param_dtype=None) -> LM:
     """An ``LM`` on ``device`` holding the reference's initial weights for
     ``key``: ``init_lm_tree``'s leaves, drawn one at a time in float32 and
-    loaded into the allocated parameters (cast to the activation dtype),
-    group by group.  Under the reference's ``vmap`` each group's draws are
+    loaded into the allocated parameters (cast to ``param_dtype``, the
+    activation dtype unless given), group by group.  Under the reference's ``vmap`` each group's draws are
     its own key's, so a group drawn alone gives the same bits; the peak is
     the model plus one leaf in float32."""
     device = resolve_device(device)
-    lm = LM(cfg, device=device)
+    lm = LM(cfg, device=device, param_dtype=param_dtype)
     state = lm.state_dict()
     top, lkeys = _lazy_tree(key, cfg, device)
     items = [lm_state_items(top, cfg)]

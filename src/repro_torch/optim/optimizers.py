@@ -67,6 +67,25 @@ def adamw(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
             AdamWState(step, _like(params, mu), _like(params, nu)))
 
 
+def adamw_update_bound(before: AdamWState, after: AdamWState, *, lr,
+                       rel: float, b1=0.9, b2=0.95, eps=1e-8) -> dict:
+    """How far a gradient error of ``rel`` times the step's largest
+    gradient element can move each element of the AdamW update that took
+    ``before`` to ``after`` (``adamw``'s states, dicts keyed alike).  The
+    update is lr·m̂/(√v̂ + eps); m̂ and √v̂ each move by at most the
+    gradient's error δ, so the update by at most 2·lr·δ/(√v̂ + eps): ~lr
+    where the gradient is itself at the error's size (AdamW normalises it),
+    ~2·lr·rel where it is the largest.  The step's gradient is
+    (mu - b1·mu_before)/(1 - b1).  Returns a dict of tensors like ``nu``:
+    the gate that holds two runs of a step to each other when their
+    gradients agree to ``rel``."""
+    gmax = max(float(((m - b1 * before.mu[k]) / (1 - b1)).abs().max())
+               for k, m in after.mu.items())
+    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(after.step))
+    return {k: 2 * lr * rel * gmax / ((v / bc2).sqrt() + eps)
+            for k, v in after.nu.items()}
+
+
 def init_sgdm(params) -> SGDMState:
     return SGDMState(0, _like(params, torch._foreach_mul(_leaves(params),
                                                          0.0)))

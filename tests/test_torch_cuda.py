@@ -10,6 +10,7 @@ so it also runs on a machine that has only PyTorch:
 """
 import copy
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -443,16 +444,21 @@ def _tc_inputs(dev, seed, B, Sq, Sk, Hq, Hkv, hd, q_scale):
 
 @pytest.mark.parametrize("mode", list(TC_MODES))
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 100, 129, 4608])
-@pytest.mark.parametrize("Hkv,hd", [(8, 64), (4, 128), (1, 256), (4, 256)])
-def test_attention_tensor_core_kernel_grid(dev, mode, S, Hkv, hd):
+@pytest.mark.parametrize("Hq,Hkv,hd", [(8, 8, 64), (8, 4, 128), (8, 1, 256),
+                                       (8, 4, 256), (16, 16, 80),
+                                       (14, 2, 64)])
+def test_attention_tensor_core_kernel_grid(dev, mode, S, Hq, Hkv, hd):
     """The tensor-core kernel against the plain version at lengths of 1,
     one 64-key tile and one key either side of it, a ragged 100 and 129
     (one past the 128-row query tile) and gemma2's 4608; windows on (64)
     and off (65) a key-tile boundary and gemma2's 4096; GQA 8/8, 8/4 and
-    8/1; head dims 64, 128 and 256.  Length 1 at head dim 64 is the
+    8/1; head dims 64, 128 and 256; hubert-xlarge's 16/16 heads of 80 (the
+    128-column class, TMA filling columns 80-127 with zeros and clipping
+    them from the store) and internvl2-1b's GQA 14/2 of 64 (a kv head
+    h / 7, not a power of two).  Length 1 at head dim 64 is the
     short-sequence kernel's call, within the same gates."""
     causal, window, softcap, q_scale = TC_MODES[mode]
-    q, k, v = _tc_inputs(dev, 21, 1 if S > 1000 else 2, S, S, 8, Hkv, hd,
+    q, k, v = _tc_inputs(dev, 21, 1 if S > 1000 else 2, S, S, Hq, Hkv, hd,
                          q_scale)
     kw = dict(causal=causal, window=window, softcap=softcap)
     fa = fa_ops.flash_attention
@@ -678,6 +684,23 @@ def test_cuda_core_kernel_at_tile_edges(dev, mode, S, hd, dtype):
     v = v * (0.5 if q_scale > 1 else 1.0)
     _cuda_core_check((q * q_scale).to(dt), k.to(dt), v.to(dt),
                      causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("Hq,Hkv,hd,causal", [(16, 16, 80, False),
+                                              (14, 2, 80, False),
+                                              (14, 2, 64, True),
+                                              (16, 16, 80, True)])
+@pytest.mark.parametrize("S", [65, 1024])
+def test_cuda_core_kernel_at_the_frontend_models_shapes(dev, Hq, Hkv, hd,
+                                                        causal, S):
+    """The CUDA-core kernel in fp32 (the LMs' fp32 kernel route) at
+    hubert-xlarge's heads (16/16 of 80, the class of 96: columns 80-95
+    zeros), non-causal as its encoder runs, and internvl2-1b's GQA 14/2 (a
+    kv head h / 7; a block takes one query head, 7 not a power of two),
+    against the plain version at 2e-5."""
+    q, k, v = _randn(dev, 41, (2, S, Hq, hd), (2, S, Hkv, hd),
+                     (2, S, Hkv, hd))
+    _cuda_core_check(q, k, v, causal=causal, window=0, softcap=0.0)
 
 
 @pytest.mark.parametrize("layout", ["qkv_views", "bhsd", "unaligned",
@@ -1698,3 +1721,127 @@ def test_stable_top_k_on_the_card_breaks_ties_lower_first(dev):
     assert torch.equal(got[dev][0], got["cpu"][0])
     assert torch.equal(got[dev][2], got["cpu"][2])
     assert _err(got[dev][1], got["cpu"][1]) < 1e-6
+
+
+# -- slice 16: the frontends, the encoder head and LM training ------------------
+
+def _frontend_batch(cfg, seed, B=2, S=24):
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frames": rng.standard_normal(
+                    (B, S, cfg.frontend_dim)).astype(np.float32),
+                "mask": rng.random((B, S)) < 0.3,
+                "labels": rng.integers(0, cfg.vocab_size,
+                                       (B, S)).astype(np.int32)}
+    P = cfg.num_prefix_tokens
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (B, S - P)).astype(np.int32)}
+    if P:
+        batch["patches"] = rng.standard_normal(
+            (B, P, cfg.frontend_dim)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("name", ["hubert-xlarge", "internvl2-1b",
+                                  "olmoe-1b-7b"])
+def test_train_steps_on_the_card_match_the_cpu(dev, name):
+    """Three ``make_train_step`` steps of the smoke config on the card and
+    on the CPU from one set of fp32 weights (``init_train_state``'s CPU
+    draw): the loss, ``ce``, ``aux`` and gradient norm within 1e-5
+    relative, each parameter within 1e-5 of its leaf's largest element
+    plus ``adamw_update_bound`` of the CPU's moments (AdamW normalises a
+    gradient that is rounding noise to ~lr on either device); no kernel
+    launched (training runs the plain route)."""
+    from repro_torch.configs.shapes import smoke_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim.optimizers import adamw_update_bound, init_adamw
+    from repro_torch.train.steps import (TrainState, init_train_state,
+                                         make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_config(get_config(name))
+    cpu = init_train_state(prng.PRNGKey(8), cfg, device="cpu")
+    lm = LM(cfg, device=dev, param_dtype=torch.float32)
+    lm.load_state_dict(cpu.params.state_dict())
+    card = TrainState(lm, init_adamw({k: v.detach() for k, v in
+                                      lm.named_parameters()}))
+    step = make_train_step(cfg)
+    before = fa_ops.flash_attention.launches
+    drift = {k: 0.0 for k in cpu.opt.mu}
+    for i in range(3):
+        batch = _frontend_batch(cfg, 30 + i)
+        prev = cpu.opt
+        cpu, m_cpu = step(cpu, {k: torch.as_tensor(v)
+                                for k, v in batch.items()})
+        card, m_card = step(card, {k: torch.as_tensor(v, device=dev)
+                                   for k, v in batch.items()})
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            a, b = float(m_card[k]), float(m_cpu[k])
+            assert abs(a - b) <= 1e-5 * max(abs(b), 1.0), (k, a, b)
+        bound = adamw_update_bound(prev, cpu.opt, lr=3e-4, rel=1e-5)
+        want, got = cpu.params.state_dict(), card.params.state_dict()
+        for k, w in want.items():
+            drift[k] = drift[k] + bound[k]
+            err = (got[k].cpu() - w).abs()
+            assert bool((err <= 1e-5 * w.abs().max() + drift[k]).all()), \
+                (i, k, float(err.max()))
+    assert fa_ops.flash_attention.launches == before
+    assert math.isfinite(float(m_card["loss"]))
+
+
+def test_bf16_train_steps_on_the_card_run_the_plain_route(dev):
+    """internvl-smoke with bf16 activations and fp32 master weights: three
+    steps on the card run (the plain attention's contractions on fp32
+    copies while a gradient flows: ``bmm`` with an fp32 output has no
+    derivative), launch no kernel, keep the weights fp32, and their losses
+    agree with the fp32-activation run's to bf16's rounding."""
+    from repro_torch.configs.shapes import smoke_config
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg32 = smoke_config(get_config("internvl2-1b"))
+    losses = {}
+    before = fa_ops.flash_attention.launches
+    for dtype in ("bfloat16", "float32"):
+        cfg = cfg32.replace(dtype=dtype)
+        state = init_train_state(prng.PRNGKey(4), cfg, device=dev)
+        step = make_train_step(cfg)
+        out = []
+        for i in range(3):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in _frontend_batch(cfg, 50 + i).items()}
+            state, m = step(state, batch)
+            out.append(float(m["loss"]))
+        assert all(p.dtype == torch.float32
+                   for p in state.params.parameters())
+        losses[dtype] = out
+    assert fa_ops.flash_attention.launches == before
+    assert all(math.isfinite(x) for x in losses["bfloat16"])
+    assert max(abs(a - b) for a, b in zip(*losses.values())) < 5e-2
+
+
+def test_frontend_prefill_takes_the_tensor_core_kernel(dev):
+    """bf16 prefills of hubert-smoke (non-causal frames) and internvl-smoke
+    (patches then text, GQA 4/2) each launch the tensor-core kernel once a
+    layer, and the kernel route's logits agree with the plain route's in
+    fp32 on the same weights (2e-5 at smoke size)."""
+    from repro_torch.configs.shapes import smoke_config
+    from repro_torch.models.transformer import LM
+    fa = fa_ops.flash_attention
+    for name in ("hubert-xlarge", "internvl2-1b"):
+        cfg32 = smoke_config(get_config(name))
+        cfg = cfg32.replace(dtype="bfloat16")
+        lm32 = init_lm(prng.PRNGKey(9), cfg32, device=dev).eval()
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in _frontend_batch(cfg, 40, S=40).items()}
+        with torch.inference_mode():
+            got = lm32(batch, Parallel(use_kernels=True))[0]
+            want = lm32(batch, Parallel(use_kernels=False))[0]
+        assert _err(got, want) <= 2e-5 * max(1.0, float(want.abs().max()))
+        lm = LM(cfg, device=dev)
+        lm.load_state_dict(lm32.state_dict())
+        before = (fa.launches, fa.launches_tensor_core)
+        with torch.inference_mode():
+            out = lm.eval()(batch, Parallel(prefill_last_only=True),
+                            mode="prefill")[0]
+        assert (fa.launches - before[0], fa.launches_tensor_core
+                - before[1]) == (cfg.num_layers, cfg.num_layers)
+        assert bool(torch.isfinite(out).all())

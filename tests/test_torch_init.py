@@ -12,8 +12,11 @@ and each side rounds its product or quotient once more (2^-24 each), so
 the inits are gated at a relative 4·2^-23 per element (zeros exactly).
 The LM's ``init_lm`` is held the same way at a gemma2 smoke config, with
 and without an untied head, qkv bias and qk-norm, and at the smoke configs
-of jamba (Mamba's dt bias from a uniform draw, ``A_log``, ``D``) and
-xlstm (mLSTM's and sLSTM's gate biases, sLSTM's recurrent weights).
+of jamba (Mamba's dt bias from a uniform draw, ``A_log``, ``D``), xlstm
+(mLSTM's and sLSTM's gate biases, sLSTM's recurrent weights), hubert (the
+frames' ``frontend_proj``, ``mask_embed`` and the encoder's ``enc_head``,
+drawn from the key an LM head takes) and internvl (the patches'
+``frontend_proj``).
 """
 import dataclasses
 
@@ -161,7 +164,9 @@ LM_VARIANTS = {"gemma2": ("gemma2-2b", {}),
                "granite": ("granite-20b", {}), "qwen2": ("qwen2-7b", {}),
                "qwen3": ("qwen3-32b", {}),
                "jamba": ("jamba-1.5-large-398b", dict(num_layers=8)),
-               "xlstm": ("xlstm-125m", {})}
+               "xlstm": ("xlstm-125m", {}),
+               "hubert": ("hubert-xlarge", {}),
+               "internvl": ("internvl2-1b", {})}
 
 
 @pytest.mark.usefixtures("one_thread")

@@ -80,7 +80,8 @@ LM_VARIANTS = {**VARIANTS, "granite": ("granite-20b", {}),
                "jamba": ("jamba-1.5-large-398b", dict(num_layers=8)),
                "xlstm": ("xlstm-125m", {})}
 NEW_CONFIGS = ["granite-20b", "qwen2-7b", "qwen3-32b", "olmoe-1b-7b",
-               "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b", "xlstm-125m"]
+               "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b", "xlstm-125m",
+               "hubert-xlarge", "internvl2-1b"]
 # the reference's cache types, by the name of the port's
 JCACHES = {"KVCache": jattn.KVCache, "MambaState": jssm.MambaState,
            "MLSTMState": jxlstm.MLSTMState, "SLSTMState": jxlstm.SLSTMState}
@@ -449,8 +450,10 @@ def test_xlstm_125m_full_width_matches_reference(xlstm_full, L):
 
 def test_lm_refuses_unported_layers_and_frontends():
     """Mamba and xLSTM layers build (their mixers and the reference's FFN
-    rule: none beside an xLSTM block); the vision and audio frontends and
-    the encoder head still raise."""
+    rule: none beside an xLSTM block); so do the vision and audio
+    frontends and the encoder head (``test_torch_frontends.py`` holds them
+    against the reference).  A frontend the reference does not have is
+    refused."""
     base = tshapes.smoke_config(get_config("gemma2-2b"))
     for pattern, mixers, ffn in ((("mamba", "attn"), ("Mamba", "Attention"),
                                   True),
@@ -460,11 +463,16 @@ def test_lm_refuses_unported_layers_and_frontends():
         assert [type(layer.mixer).__name__ for layer in lm.layers] == \
             list(mixers) * (base.num_layers // 2)
         assert all((layer.mlp is not None) == ffn for layer in lm.layers)
-    for kw, what in ((dict(frontend="vision_patches"), "frontend"),
-                     (dict(frontend="audio_frames"), "frontend"),
-                     (dict(is_encoder=True), "encoder head")):
-        with pytest.raises(NotImplementedError, match=what):
-            LM(base.replace(**kw), device="cpu")
+    for kw, leaf in ((dict(frontend="vision_patches", frontend_dim=64),
+                      "frontend_proj"),
+                     (dict(frontend="audio_frames", frontend_dim=64),
+                      "mask_embed"),
+                     (dict(is_encoder=True), "enc_head")):
+        lm = LM(base.replace(**kw), device="cpu")
+        assert getattr(lm, leaf) is not None
+        assert (lm.enc_head is not None) == ("is_encoder" in kw)
+    with pytest.raises(ValueError):
+        LM(base.replace(frontend="video"), device="cpu")
 
 
 @pytest.mark.usefixtures("one_thread")
