@@ -150,6 +150,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          gated to fall, a traced step), hubert-xlarge 3 steps on 2 × 1024
          frames without and with ``remat="full"`` (the same losses; peak
          memory of a forward and backward alone);
+     8l. the production training launcher and expert-parallel MoE:
+         ``launch/train.py``'s run of olmoe- and xlstm-smoke (2 steps of
+         2 × 16, 1×1 mesh) card against CPU (losses at 1e-5 relative,
+         olmoe's MoE layers on ``moe_ep``); one ``moe_ep`` layer at
+         olmoe-1b-7b's full width (64 experts top-8, fp32, 4 × 512 tokens)
+         against ``moe_dense`` at capacity factor 8, and its dropped pairs
+         at the config's 1.25; olmoe-1b-7b at full width with 2 of its 16
+         layers through the launcher (4 × 512, 10 steps: seconds a step,
+         peak memory, losses, device launches a step, dropped pairs); the
+         dry run on the meta device (xlstm-125m × decode_32k and
+         olmoe-1b-7b × train_4k ``ok``, hubert-xlarge × decode_32k
+         ``skip``);
   9. the OSCAR pipeline at phase 4's preset and random DiT:
      ``run_oscar`` twice from one key (D_syn and the global ResNet-18
      bit-identical, synthesis and training seconds apart, training
@@ -1799,6 +1811,193 @@ def phase_8k(dev, fns, smi: str) -> None:
         "card_vs_cpu_smoke": smoke,
         "internvl2_1b": dict(batch=[4, 256, 256], data_s=data_s, **vlm),
         "hubert_xlarge": dict(batch=[2, 1024], **hub), "card": smi}}))
+
+
+# -- the training launcher, expert-parallel MoE and the dry run -------------
+
+def phase_8l(dev, fns, smi: str) -> None:
+    """8l. ``launch/train.py`` and ``moe_ep`` on the card, and the dry run
+    on the meta device.  Training runs the plain route: no kernel of the
+    port launches (checked)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import smoke_config
+    from repro_torch.kernels.build import BUILD_DIR
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import draw_batch, train
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.moe import Parallel
+    from repro_torch import prng
+    from repro_torch.train.steps import make_train_step
+    for fn in fns.values():
+        fn.launches = 0
+    quiet = lambda *a: None
+
+    # 8l.1 the launcher, card against CPU
+    smoke = {}
+    for name in ("olmoe-1b-7b", "xlstm-125m"):
+        cfg = smoke_config(get_config(name))
+        calls = moe_mod.moe_ep.calls
+        runs = {d: train(cfg, steps=2, batch=2, seq=16, device=d, log=quiet)
+                for d in ("cpu", dev)}
+        ep = moe_mod.moe_ep.calls - calls
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            runs[dev]["losses"], runs["cpu"]["losses"]))
+        smoke[cfg.name] = dict(losses_card=runs[dev]["losses"],
+                               losses_cpu=runs["cpu"]["losses"],
+                               max_rel_err=rel, moe_ep_calls=ep)
+        say(f"[8l.1] {cfg.name}: launcher 2 steps card vs CPU, losses "
+            f"{runs[dev]['losses']} vs {runs['cpu']['losses']}, "
+            f"{rel:.3g} relative, moe_ep calls {ep} ({smi})")
+        check(rel <= TOL_TRAIN, f"8l.1: {cfg.name} losses {smoke[cfg.name]}")
+        want = 2 * 2 * cfg.num_layers if cfg.moe else 0
+        check(ep == want, f"8l.1: {cfg.name} took moe_ep {ep} times, want "
+              f"{want}")
+
+    # 8l.2 one moe_ep layer at olmoe's full width, fp32
+    cfg = get_config("olmoe-1b-7b").replace(dtype="float32")
+    m = cfg.moe
+    g = torch.Generator(dev).manual_seed(35)
+    layer = moe_mod.MoE(cfg, device=dev)
+    with torch.no_grad():
+        for p in layer.parameters():
+            fan_in = p.shape[-2] if p.ndim == 3 else p.shape[0]
+            p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                    / fan_in ** 0.5)
+    x = torch.randn((4, 512, cfg.d_model), generator=g, device=dev)
+    T = x.shape[0] * x.shape[1]
+    par = Parallel(model_axis="model", data_axes=("data",),
+                   mesh=make_host_mesh(1, 1, device=dev), use_kernels=False)
+    wide = cfg.replace(moe=dataclasses.replace(m, capacity_factor=8.0))
+    moe_mod.moe_ep.record = []
+    try:
+        with torch.no_grad():
+            y_ep, aux_ep = moe_mod.moe_apply(layer, wide, x, par)
+            y_dn, aux_dn = moe_mod.moe_dense(layer, cfg, x)
+            gates, idx, _ = moe_mod.route(layer.w_router,
+                                          x.reshape(T, -1), m)
+            dense_drops = int(moe_mod.dropped_pairs(
+                gates, idx, m.num_experts, moe_mod.capacity(T, m)).sum())
+            y_cf, _ = moe_mod.moe_apply(layer, cfg, x, par)
+            ep_ms = cuda_ms(lambda: moe_mod.moe_apply(layer, cfg, x, par),
+                            iters=10, warmup=2)
+            dense_ms = cuda_ms(lambda: moe_mod.moe_dense(layer, cfg, x),
+                               iters=10, warmup=2)
+        drops = [int(n) for n in moe_mod.moe_ep.record[:2]]
+    finally:
+        moe_mod.moe_ep.record = None
+    err = max_err(y_ep, y_dn)
+    scale = float(y_dn.abs().max())
+    per_expert = torch.bincount(idx.reshape(-1), minlength=m.num_experts)
+    layer_res = dict(tokens=T, experts=m.num_experts, top_k=m.top_k,
+                     capacity_cf8=moe_mod.ep_capacity(T, wide.moe),
+                     capacity_cf125=moe_mod.ep_capacity(T, m),
+                     dense_capacity=moe_mod.capacity(T, m),
+                     max_abs_err_vs_dense=err, max_abs_y=scale,
+                     aux_ep=float(aux_ep), aux_dense=float(aux_dn),
+                     dropped_pairs_cf8=drops[0], dropped_pairs_dense=dense_drops,
+                     dropped_pairs_cf125=drops[1],
+                     tokens_per_expert_max=int(per_expert.max()),
+                     tokens_per_expert_min=int(per_expert.min()),
+                     moe_ep_ms=ep_ms, moe_dense_ms=dense_ms)
+    say(f"[8l.2] moe_ep at olmoe's width (64 experts top-8, fp32, 4 × 512): "
+        f"vs moe_dense {err:.3g} (max|y| {scale:.3g}), aux {float(aux_ep):.6f}"
+        f" vs {float(aux_dn):.6f}; capacity factor 1.25: "
+        f"{layer_res['capacity_cf125']} rows an expert, {drops[1]} dropped "
+        f"(token, expert) pairs of {T * m.top_k}; {ep_ms:.3f} ms a layer "
+        f"(moe_dense {dense_ms:.3f}) ({smi})")
+    check(drops[0] == 0 and dense_drops == 0,
+          f"8l.2: pairs dropped at capacity factor 8: {layer_res}")
+    check(err <= 1e-5 * scale and abs(float(aux_ep) - float(aux_dn)) <= 1e-6,
+          f"8l.2: moe_ep vs moe_dense {layer_res}")
+    check(bool(torch.isfinite(y_cf).all()), "8l.2: moe_ep at 1.25")
+    del layer, x, y_ep, y_dn, y_cf
+
+    # 8l.3 olmoe-1b-7b at full width, 2 of 16 layers, through the launcher
+    cfg = get_config("olmoe-1b-7b").replace(num_layers=2)
+    params = cfg.param_counts()["total"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    moe_mod.moe_ep.record = []
+    calls = moe_mod.moe_ep.calls
+    try:
+        t0 = time.perf_counter()
+        run = train(cfg, steps=10, batch=4, seq=512, lr=3e-4, device=dev,
+                    log=say)
+        wall = time.perf_counter() - t0
+        drops = [int(n) for n in moe_mod.moe_ep.record]
+    finally:
+        moe_mod.moe_ep.record = None
+    ep = moe_mod.moe_ep.calls - calls
+    # with remat="full" (the config's) each layer's forward runs again in
+    # the backward (counted in calls); a recompute stops once it holds what
+    # the backward needs, which may be before moe_ep records its drops, so
+    # a step's first records are its layers' forwards
+    per_step = (2 if cfg.remat == "full" else 1) * cfg.num_layers
+    k = len(drops) // 10
+    ok_records = len(drops) == 10 * k and k >= cfg.num_layers
+    drops = [drops[i * k:i * k + cfg.num_layers] for i in range(10)]
+    peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+    state = run["state"]
+    step = make_train_step(cfg, Parallel(
+        model_axis="model", data_axes=("data",),
+        mesh=make_host_mesh(1, 1, device=dev), use_kernels=False), lr=3e-4)
+    batch = draw_batch(cfg, prng.fold_in(prng.PRNGKey(0), 10), 4, 512, dev)
+    trace = device_busy(lambda: step(state, batch),
+                        BUILD_DIR / "olmoe_launcher_step_trace.json")
+    full = dict(config=cfg.name, layers="2 of 16", params=params,
+                batch=[4, 512], steps=10, losses=run["losses"],
+                grad_norms=run["grad_norms"], first_step_s=run["step_s"][0],
+                s_per_step=sum(run["step_s"][1:]) / 9, wall_s=wall,
+                peak_gib_above_start=peak,
+                launches_a_step=trace["kernels"],
+                traced_step_device_busy_s=trace["device_busy_s"],
+                traced_step_idle_share=trace["device_idle_share"],
+                remat=cfg.remat, moe_ep_calls=ep,
+                dropped_pairs_per_step_and_layer=drops,
+                capacity=moe_mod.ep_capacity(4 * 512, cfg.moe))
+    say(f"[8l.3] olmoe-1b-7b full width, 2 of 16 layers ({params / 1e9:.3f}"
+        f" B parameters), 10 steps of 4 × 512 through the launcher: "
+        f"{full['s_per_step']:.4f} s a step after a first of "
+        f"{full['first_step_s']:.3f} s, peak {peak:.2f} GiB, losses "
+        f"{', '.join(f'{v:.4f}' for v in run['losses'])}; a traced step "
+        f"{trace['kernels']} device launches, {trace['device_busy_s']:.4f} s"
+        f" busy ({100 * trace['device_idle_share']:.1f}% idle); dropped "
+        f"pairs of each step's layers {drops} of {4 * 512 * cfg.moe.top_k} "
+        f"(capacity {full['capacity']}) ({smi})")
+    check(all(math.isfinite(v) for v in run["losses"]),
+          f"8l.3: losses {run['losses']}")
+    check(ep == 10 * per_step and ok_records,
+          f"8l.3: moe_ep took {ep} calls, {per_step} a step; dropped "
+          f"pairs {drops}")
+    del run, state, step, batch
+
+    # 8l.4 the dry run on the meta device
+    records = {}
+    for arch, shape, want in (("xlstm-125m", "decode_32k", "ok"),
+                              ("olmoe-1b-7b", "train_4k", "ok"),
+                              ("hubert-xlarge", "decode_32k", "skip")):
+        t0 = time.perf_counter()
+        rec = dryrun.build(arch, shape)
+        rec["seconds"] = time.perf_counter() - t0
+        records[f"{arch}|{shape}"] = rec
+        say(f"[8l.4] dry run {arch} × {shape}: {rec['status']} in "
+            f"{rec['seconds']:.2f} s: {json.dumps(rec)}")
+        check(rec["status"] == want, f"8l.4: {arch} × {shape} is "
+              f"{rec['status']}, want {want}")
+    check(records["xlstm-125m|decode_32k"]["roofline"]["t_compute"] < 1e-3,
+          "8l.4: xlstm-125m decode t_compute")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    check(launches == {name: 0 for name in fns},
+          f"8l: training launched kernels {launches}")
+    say(json.dumps({"launcher_and_moe_ep": {
+        "launcher_card_vs_cpu_smoke": smoke, "moe_ep_layer": layer_res,
+        "olmoe_1b_7b_two_layers": full,
+        "dry_run_seconds": {k: v["seconds"] for k, v in records.items()},
+        "card": smi}}))
 
 
 def main() -> int:
@@ -4089,6 +4288,11 @@ def main() -> int:
     t8 = time.perf_counter()
     phase_8k(dev, fns, smi)
     say(f"[8k] LM training: {time.perf_counter() - t8:.1f} s")
+
+    # -- 8l. the training launcher, expert-parallel MoE and the dry run ------
+    t8 = time.perf_counter()
+    phase_8l(dev, fns, smi)
+    say(f"[8l] launcher, moe_ep and dry run: {time.perf_counter() - t8:.1f} s")
 
     # -- 9. the paper's methods end to end -----------------------------------
     # benchmarks/common.py's paper preset: phase 4's data and DiT, 30

@@ -1,12 +1,23 @@
-"""Which (arch × shape) pairs run, the arch variant each lowers, and the
-reduced smoke variants for CPU tests: the JAX package's
-``configs/shapes.py`` without ``input_specs`` (which waits for the
-dry-run port)."""
+"""Input stand-ins for every (arch × shape) pair, which pairs run, the
+arch variant each lowers, and the reduced smoke variants for CPU tests:
+the JAX package's ``configs/shapes.py``.
+
+Decode shapes run the decode step: ONE new token against a KV cache /
+recurrent state of ``seq_len``.  ``input_specs`` allocates nothing: its
+stand-ins are meta tensors (shape and dtype), the caches from
+``LM.init_caches`` on the meta device.
+"""
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import InputShape, ModelConfig
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def shape_supported(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
@@ -34,9 +45,38 @@ def resolve_decode_config(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
     return cfg
 
 
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Meta-tensor stand-ins for the step of ``shape.kind``: ``{"batch"}``
+    for train and prefill; ``{"tokens", "caches", "pos"}`` for decode, the
+    caches one per layer as ``LM.init_caches`` gives them."""
+    B, S = shape.global_batch, shape.seq_len
+    adt = cfg.act_dtype
+    cfg = resolve_decode_config(cfg, shape)
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "token":
+            batch = {"tokens": _meta((B, S), torch.int32)}
+        elif cfg.frontend == "vision_patches":
+            P = cfg.num_prefix_tokens
+            batch = {"patches": _meta((B, P, cfg.frontend_dim), adt),
+                     "tokens": _meta((B, S - P), torch.int32)}
+        elif cfg.frontend == "audio_frames":
+            batch = {"frames": _meta((B, S, cfg.frontend_dim), adt),
+                     "mask": _meta((B, S), torch.bool),
+                     "labels": _meta((B, S), torch.int32)}
+        else:
+            raise ValueError(cfg.frontend)
+        return {"batch": batch}
+    if shape.kind == "decode":
+        from repro_torch.models.transformer import LM
+        caches = LM(cfg, device="meta").init_caches(B, S, adt)
+        return {"tokens": _meta((B, 1), torch.int32), "caches": caches,
+                "pos": _meta((), torch.int32)}
+    raise ValueError(shape.kind)
+
+
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced variant of the same family: ≤2 groups, d_model ≤ 512,
-    ≤4 experts — runs a real forward on CPU."""
+    ≤4 experts — runs a real forward/train step on CPU."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.num_heads, 4)
     kv = min(cfg.num_kv_heads, heads)

@@ -93,18 +93,24 @@ def classifier_state_from_jax(tree, name: str) -> dict:
     return state
 
 
-def _lm_leaf(a, g=None, transpose=False):
+class _LeafLoad:
     """A load of one leaf: an array (crossing over as float32), a torch
     tensor (``init_lm_tree``'s, on any device, staying there) or a lazy
-    leaf (a call that draws it); slice ``g`` of a group-stacked leaf; (in,
-    out) matrices transposed to ``nn.Linear``'s (out, in), as a view."""
-    def load():
+    leaf (a call that draws it); slice ``group`` of a group-stacked leaf;
+    (in, out) matrices transposed to ``nn.Linear``'s (out, in), as a view.
+    Called, it loads; its fields say where the leaf comes from (the
+    partition rules read them on a tree of paths)."""
+
+    def __init__(self, leaf, group=None, transpose=False):
+        self.leaf, self.group, self.transpose = leaf, group, transpose
+
+    def __call__(self):
+        a = self.leaf
         t = a() if callable(a) else a
         t = (t.float() if isinstance(t, torch.Tensor)
              else torch.tensor(np.asarray(t, np.float32)))
-        t = t if g is None else t[g]
-        return t.T if transpose else t
-    return load
+        t = t if self.group is None else t[self.group]
+        return t.T if self.transpose else t
 
 
 # The only bare (in, out) matrices of the reference's LM tree: the dense
@@ -121,19 +127,19 @@ def lm_layer_items(prefix: str, node, g=None):
     other bare leaf keeps its name and the reference's layout; norms carry
     ``scale`` in both."""
     if "w" in node:
-        yield f"{prefix}weight", _lm_leaf(node["w"], g, True)
+        yield f"{prefix}weight", _LeafLoad(node["w"], g, True)
         if "b" in node:
-            yield f"{prefix}bias", _lm_leaf(node["b"], g)
+            yield f"{prefix}bias", _LeafLoad(node["b"], g)
     elif "scale" in node:
-        yield f"{prefix}scale", _lm_leaf(node["scale"], g)
+        yield f"{prefix}scale", _LeafLoad(node["scale"], g)
     else:
         for k, v in node.items():
             if isinstance(v, dict):
                 yield from lm_layer_items(f"{prefix}{k}.", v, g)
             elif k in _MLP_MATRICES:
-                yield f"{prefix}{k}.weight", _lm_leaf(v, g, True)
+                yield f"{prefix}{k}.weight", _LeafLoad(v, g, True)
             else:
-                yield f"{prefix}{k}", _lm_leaf(v, g)
+                yield f"{prefix}{k}", _LeafLoad(v, g)
 
 
 def lm_state_items(params, cfg):
@@ -141,11 +147,11 @@ def lm_state_items(params, cfg):
     ``params["groups"]``, where present, holds ``p0..p{period-1}``, each
     stacked along a leading ``num_groups`` axis: absolute layer
     ``g · period + p`` takes slice g of ``p{p}``."""
-    yield "embedding", _lm_leaf(params["embed"]["embedding"])
+    yield "embedding", _LeafLoad(params["embed"]["embedding"])
     if "frontend_proj" in params:
         yield from lm_layer_items("frontend_proj.", params["frontend_proj"])
     if "mask_embed" in params:
-        yield "mask_embed", _lm_leaf(params["mask_embed"])
+        yield "mask_embed", _LeafLoad(params["mask_embed"])
     yield from lm_layer_items("final_norm.", params["final_norm"])
     for head in ("lm_head", "enc_head"):
         if head in params:

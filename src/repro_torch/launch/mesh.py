@@ -15,8 +15,16 @@ ahead of each host's compute axes.  ``hosts`` is not a sharding axis
 into the per-host submeshes (``host_submesh``) that
 ``serve/topology.py::HostTopology.from_mesh`` places waves over.
 
-The reference's ``make_production_mesh`` names a 16×16 TPU pod for LM
-training; it comes with the LM training slice.
+The PRODUCTION mesh is the reference's LM layout, ``(data, model)`` =
+(16, 16), or ``(pod, data, model)`` = (2, 16, 16) over two pods: the
+layouts ``sharding/rules.py`` partitions parameters over.  One card cannot
+hold it, so it refuses there as the reference refuses on a small host;
+``device="meta"`` builds it of meta devices (up to ``META_DEVICES``), the
+dry run's counterpart of the reference's forced 512 host devices.
+
+``place(tree, shardings)`` puts each leaf of a spec'd tree on its
+sharding's first data device: the single controller's one copy (on the
+card's 1×1 mesh, the card).
 """
 from __future__ import annotations
 
@@ -55,11 +63,19 @@ class Mesh:
         return f"Mesh({self.shape}, {names})"
 
 
-def _visible(device) -> list:
-    """The devices a mesh may take: every CUDA card, or the one CPU."""
+# meta devices a mesh may take: the reference's dry run forces 512 host
+# devices, two pods of 16 × 16
+META_DEVICES = 512
+
+
+def visible_devices(device) -> list:
+    """The devices a mesh may take: every CUDA card, the one CPU, or
+    ``META_DEVICES`` meta devices."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         return [torch.device("cpu")]
+    if dev.type == "meta":
+        return [torch.device("meta")] * META_DEVICES
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
@@ -77,12 +93,22 @@ def _validate_device_count(shape: tuple, axes: tuple, have: int,
 
 
 def _make(shape: tuple, axes: tuple, device) -> Mesh:
-    devs = _visible(device)
+    devs = visible_devices(device)
     _validate_device_count(shape, axes, len(devs), devs[0].type)
     grid = np.empty(int(np.prod(shape)), dtype=object)
     for i in range(grid.size):
         grid[i] = devs[i]
     return Mesh(grid.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's training/decode mesh: (data, model) = (16, 16), or
+    (pod, data, model) = (2, 16, 16).  Refuses when fewer devices are
+    visible (one card, the CPU); ``device="meta"`` builds it of meta
+    devices for the dry run."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _make(shape, axes, device)
 
 
 def make_serving_mesh(*, hosts: int = 1, data: int = 1, model: int = 1,
@@ -154,3 +180,25 @@ class NamedSharding:
 
     def __repr__(self):
         return f"NamedSharding({self.mesh!r}, {self.spec})"
+
+
+def place(tree, shardings):
+    """Each leaf of ``tree`` on its sharding's first data device (the
+    single controller holds one copy), in a tree of the same structure:
+    dicts, lists and NamedTuples of tensors, non-tensor leaves (a step
+    count) kept.  An ``nn.Module`` takes ``shardings`` by state name and
+    has its parameters moved in place; it is returned."""
+    if isinstance(tree, torch.nn.Module):
+        with torch.no_grad():
+            for name, p in tree.named_parameters():
+                p.data = p.data.to(shardings[name].devices[0])
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return tree.to(shardings.devices[0])
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(place(v, s) for v, s in zip(tree, shardings)))
+    if isinstance(tree, list):
+        return [place(v, s) for v, s in zip(tree, shardings)]
+    return tree

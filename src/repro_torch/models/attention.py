@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import Dense, RMSNorm, apply_rope
+from repro_torch.models.moe import pin
 from repro_torch.utils import softcap as _softcap
 
 NEG = -1e30
@@ -190,10 +191,25 @@ def make_mask(Sq: int, Sk: int, *, causal: bool, window: int,
 
 def attention(mod: Attention, cfg: ModelConfig, x, positions, *,
               kind: str = "attn", use_kernels: bool = True,
-              impl: str = "naive"):
-    """Full-sequence attention (train / prefill).  Returns (out, (k, v))."""
+              impl: str = "naive", par=None):
+    """Full-sequence attention (train / prefill).  Returns (out, (k, v)),
+    k and v as projected (the cache keeps ``num_kv_heads``).  With
+    ``par.gqa_repeat`` k and v are repeated to ``num_heads`` before any
+    route (each kv head for its group of q heads, the same scores);
+    ``par.qkv_spec`` is pinned on q, k and v (``moe.pin``)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(mod, cfg, x, positions)
+    kv = (k, v)
+    if par is not None and par.gqa_repeat:
+        rep = cfg.num_heads // cfg.num_kv_heads
+        if rep > 1:
+            k = torch.repeat_interleave(k, rep, dim=2)
+            v = torch.repeat_interleave(v, rep, dim=2)
+    if par is not None and par.qkv_spec is not None:
+        q_sh, kv_sh = par.qkv_spec
+        q = pin(q, q_sh)
+        k = pin(k, q_sh if par.gqa_repeat else kv_sh)
+        v = pin(v, q_sh if par.gqa_repeat else kv_sh)
     window = cfg.sliding_window if kind == "attn_local" else 0
     causal = not cfg.is_encoder
     if use_kernels:
@@ -205,7 +221,7 @@ def attention(mod: Attention, cfg: ModelConfig, x, positions, *,
     else:
         mask = make_mask(S, S, causal=causal, window=window, device=x.device)
         out = _attend(q, k, v, mask, cfg, window)
-    return mod.wo(out), (k, v)
+    return mod.wo(out), kv
 
 
 def attention_decode(mod: Attention, cfg: ModelConfig, x, cache: KVCache,

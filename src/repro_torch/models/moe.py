@@ -1,5 +1,6 @@
 """The Mixture-of-Experts FFN of the LM zoo: the JAX package's
-``models/moe.py`` on one device, and ``Parallel``, how the LM runs there.
+``models/moe.py``, its dense and expert-parallel paths, and ``Parallel``,
+how the LM is laid out on a mesh.
 
 Routing follows the reference step for step: the router's logits are in
 the activation dtype, softmax in fp32, top-k with **the lower expert index
@@ -20,15 +21,26 @@ one rounding an add; here each token adds its (at most k) expert rows in
 ascending expert order, which is the same sequence of adds for every
 token, in k launches instead of E.
 
-Only the dense path is ported: the reference's expert-parallel ``moe_ep``
-(a ``shard_map`` over a ``model`` mesh axis) waits for the mesh fields of
-``Parallel``.  On one device the reference serves with ``Parallel()``,
-which takes ``moe_dense`` too.
+The expert-parallel path ``moe_ep`` is the reference's ``shard_map`` on
+the port's single-controller mesh (``launch/mesh.py``): one process loops
+over the mesh's (data, model) shards, with no ``torch.distributed``.
+Experts split over the ``model`` axis (E_loc = E / M a shard); tokens
+split by batch rows over the data shards (or every shard sees all of
+them); each shard routes its own tokens, keeps ``max(1, int(T·k / E ·
+capacity_factor))`` rows an expert of its own T, and runs the local pass
+over its experts on its device (data shards that share a device, as on
+the CPU or the meta device, run as one batched pass: 16 × 16 shards make
+16 passes a layer, not 256); the combine sums the model shards in
+ascending order, and ``aux`` is the mean over the data shards.
+``moe_apply`` takes ``moe_ep`` exactly where the reference does: when
+``Parallel`` names a model axis and a mesh.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -36,16 +48,59 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 
+MOE_COMBINES = ("psum", "reduce_scatter")
+DECODE_CACHES = ("scan_ys", "carry")
+
+
 @dataclass(frozen=True)
 class Parallel:
+    """How the LM runs on a mesh: the reference's ``Parallel``.  None axes
+    are not sharded.  On the single-controller mesh the specs
+    (``resid_spec``, ``logits_spec``, ``qkv_spec``) are layout records: the
+    LM checks their rank and changes no value by them."""
+    model_axis: Optional[str] = None   # tensor/expert-parallel axis name
+    data_axes: tuple = ()              # batch axes ("pod", "data")
+    mesh: object = None                # launch/mesh.py::Mesh
     # Route prefill attention through the flash-attention kernel wrapper,
     # which launches the CUDA kernel for CUDA tensors and runs its plain
     # version for CPU tensors.  On by default, unlike the reference's
     # ``use_pallas=False``: the port's wrappers choose by device.  Off is the
     # plain ``_attend`` (or ``attn_impl="chunked"``) route.
     use_kernels: bool = True
+    moe_combine: str = "psum"          # psum | reduce_scatter: the same sum
+    batch_sharded: bool = True         # False when batch < data shards
+    resid_spec: object = None          # residual stream between groups
+    logits_spec: object = None         # the LM logits
     attn_impl: str = "naive"           # naive | chunked (without kernels)
     prefill_last_only: bool = False    # serving: readout last position only
+    qkv_spec: object = None            # (q_sharding, kv_sharding)
+    gqa_repeat: bool = False           # repeat k and v to num_heads
+    decode_cache: str = "scan_ys"      # scan_ys | carry: the same caches
+
+    def __post_init__(self):
+        if self.moe_combine not in MOE_COMBINES:
+            raise ValueError(f"moe_combine={self.moe_combine!r}, not one of "
+                             f"{MOE_COMBINES}")
+        if self.decode_cache not in DECODE_CACHES:
+            raise ValueError(f"decode_cache={self.decode_cache!r}, not one "
+                             f"of {DECODE_CACHES}")
+
+    @property
+    def model_size(self) -> int:
+        if self.mesh is None or self.model_axis is None:
+            return 1
+        return self.mesh.shape[self.model_axis]
+
+
+def pin(x, sharding):
+    """A spec (or a ``launch/mesh.py::NamedSharding``) pinned on ``x``, as
+    the reference's ``with_sharding_constraint``: on the single-controller
+    mesh a layout record, checked for rank, that changes no value."""
+    if sharding is not None:
+        spec = getattr(sharding, "spec", sharding)
+        if len(spec) > x.ndim:
+            raise ValueError(f"spec {spec} pinned on a {x.ndim}-d tensor")
+    return x
 
 
 class MoE(nn.Module):
@@ -75,19 +130,22 @@ def top_k_lower_first(probs, k: int):
 
 
 def route(w_router, x_flat, m: MoEConfig):
-    """Returns (gates (T, k) fp32, idx (T, k) int64, aux_loss scalar)."""
+    """Returns (gates (T, k) fp32, idx (T, k) int64, aux_loss scalar).
+    ``x_flat`` may lead with a shard axis, (D, T, d): each shard routes its
+    own tokens and has its own aux loss, (D,)."""
     logits = (x_flat @ w_router.to(x_flat.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                      # (T, E)
     gates, idx = top_k_lower_first(probs, m.top_k)
     gates = gates / gates.sum(-1, keepdim=True)
     # Switch-style load-balance loss: E * sum_e f_e * P_e, f_e the
     # dispatch fraction (an integer count over T, exact as the reference's)
-    T = x_flat.shape[0]
-    counts = torch.zeros(m.num_experts, dtype=torch.int64,
+    lead, T = idx.shape[:-2], x_flat.shape[-2]
+    flat = idx.reshape(*lead, -1)
+    counts = torch.zeros((*lead, m.num_experts), dtype=torch.int64,
                          device=idx.device).scatter_add_(
-        0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
+        -1, flat, torch.ones_like(flat))
     f = counts.float() / T
-    aux = m.num_experts * torch.sum(f * probs.mean(0))
+    aux = m.num_experts * torch.sum(f * probs.mean(-2), -1)
     return gates, idx, aux
 
 
@@ -96,30 +154,53 @@ def capacity(T: int, m: MoEConfig) -> int:
     return max(1, -(-T * m.top_k // m.num_experts) * 4)
 
 
-def dispatch(gates, idx, num_experts: int, cap: int):
-    """Each expert's first ``cap`` selected tokens in token order.
+def dispatch(gates, idx, num_experts: int, cap: int, e_start: int = 0,
+             E_loc: Optional[int] = None):
+    """Each of the experts ``e_start .. e_start + E_loc - 1`` (all
+    ``num_experts`` by default) takes its first ``cap`` selected tokens in
+    token order.  ``gates`` and ``idx`` are (T, k), or (D, T, k) for D
+    shards batched on one device: each shard's experts then take ``cap``
+    of that shard's tokens, token t of shard i being row i·T + t.
 
-    Returns (tok (E, cap) token indices, T where an expert has fewer;
-    wgt (E, cap) their gates, 0 there; slot (T, E) the row e·cap + rank
-    of each kept (token, expert) pair in the expert pass, E·cap where the
-    token did not pick the expert or the expert dropped it)."""
-    T = idx.shape[0]
+    Returns (tok (E_loc, D·cap) token rows, D·T where an expert has fewer;
+    wgt (E_loc, D·cap) their gates, 0 there; slot (D·T, E_loc) the row
+    e·D·cap + i·cap + rank of each kept (token, local expert e) pair in
+    the expert pass, E_loc·D·cap where the token did not pick the expert
+    or the expert dropped it)."""
+    k, T = idx.shape[-1], idx.shape[-2]
+    D = idx.numel() // (T * k)
+    E_loc = num_experts if E_loc is None else E_loc
     dev = idx.device
-    w = torch.zeros((T, num_experts), dtype=gates.dtype,
-                    device=dev).scatter_(1, idx, gates)
+    w = torch.zeros((D, T, num_experts), dtype=gates.dtype,
+                    device=dev).scatter_(2, idx.reshape(D, T, k),
+                                         gates.reshape(D, T, k))
+    w = w[..., e_start:e_start + E_loc]
     sel = w > 0
-    rank = torch.cumsum(sel, dim=0) - 1                        # (T, E)
+    rank = torch.cumsum(sel, dim=1) - 1                        # (D, T, E_loc)
     keep = sel & (rank < cap)
-    base = torch.arange(num_experts, device=dev) * cap
-    slot = torch.where(keep, base + rank, num_experts * cap)
-    n = num_experts * cap
-    rows = torch.arange(T, device=dev)[:, None].expand(T, num_experts)
+    base = torch.arange(E_loc, device=dev) * (D * cap)
+    if D > 1:
+        base = base + (torch.arange(D, device=dev) * cap)[:, None, None]
+    n = E_loc * D * cap
+    slot = torch.where(keep, base + rank, n)
+    rows = torch.arange(D * T, device=dev).view(D, T, 1).expand(D, T, E_loc)
     # the dropped pairs all land on the spare entry n, which is cut off
-    tok = torch.full((n + 1,), T, dtype=torch.int64, device=dev).scatter_(
-        0, slot.reshape(-1), rows.reshape(-1))[:n]
+    tok = torch.full((n + 1,), D * T, dtype=torch.int64,
+                     device=dev).scatter_(0, slot.reshape(-1),
+                                          rows.reshape(-1))[:n]
     wgt = torch.zeros((n + 1,), dtype=w.dtype, device=dev).scatter_(
         0, slot.reshape(-1), w.reshape(-1))[:n]
-    return (tok.view(num_experts, cap), wgt.view(num_experts, cap), slot)
+    return (tok.view(E_loc, D * cap), wgt.view(E_loc, D * cap),
+            slot.reshape(D * T, E_loc))
+
+
+def dropped_pairs(gates, idx, num_experts: int, cap: int):
+    """(..., T, E) bool: the (token, expert) pairs the router chose that
+    their expert drops, being past its first ``cap`` selected tokens (of
+    each shard, for a leading shard axis)."""
+    sel = torch.zeros((*idx.shape[:-1], num_experts), dtype=torch.bool,
+                      device=idx.device).scatter_(-1, idx, gates > 0)
+    return sel & (torch.cumsum(sel, dim=-2) > cap)
 
 
 def _act(v, act: str):
@@ -140,21 +221,36 @@ def expert_ffn(xe, up, down, gate, act: str):
     return torch.bmm(h, down.to(dt))
 
 
-def local_expert_pass(params: MoE, cfg: ModelConfig, x_flat, cap: int,
-                      gates, idx):
-    """Gather → FFN → combine for all experts: (T, d) in x's dtype."""
+def local_expert_pass(params: MoE, cfg: ModelConfig, x_flat, e_start: int,
+                      E_loc: int, cap: int, gates, idx):
+    """Gather → FFN → combine for the ``E_loc`` experts from global id
+    ``e_start``, their slabs taken from ``params`` onto x's device:
+    (rows, d) in x's dtype, 0 for a token none of them takes.  ``x_flat``
+    is (T, d), or (D·T, d) for ``gates`` and ``idx`` of D shards (D, T, k)
+    (``dispatch``)."""
     m = cfg.moe
-    T, d = x_flat.shape
-    E = m.num_experts
-    tok, wgt, slot = dispatch(gates, idx, E, cap)
-    # Pad x with a zero row; the fill index T points at it.
+    d = x_flat.shape[1]
+    dev = x_flat.device
+    tok, wgt, slot = dispatch(gates, idx, m.num_experts, cap, e_start, E_loc)
+    slab = lambda w: (None if w is None else
+                      w[e_start:e_start + E_loc].to(dev))
+    # Pad x with a zero row; the fill index points at it.
     x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))])
-    y = expert_ffn(x_pad[tok], params.experts_up, params.experts_down,
-                   params.experts_gate, cfg.mlp_act)
+    y = expert_ffn(x_pad[tok], slab(params.experts_up),
+                   slab(params.experts_down), slab(params.experts_gate),
+                   cfg.mlp_act)
     y = y * wgt[..., None].to(y.dtype)
-    # each token's rows in ascending expert order; the spare row adds 0
-    y_pad = torch.cat([y.reshape(E * cap, d), y.new_zeros((1, d))])
-    rows = slot.gather(1, torch.sort(idx, dim=-1).values)      # (T, k)
+    # each token's rows in ascending expert order; an expert of another
+    # shard, like the spare row, adds 0
+    n = tok.numel()
+    y_pad = torch.cat([y.reshape(n, d), y.new_zeros((1, d))])
+    ranked = torch.sort(idx.reshape(-1, m.top_k), dim=-1).values
+    if E_loc == m.num_experts:          # every expert here: no mask to build
+        rows = slot.gather(1, ranked)
+    else:
+        loc = ranked - e_start
+        here = (loc >= 0) & (loc < E_loc)
+        rows = torch.where(here, slot.gather(1, loc.clamp(0, E_loc - 1)), n)
     out = y_pad[rows[:, 0]]
     for j in range(1, m.top_k):
         out = out + y_pad[rows[:, j]]
@@ -166,13 +262,125 @@ def moe_dense(params: MoE, cfg: ModelConfig, x):
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
     gates, idx, aux = route(params.w_router, x_flat, cfg.moe)
-    out = local_expert_pass(params, cfg, x_flat,
+    out = local_expert_pass(params, cfg, x_flat, 0, cfg.moe.num_experts,
                             capacity(B * S, cfg.moe), gates, idx)
     return out.reshape(B, S, d), aux
 
 
+def ep_capacity(T: int, m: MoEConfig) -> int:
+    """Rows an expert takes on an expert-parallel shard of T tokens: the
+    reference's ``max(1, int(T * top_k / num_experts * capacity_factor))``
+    in Python floats, in that order."""
+    return max(1, int(T * m.top_k / m.num_experts * m.capacity_factor))
+
+
+def shard_grid(par: Parallel) -> np.ndarray:
+    """The mesh's devices as a (data shards, model shards) grid: the data
+    axes flattened in ``par.data_axes`` order, the model axis last."""
+    mesh = par.mesh
+    names = mesh.axis_names
+    order = tuple(par.data_axes) + (par.model_axis,)
+    if sorted(order) != sorted(names):
+        raise ValueError(f"moe_ep needs a mesh of the axes {order}, got "
+                         f"{names}")
+    devs = np.transpose(mesh.devices, [names.index(a) for a in order])
+    return devs.reshape(-1, par.model_size)
+
+
+def _data_groups(grid: np.ndarray, D: int) -> list:
+    """The data shards that run as one batched pass: all D where each model
+    shard's data shards lie on one device (a CPU or meta mesh), else each
+    alone (a mesh of distinct cards)."""
+    if all(len(set(grid[:D, s])) == 1 for s in range(grid.shape[1])):
+        return [range(D)]
+    return [range(i, i + 1) for i in range(D)]
+
+
+def moe_ep(params: MoE, cfg: ModelConfig, x, par: Parallel,
+           batch_sharded: bool = True):
+    """The expert-parallel path on the single-controller mesh.  Returns
+    (out, aux) on x's device.
+
+    Experts split over ``par.model_axis``: model shard s holds experts
+    ``s·E_loc .. (s+1)·E_loc - 1``.  With ``batch_sharded`` and data axes,
+    data shard i takes batch rows ``i·B/D .. (i+1)·B/D - 1``; otherwise every
+    shard sees all of them (and the data shards, alike, run once).  Each
+    (data, model) shard routes its own tokens on its device and runs its
+    local pass at ``ep_capacity`` of its own T; data shards that share a
+    device run as one batched pass, each with its own routing, capacity
+    and aux (``dispatch``).  The model shards' outputs are summed in
+    ascending order (``moe_combine="reduce_scatter"``: each token chunk
+    summed on its shard's device in the same order, then gathered: the
+    same sum); ``aux`` is the mean over the data shards.  Counts its calls
+    in ``moe_ep.calls``; with ``moe_ep.record`` a list, appends each call's
+    dropped (token, expert) pair count, a 0-d tensor on x's device (no host
+    sync)."""
+    moe_ep.calls += 1
+    m = cfg.moe
+    M = par.model_size
+    if m.num_experts % M:
+        raise ValueError(f"{m.num_experts} experts over {M} model shards")
+    E_loc = m.num_experts // M
+    grid = shard_grid(par)
+    B, S, d = x.shape
+    D = grid.shape[0] if batch_sharded and par.data_axes else 1
+    if B % D:
+        raise ValueError(f"batch {B} over {D} data shards")
+    T = B // D * S
+    cap = ep_capacity(T, m)
+    xd = x.reshape(D, T, d)
+    outs, auxs, drops = [], [], []
+    for g in _data_groups(grid, D):
+        parts = []
+        for s in range(M):
+            dev = grid[g[0], s]
+            xs = xd[g[0]:g[-1] + 1].to(dev)
+            gates, idx, aux = route(params.w_router.to(dev), xs, m)
+            parts.append(local_expert_pass(params, cfg, xs.reshape(-1, d),
+                                           s * E_loc, E_loc, cap, gates, idx))
+            if s == 0:
+                auxs.append(aux.to(x.device))
+                if moe_ep.record is not None:
+                    drops.append(dropped_pairs(gates, idx, m.num_experts,
+                                               cap).sum().to(x.device))
+        outs.append(_combine(parts, grid[g[0]], par.moe_combine, len(g),
+                             x.device))
+    if moe_ep.record is not None:
+        moe_ep.record.append(sum(drops))
+    aux = torch.cat(auxs)
+    return torch.cat(outs).reshape(B, S, d), aux.sum() / aux.numel()
+
+
+moe_ep.calls = 0
+moe_ep.record = None
+
+
+def _combine(parts, devices, how: str, D: int, out_device):
+    """The model shards' (D·T, d) outputs summed in ascending shard order:
+    ``psum`` on the first shard's device; ``reduce_scatter`` sums token
+    chunk j of each data shard on shard j's device, then gathers the
+    chunks."""
+    def total(rows, dev):
+        out = parts[0][rows].to(dev)
+        for p in parts[1:]:
+            out = out + p[rows].to(dev)
+        return out.to(out_device)
+
+    if how == "psum":
+        return total(slice(None), devices[0])
+    M, (n, d) = len(parts), parts[0].shape
+    T = n // D
+    if T % M:
+        raise ValueError(f"reduce_scatter of {T} tokens over {M} shards")
+    c = T // M
+    parts = [p.view(D, T, d) for p in parts]
+    return torch.cat([total((slice(None), slice(j * c, (j + 1) * c)),
+                            devices[j]) for j in range(M)], 1).reshape(n, d)
+
+
 def moe_apply(params: MoE, cfg: ModelConfig, x, par: Parallel = Parallel()):
-    """The reference's dispatch; on one device always the dense path.
-    Returns (out, aux_loss)."""
-    del par
+    """The reference's dispatch: ``moe_ep`` when ``par`` names a model axis
+    and a mesh, else ``moe_dense``.  Returns (out, aux_loss)."""
+    if par.model_axis is not None and par.mesh is not None:
+        return moe_ep(params, cfg, x, par, batch_sharded=par.batch_sharded)
     return moe_dense(params, cfg, x)

@@ -40,7 +40,7 @@ from repro_torch.models.layers import (MLP, Dense, RMSNorm, embed,
                                        init_embedding, unembed)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.moe import MoE, Parallel, moe_apply
+from repro_torch.models.moe import MoE, Parallel, moe_apply, pin
 from repro_torch.utils import resolve_device
 from repro_torch.utils import softcap as _softcap
 
@@ -191,7 +191,7 @@ class LM(nn.Module):
             h, kv = attn_mod.attention(layer.mixer, cfg, h, pos,
                                        kind=layer.kind,
                                        use_kernels=par.use_kernels,
-                                       impl=par.attn_impl)
+                                       impl=par.attn_impl, par=par)
             if mode == "prefill":
                 new_cache = KVCache(*kv)
         if cfg.post_norms:
@@ -208,7 +208,7 @@ class LM(nn.Module):
             x = x + h
         return x, aux, new_cache
 
-    def _readout(self, x):
+    def _readout(self, x, par: Parallel = Parallel()):
         cfg = self.cfg
         x = self.final_norm(x)
         if cfg.is_encoder:
@@ -219,7 +219,7 @@ class LM(nn.Module):
             logits = self.lm_head(x)
         if cfg.final_softcap:
             logits = _softcap(logits.float(), cfg.final_softcap)
-        return logits
+        return pin(logits, par.logits_spec)
 
     def forward(self, batch, par: Parallel = Parallel(), *,
                 mode: str = "train"):
@@ -242,7 +242,7 @@ class LM(nn.Module):
         aux = torch.zeros((), device=x.device)
         remat = (self.cfg.remat == "full" and mode == "train"
                  and torch.is_grad_enabled())
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             if remat:
                 x, aux_l = checkpoint(self._remat_layer, layer, x, pos, par,
                                       use_reentrant=False)
@@ -252,10 +252,12 @@ class LM(nn.Module):
             if aux_l is not None:
                 aux = aux + aux_l
             caches.append(c)
+            if (i + 1) % self.cfg.period == 0:      # after each group
+                x = pin(x, par.resid_spec)
         if mode == "prefill" and par.prefill_last_only:
             # serving: only the last position's logits start decode
-            return self._readout(x[:, -1:, :]), aux, caches
-        logits = self._readout(x)
+            return self._readout(x[:, -1:, :], par), aux, caches
+        logits = self._readout(x, par)
         if mode == "prefill":
             return logits, aux, caches
         return logits, aux
@@ -280,14 +282,17 @@ class LM(nn.Module):
         """One decode step.  tokens: (B, 1); pos: the current write
         position.  Returns (logits (B,1,V), caches): the same list, its
         KV caches written in place and its recurrent states replaced by
-        the new ones."""
+        the new ones.  ``par.decode_cache`` ("scan_ys" or "carry", checked
+        by ``Parallel``) picks how the reference threads its stacked caches
+        through the scan over groups; the port's per-layer list is written
+        the same way under both, so both give the same logits and caches."""
         x = self._scale_embed(embed(self.embedding, tokens,
                                     self.cfg.act_dtype))
         for i, layer in enumerate(self.layers):
             x, _, caches[i] = self._apply_layer(layer, x, None, par,
                                                 "decode", cache=caches[i],
                                                 decode_pos=pos)
-        return self._readout(x), caches
+        return self._readout(x, par), caches
 
 
 # ---------------------------------------------------------------------------
@@ -558,6 +563,21 @@ def _lazy_tree(key, cfg: ModelConfig, device):
     if cfg.is_encoder:
         top["enc_head"] = _dense(ks[4], d, cfg.padded_vocab, device)
     return top, prng.split(prng.split(gkey, cfg.num_groups), cfg.period)
+
+
+def _paths(node, prefix: str = ""):
+    if isinstance(node, dict):
+        return {k: _paths(v, f"{prefix}{k}/") for k, v in node.items()}
+    return prefix[:-1]
+
+
+def skeleton(cfg: ModelConfig) -> dict:
+    """The reference's ``init_lm`` tree for ``cfg`` with every leaf its
+    path (``groups/p0/mixer/wq/w``); nothing is drawn."""
+    top, lkeys = _lazy_tree(prng.PRNGKey(0), cfg, "meta")
+    top["groups"] = {f"p{p}": _layer_tree(lkeys[:, p], cfg, p, "meta")
+                     for p in range(cfg.period)}
+    return _paths(top)
 
 
 def _drawn(node):

@@ -1845,3 +1845,63 @@ def test_frontend_prefill_takes_the_tensor_core_kernel(dev):
         assert (fa.launches - before[0], fa.launches_tensor_core
                 - before[1]) == (cfg.num_layers, cfg.num_layers)
         assert bool(torch.isfinite(out).all())
+
+
+def test_moe_ep_on_the_card_matches_the_cpu(dev):
+    """olmoe-smoke's MoE layer in fp32 through ``moe_ep`` on a 1×1 mesh of
+    the card against a 1×1 mesh of the CPU, at capacity factor 1.25 on 4 ×
+    32 positive tokens with the router leaning to expert 0 (so experts
+    drop pairs): the output within 1e-5 of its largest value, aux within
+    1e-6, the same dropped-pair count, and x's gradient within 1e-5 of its
+    largest element."""
+    from repro_torch.configs import shapes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = shapes.smoke_config(get_config("olmoe-1b-7b"))
+    mod = init_lm(prng.PRNGKey(4), cfg, device="cpu").layers[0].moe
+    with torch.no_grad():
+        mod.w_router[:, 0] += 0.003
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(4)).abs() + 0.5
+    outs = []
+    moe_mod.moe_ep.record = []
+    try:
+        for d in ("cpu", dev):
+            par = Parallel(model_axis="model", data_axes=("data",),
+                           mesh=make_host_mesh(1, 1, device=d),
+                           use_kernels=False)
+            xd = x.to(d, copy=True).requires_grad_()
+            out, aux = moe_mod.moe_apply(copy.deepcopy(mod).to(d), cfg, xd,
+                                         par)
+            (out.square().sum() + aux).backward()
+            outs.append((out.detach().cpu(), float(aux.detach()),
+                         xd.grad.cpu()))
+        drops = [int(n) for n in moe_mod.moe_ep.record]
+    finally:
+        moe_mod.moe_ep.record = None
+    assert drops[0] == drops[1] > 0
+    (y0, a0, g0), (y1, a1, g1) = outs
+    assert _err(y1, y0) <= 1e-5 * float(y0.abs().max())
+    assert abs(a0 - a1) <= 1e-6
+    assert _err(g1, g0) <= 1e-5 * float(g0.abs().max())
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "xlstm-125m"])
+def test_launcher_on_the_card_matches_the_cpu(dev, name):
+    """``launch/train.py``'s run of the smoke config, 2 steps of 2 × 16 on
+    a 1×1 mesh, on the card and on the CPU: the losses within 1e-5
+    relative, olmoe's MoE layers on ``moe_ep`` on both, no kernel
+    launched."""
+    from repro_torch.configs.shapes import smoke_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import moe as moe_mod
+    cfg = smoke_config(get_config(name))
+    before, calls = fa_ops.flash_attention.launches, moe_mod.moe_ep.calls
+    runs = [train(cfg, steps=2, batch=2, seq=16, device=d,
+                  log=lambda *a: None) for d in ("cpu", dev)]
+    for a, b in zip(runs[1]["losses"], runs[0]["losses"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
+    want = 2 * 2 * cfg.num_layers if cfg.moe else 0
+    assert moe_mod.moe_ep.calls - calls == want
+    assert fa_ops.flash_attention.launches == before

@@ -52,6 +52,28 @@ def test_every_module_imports_without_jax_or_reference():
     assert len(MODULES) >= 20
 
 
+def test_launch_modules_import_without_jax_and_set_nothing():
+    """The launcher, the dry run, the accounting, the mesh and the
+    partition rules import no jax; importing the dry run sets no
+    ``XLA_FLAGS`` (the reference's sets them, so it cannot be imported
+    beside jax)."""
+    mods = ["repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis", "repro_torch.launch.mesh",
+            "repro_torch.sharding.rules"]
+    assert set(mods) <= set(MODULES)
+    code = ("import importlib, json, os, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(json.dumps([sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.split('.')[0] == 'repro'), "
+            "os.environ.get('XLA_FLAGS')]))")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**env, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], None]
+
+
 def test_source_has_no_jax_or_reference_import():
     for path in PORT.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
