@@ -7,17 +7,32 @@ DiT's attention), the tensor-core kernel (``kernel.tensor_core_route``:
 bf16; gemma2's prefill), else the CUDA-core kernel.
 ``flash_attention.launches`` counts every launch, and
 ``launches_short``, ``launches_tensor_core`` and ``launches_cuda_core``
-each route's (safe to read while threads launch: ``build.count_launch``)."""
+each route's (safe to read while threads launch: ``build.count_launch``).
+Under an enabled current tracer (``obs/trace.py``) every call, on either
+route, is a ``flash_attention`` span carrying the call's shapes:
+``B, Sq, Sk, Hq, Hkv, hd, causal, dtype, itemsize``."""
 from __future__ import annotations
 
 from repro_torch.kernels.build import check_cuda_inputs, count_launch
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.obs.trace import current
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd) → (B, Sq, Hq, hd)."""
+    tr = current()
+    if not tr.enabled:
+        return _attention(q, k, v, causal, window, softcap)
+    B, Sq, Hq, hd = q.shape
+    with tr.span("flash_attention", B=B, Sq=Sq, Sk=k.shape[1], Hq=Hq,
+                 Hkv=k.shape[2], hd=hd, causal=bool(causal),
+                 dtype=str(q.dtype)[6:], itemsize=q.element_size()):
+        return _attention(q, k, v, causal, window, softcap)
+
+
+def _attention(q, k, v, causal, window, softcap):
     if q.device.type == "cpu":
         out = ref.attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,

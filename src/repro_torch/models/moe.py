@@ -34,6 +34,17 @@ the CPU or the meta device, run as one batched pass: 16 × 16 shards make
 ascending order, and ``aux`` is the mean over the data shards.
 ``moe_apply`` takes ``moe_ep`` exactly where the reference does: when
 ``Parallel`` names a model axis and a mesh.
+
+Under an enabled current tracer (``obs/trace.py``) ``moe_dense`` is a
+``moe`` span, and ``route`` and every local expert pass open ``moe.route``,
+``moe.dispatch`` (the index lists and the gather of the experts' rows),
+``moe.experts`` (the three ``bmm`` and the activation) and
+``moe.combine`` (weighting, sort, gather and sum).  ``moe.dispatch``
+carries ``pairs``, the (token, expert) pairs routed to the pass's experts;
+``expert_rows``, the rows its experts compute (E_loc·D·cap); and
+``dropped``, the pairs past their expert's capacity, a 0-d tensor on the
+device (no host sync), as is ``pairs`` in a pass over some of the
+experts.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.obs.trace import current
 
 
 MOE_COMBINES = ("psum", "reduce_scatter")
@@ -133,19 +145,21 @@ def route(w_router, x_flat, m: MoEConfig):
     """Returns (gates (T, k) fp32, idx (T, k) int64, aux_loss scalar).
     ``x_flat`` may lead with a shard axis, (D, T, d): each shard routes its
     own tokens and has its own aux loss, (D,)."""
-    logits = (x_flat @ w_router.to(x_flat.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)                      # (T, E)
-    gates, idx = top_k_lower_first(probs, m.top_k)
-    gates = gates / gates.sum(-1, keepdim=True)
-    # Switch-style load-balance loss: E * sum_e f_e * P_e, f_e the
-    # dispatch fraction (an integer count over T, exact as the reference's)
-    lead, T = idx.shape[:-2], x_flat.shape[-2]
-    flat = idx.reshape(*lead, -1)
-    counts = torch.zeros((*lead, m.num_experts), dtype=torch.int64,
-                         device=idx.device).scatter_add_(
-        -1, flat, torch.ones_like(flat))
-    f = counts.float() / T
-    aux = m.num_experts * torch.sum(f * probs.mean(-2), -1)
+    with current().span("moe.route"):
+        logits = (x_flat @ w_router.to(x_flat.dtype)).float()
+        probs = torch.softmax(logits, dim=-1)                  # (T, E)
+        gates, idx = top_k_lower_first(probs, m.top_k)
+        gates = gates / gates.sum(-1, keepdim=True)
+        # Switch-style load-balance loss: E * sum_e f_e * P_e, f_e the
+        # dispatch fraction (an integer count over T, exact as the
+        # reference's)
+        lead, T = idx.shape[:-2], x_flat.shape[-2]
+        flat = idx.reshape(*lead, -1)
+        counts = torch.zeros((*lead, m.num_experts), dtype=torch.int64,
+                             device=idx.device).scatter_add_(
+            -1, flat, torch.ones_like(flat))
+        f = counts.float() / T
+        aux = m.num_experts * torch.sum(f * probs.mean(-2), -1)
     return gates, idx, aux
 
 
@@ -231,39 +245,68 @@ def local_expert_pass(params: MoE, cfg: ModelConfig, x_flat, e_start: int,
     m = cfg.moe
     d = x_flat.shape[1]
     dev = x_flat.device
-    tok, wgt, slot = dispatch(gates, idx, m.num_experts, cap, e_start, E_loc)
-    slab = lambda w: (None if w is None else
-                      w[e_start:e_start + E_loc].to(dev))
-    # Pad x with a zero row; the fill index points at it.
-    x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))])
-    y = expert_ffn(x_pad[tok], slab(params.experts_up),
-                   slab(params.experts_down), slab(params.experts_gate),
-                   cfg.mlp_act)
-    y = y * wgt[..., None].to(y.dtype)
-    # each token's rows in ascending expert order; an expert of another
-    # shard, like the spare row, adds 0
-    n = tok.numel()
-    y_pad = torch.cat([y.reshape(n, d), y.new_zeros((1, d))])
-    ranked = torch.sort(idx.reshape(-1, m.top_k), dim=-1).values
-    if E_loc == m.num_experts:          # every expert here: no mask to build
-        rows = slot.gather(1, ranked)
-    else:
-        loc = ranked - e_start
-        here = (loc >= 0) & (loc < E_loc)
-        rows = torch.where(here, slot.gather(1, loc.clamp(0, E_loc - 1)), n)
-    out = y_pad[rows[:, 0]]
-    for j in range(1, m.top_k):
-        out = out + y_pad[rows[:, j]]
+    tr = current()
+    with tr.span("moe.dispatch") as sp:
+        tok, wgt, slot = dispatch(gates, idx, m.num_experts, cap, e_start,
+                                  E_loc)
+        n = tok.numel()
+        if tr.enabled:
+            sp.set(**_dispatch_counts(gates, idx, slot, n, e_start, E_loc,
+                                      m.num_experts))
+        # Pad x with a zero row; the fill index points at it.
+        x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))])
+        xe = x_pad[tok]
+    with tr.span("moe.experts"):
+        slab = lambda w: (None if w is None else
+                          w[e_start:e_start + E_loc].to(dev))
+        y = expert_ffn(xe, slab(params.experts_up),
+                       slab(params.experts_down), slab(params.experts_gate),
+                       cfg.mlp_act)
+    with tr.span("moe.combine"):
+        y = y * wgt[..., None].to(y.dtype)
+        # each token's rows in ascending expert order; an expert of another
+        # shard, like the spare row, adds 0
+        y_pad = torch.cat([y.reshape(n, d), y.new_zeros((1, d))])
+        ranked = torch.sort(idx.reshape(-1, m.top_k), dim=-1).values
+        if E_loc == m.num_experts:      # every expert here: no mask to build
+            rows = slot.gather(1, ranked)
+        else:
+            loc = ranked - e_start
+            here = (loc >= 0) & (loc < E_loc)
+            rows = torch.where(here, slot.gather(1, loc.clamp(0, E_loc - 1)),
+                               n)
+        out = y_pad[rows[:, 0]]
+        for j in range(1, m.top_k):
+            out = out + y_pad[rows[:, j]]
     return out
+
+
+def _dispatch_counts(gates, idx, slot, n: int, e_start: int, E_loc: int,
+                     num_experts: int) -> dict:
+    """The ``moe.dispatch`` span's counts: the pairs routed to experts
+    ``e_start .. e_start + E_loc - 1``, the rows they compute (``n``) and the
+    pairs they drop, which is ``dropped_pairs(...)`` over them summed: the
+    chosen pairs less the kept ones (a ``slot`` below ``n``).  Device
+    tensors where a count needs the device."""
+    chosen = gates > 0
+    if E_loc == num_experts:
+        pairs = idx.numel()
+    else:
+        here = (idx >= e_start) & (idx < e_start + E_loc)
+        chosen = chosen & here
+        pairs = here.sum()
+    return {"pairs": pairs, "expert_rows": n,
+            "dropped": chosen.sum() - (slot < n).sum()}
 
 
 def moe_dense(params: MoE, cfg: ModelConfig, x):
     """Single-device path (all experts local).  Returns (out, aux)."""
     B, S, d = x.shape
-    x_flat = x.reshape(B * S, d)
-    gates, idx, aux = route(params.w_router, x_flat, cfg.moe)
-    out = local_expert_pass(params, cfg, x_flat, 0, cfg.moe.num_experts,
-                            capacity(B * S, cfg.moe), gates, idx)
+    with current().span("moe"):
+        x_flat = x.reshape(B * S, d)
+        gates, idx, aux = route(params.w_router, x_flat, cfg.moe)
+        out = local_expert_pass(params, cfg, x_flat, 0, cfg.moe.num_experts,
+                                capacity(B * S, cfg.moe), gates, idx)
     return out.reshape(B, S, d), aux
 
 

@@ -29,6 +29,8 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+import torch
+
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
 
@@ -51,6 +53,8 @@ def _tid(span_attrs: dict, num_hosts: int) -> int:
 def _jsonable(v):
     if isinstance(v, (bool, int, float, str)) or v is None:
         return v
+    if isinstance(v, torch.Tensor):            # a count left on the device
+        return v.tolist()
     return str(v)
 
 

@@ -19,10 +19,10 @@ latency fall out of one object:
   several waves keeps its FIRST pack/dispatch);
   ``tracer.request_latency(rid)`` derives ``queue_wait``
   (enqueue → dispatch) and ``e2e_latency`` (admit → deliver) from them;
-* a DISABLED tracer (``Tracer(enabled=False)``, the engine default) is
-  near-zero cost: ``span()`` returns one shared no-op context manager
-  and ``stamp`` returns immediately — nothing is recorded, no clock is
-  read, and the serving hot path stays untimed.
+* a DISABLED tracer (``Tracer(enabled=False)``; ``default()`` until
+  enabled) is near-zero cost: ``span()`` returns one shared no-op context
+  manager and ``stamp`` returns immediately — nothing is recorded, no
+  clock is read, and the serving hot path stays untimed.
 
 Tracing NEVER touches computation: spans and stamps observe the drain,
 they do not key noise, schedule waves, or order anything — D_syn is
@@ -38,15 +38,36 @@ one lock so no record is lost.  The disabled path is untouched:
 ``span()`` still returns the shared no-op and ``stamp`` still returns
 before reading any clock or taking any lock.
 
+THE PROFILER'S CLOCK (port only): while a tracer is enabled and a
+``torch.profiler`` session records, every span also opens a
+``torch.profiler.record_function`` of its name, so the span sits on the
+profiler's host timeline with a device-side range over the work launched
+inside it (``gpu_user_annotation``), and an idle gap of the card is named
+by the innermost span open over it.  A disabled tracer makes no torch
+call.
+
+THE CURRENT TRACER (port only): layers below the engines (``models/``,
+``diffusion/``, the kernel wrappers) open their spans on ``current()``,
+the tracer of the engine whose work runs on the calling thread (an engine
+makes its own current with ``using``), or a disabled one with no engine
+active.  An engine built without ``tracer=`` records into ``default()``,
+the process's tracer, disabled until an operator sets its ``enabled``.
+An attribute may be a device tensor (a count the host would have to wait
+for); ``resolve`` turns it into a number when the spans are read, after
+the work is fenced.
+
 Export to a Perfetto/``chrome://tracing``-loadable timeline lives in
 ``obs/export.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
+
+import torch
 
 #: request-lifecycle stages, in order.  ``stamp`` accepts only these.
 LIFECYCLE_STAGES = ("admit", "enqueue", "pack", "dispatch", "retire",
@@ -114,8 +135,9 @@ NULL_SPAN = _NullSpan()
 
 class _OpenSpan:
     """A span being recorded; closes (and appends to the tracer) on
-    ``__exit__``."""
-    __slots__ = ("_tracer", "name", "attrs", "_start", "depth")
+    ``__exit__``.  Opened while the profiler records, it holds a
+    ``record_function`` range of its name over the same interval."""
+    __slots__ = ("_tracer", "name", "attrs", "_start", "depth", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -130,11 +152,17 @@ class _OpenSpan:
         stack = self._tracer._stack   # this THREAD's nesting stack
         self.depth = len(stack)
         stack.append(self)
+        self._range = None
+        if torch._C._autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self._start = self._tracer.clock()
         return self
 
     def __exit__(self, *exc):
         end = self._tracer.clock()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         stack = self._tracer._stack
         if stack and stack[-1] is self:
             stack.pop()
@@ -242,3 +270,38 @@ class Tracer:
     def __repr__(self):
         return (f"Tracer(enabled={self.enabled}, spans={len(self.spans)}, "
                 f"requests={len(self.lifecycle)})")
+
+
+def resolve(attrs: dict) -> dict:
+    """``attrs`` with each tensor as its number (or list): a read of the
+    device, so only after the spans' work is fenced."""
+    return {k: (v.tolist() if isinstance(v, torch.Tensor) else v)
+            for k, v in attrs.items()}
+
+
+_DEFAULT = Tracer(enabled=False)
+_OFF = Tracer(enabled=False)
+_current = threading.local()
+
+
+def default() -> Tracer:
+    """The process's tracer, which an engine built without ``tracer=``
+    records into; disabled until an operator sets ``enabled``."""
+    return _DEFAULT
+
+
+def current() -> Tracer:
+    """The calling thread's current tracer: the running engine's, else a
+    disabled one."""
+    return getattr(_current, "tracer", _OFF)
+
+
+@contextlib.contextmanager
+def using(tracer: Tracer):
+    """Make ``tracer`` current on this thread for the block."""
+    prev = current()
+    _current.tracer = tracer
+    try:
+        yield tracer
+    finally:
+        _current.tracer = prev

@@ -8,6 +8,13 @@ EOS.  Lockstep waves keep the single-position decode step exact.
 The model runs where its parameters are (the card unless it was built
 with ``device="cpu"``); prefill attention goes through the flash-attention
 kernel unless ``par.use_kernels`` is off, and decode attention is plain.
+
+``tracer`` (``obs/trace.py``; the process default when not given) is
+current while ``run`` drains, so the LM's layers open their spans on it.
+Each wave is a ``serve.wave`` span (``B``, ``L``) holding
+``serve.prefill`` (the LM forward), ``serve.pad_caches``,
+``serve.first_token`` (the argmax and its read to the host, the wave's
+sync) and one ``serve.decode_step`` a decode step.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.moe import Parallel
 from repro_torch.models.transformer import LM
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer, default, using
 from repro_torch.serve.steps import make_serve_step
 
 
@@ -41,7 +49,8 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, lm: LM, *, max_len: int = 256,
                  par: Parallel = Parallel(),
-                 metrics: MetricsRegistry | None = None):
+                 metrics: MetricsRegistry | None = None,
+                 tracer: Tracer | None = None):
         assert cfg.supports_decode, f"{cfg.name} is encoder-only"
         self.cfg, self.lm, self.par = cfg, lm, par
         self.max_len = max_len
@@ -49,6 +58,7 @@ class ServeEngine:
         self._queue: list[Request] = []
         self._next_rid = 0
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else default()
 
     @property
     def stats(self) -> dict:
@@ -65,12 +75,13 @@ class ServeEngine:
     def run(self) -> dict[int, list[int]]:
         """Drain the queue.  Returns rid -> generated token ids."""
         results: dict[int, list[int]] = {}
-        while self._queue:
-            # wave = all queued requests sharing the front prompt length
-            L = len(self._queue[0].prompt)
-            wave = [r for r in self._queue if len(r.prompt) == L]
-            self._queue = [r for r in self._queue if len(r.prompt) != L]
-            self._run_wave(wave, results)
+        with using(self.tracer):
+            while self._queue:
+                # wave = all queued requests sharing the front prompt length
+                L = len(self._queue[0].prompt)
+                wave = [r for r in self._queue if len(r.prompt) == L]
+                self._queue = [r for r in self._queue if len(r.prompt) != L]
+                self._run_wave(wave, results)
         return results
 
     # -- internals --------------------------------------------------------
@@ -90,34 +101,42 @@ class ServeEngine:
 
     @torch.inference_mode()
     def _run_wave(self, wave, results):
+        tr = self.tracer
         L = len(wave[0].prompt)
         budget = max(r.max_new for r in wave)
         assert L + budget <= self.max_len, "wave exceeds engine max_len"
-        toks = torch.as_tensor(np.stack([r.prompt for r in wave]),
-                               device=self.lm.device)
-        logits, _, caches = self.lm(toks, self.par, mode="prefill")
-        caches = self._pad_caches(caches, len(wave), L)
-        self.metrics.inc("waves")
-        self.metrics.inc("prefilled", len(wave))
-        cur = torch.argmax(logits[:, -1, :self.cfg.vocab_size], -1)[:, None]
-        cur = cur.to(torch.int32)
-        done = [False] * len(wave)
-        for r, t in zip(wave, cur[:, 0].tolist()):
-            r.out.append(int(t))
-        for i in range(budget - 1):
-            cur, _, caches = self._decode(cur, caches, L + i)
-            self.metrics.inc("decoded", len(wave))
-            toks_np = np.asarray(cur[:, 0].cpu()) % self.cfg.vocab_size
-            for j, (r, t) in enumerate(zip(wave, toks_np)):
-                if done[j]:
-                    continue
+        with tr.span("serve.wave", B=len(wave), L=L):
+            toks = torch.as_tensor(np.stack([r.prompt for r in wave]),
+                                   device=self.lm.device)
+            with tr.span("serve.prefill"):
+                logits, _, caches = self.lm(toks, self.par, mode="prefill")
+            with tr.span("serve.pad_caches"):
+                caches = self._pad_caches(caches, len(wave), L)
+            self.metrics.inc("waves")
+            self.metrics.inc("prefilled", len(wave))
+            with tr.span("serve.first_token"):
+                cur = torch.argmax(logits[:, -1, :self.cfg.vocab_size],
+                                   -1)[:, None].to(torch.int32)
+                first = cur[:, 0].tolist()
+            done = [False] * len(wave)
+            for r, t in zip(wave, first):
                 r.out.append(int(t))
-                if len(r.out) >= r.max_new or (r.eos is not None
-                                               and int(t) == r.eos):
-                    done[j] = True
-                    results[r.rid] = r.out
-            if all(done):
-                break
+            for i in range(budget - 1):
+                with tr.span("serve.decode_step"):
+                    cur, _, caches = self._decode(cur, caches, L + i)
+                    toks_np = (np.asarray(cur[:, 0].cpu())
+                               % self.cfg.vocab_size)
+                self.metrics.inc("decoded", len(wave))
+                for j, (r, t) in enumerate(zip(wave, toks_np)):
+                    if done[j]:
+                        continue
+                    r.out.append(int(t))
+                    if len(r.out) >= r.max_new or (r.eos is not None
+                                                   and int(t) == r.eos):
+                        done[j] = True
+                        results[r.rid] = r.out
+                if all(done):
+                    break
         for j, r in enumerate(wave):
             if not done[j]:
                 results[r.rid] = r.out

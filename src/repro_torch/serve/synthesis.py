@@ -59,8 +59,20 @@ log p(y|x) and a category, Eq. 4 / FedCADO) or unconditional
   abstract evaluation for a closure over CUDA parameters, so it calls the
   closure once on a (1, H, W, C) zero row on the model's device.
 * ``stats`` is a read-only view over a ``MetricsRegistry``, the
-  reference's keys in its order; ``tracer`` records spans and request
-  lifecycle stamps at the reference's sites (off by default).
+  reference's keys in its order; ``tracer`` (the process default,
+  ``obs/trace.py::default``, when not given; off until enabled) records
+  spans and request lifecycle stamps at the reference's sites, and is
+  current on the drain thread while ``run`` drains, so the DiT's
+  ``flash_attention`` calls are spans of it.  ``wave.dispatch`` times the
+  launches of a wave, which wait whenever the launch queue is full: on a
+  card-bound drain it times the wave.  ``device.scan`` is the host's wait
+  on a wave's event.  Port-only: ``wave.admit``, the poll, admission and
+  take at each wave boundary (a sibling before ``wave.pack``; the two are
+  the boundary's host work, with no launch-queue wait or fence in them),
+  and, on a card, ``wave.device``, one instant a retired wave of a
+  grouped drain: ``device_ms`` from the wave's first launch to its end and
+  ``gap_ms`` from the previous wave's end to its start, from CUDA timing
+  events read after the wave's fence.
 * PLACED DRAINS (``topology=HostTopology(...)`` or ``hosts=H``,
   ``serve/topology.py``): a classifier-free request (every request, when
   the engine is ragged) is routed to a host's INGRESS QUEUE by its
@@ -132,7 +144,7 @@ from repro_torch.kernels.cfg_fuse import ops as cfg_ops
 from repro_torch.launch.mesh import (Mesh, NamedSharding, data_devices,
                                      mesh_axes)
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import Tracer
+from repro_torch.obs.trace import Tracer, default as default_tracer, using
 from repro_torch.serve.faults import (AllHostsLostError, FaultInjector,
                                       HostLostError, RequestFailedError,
                                       RetryPolicy)
@@ -290,6 +302,7 @@ class _DrainState:
         self.on_error = None          # typed-failure delivery hook
         self.failed = {}              # rid -> RequestFailedError this drain
         self.tracer = None            # set by the engine at drain start
+        self.last_done = None         # the last retired wave's timed event
 
     def deliver(self, results: dict, rid: int, rows):
         if self.tracer is not None:
@@ -353,7 +366,7 @@ class SynthesisEngine:
         # first admission; a classifier-guided row selects its own by slot
         self._clf_fns: list = []
         self._null_row = model.null_y.detach().cpu().numpy()
-        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.tracer = tracer if tracer is not None else default_tracer()
         self.metrics = MetricsRegistry()
         self.faults = faults
         self.retry = retry if retry is not None else RetryPolicy()
@@ -564,7 +577,8 @@ class SynthesisEngine:
             if on_result is not None:
                 for rid, rows in carried.items():
                     on_result(rid, rows)
-        with self.tracer.span("drain", queued=len(self._queue)):
+        with using(self.tracer), \
+                self.tracer.span("drain", queued=len(self._queue)):
             try:
                 self._drain(key, results, failed, poll=poll,
                             host_polls=host_polls, stream=stream,
@@ -957,23 +971,24 @@ class SynthesisEngine:
         else:
             _, wave_rows = self._plan_waves(q.rows_available())
         smax = 0                 # the ragged step ceiling, a running max
-        inflight = None          # (x, done event, parts, real rows, wave)
+        inflight = None          # _retire's arguments for the wave in flight
         while True:
-            # admission at every wave boundary, poll or not: requests
-            # another thread submits stream into this drain too
-            self._poll_all(poll, host_polls)
-            self._admit_new(st, results)
-            parts = q.take(wave_rows)
-            got = sum(t for _, t, _ in parts)
-            if got == 0:
-                break
-            if got < wave_rows:
-                # an open wave: late arrivals get one chance to fill it
+            with self.tracer.span("wave.admit", wave=st.wave_i):
+                # admission at every wave boundary, poll or not: requests
+                # another thread submits stream into this drain too
                 self._poll_all(poll, host_polls)
                 self._admit_new(st, results)
-                more = q.take(wave_rows - got)
-                parts += more
-                got += sum(t for _, t, _ in more)
+                parts = q.take(wave_rows)
+                got = sum(t for _, t, _ in parts)
+                if 0 < got < wave_rows:
+                    # an open wave: late arrivals get one chance to fill it
+                    self._poll_all(poll, host_polls)
+                    self._admit_new(st, results)
+                    more = q.take(wave_rows - got)
+                    parts += more
+                    got += sum(t for _, t, _ in more)
+            if got == 0:
+                break
             # the tail: a snapshot keeps the group's wave size, a stream
             # rounds up to a granule
             target = (-(-got // self.granule) * self.granule if stream
@@ -1006,6 +1021,10 @@ class SynthesisEngine:
                 self.tracer.stamp(p.req.rid, "pack")
             wave = st.wave_i
             st.wave_i += 1
+            start = None
+            if self.tracer.enabled and self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(torch.cuda.current_stream(self.device))
             with self.tracer.span("wave.dispatch", wave=wave, host=0,
                                   rows=target, mode=q.head.mode) as sp:
                 if ragged:
@@ -1026,7 +1045,7 @@ class SynthesisEngine:
                                      got * q.head.num_steps)
             done = None
             if x.is_cuda:
-                done = torch.cuda.Event()
+                done = torch.cuda.Event(enable_timing=start is not None)
                 done.record(torch.cuda.current_stream(x.device))
             for p, _, _ in parts:
                 self.tracer.stamp(p.req.rid, "dispatch")
@@ -1038,9 +1057,9 @@ class SynthesisEngine:
                 self._retire(st, results, *inflight)
                 inflight = None
             if self.async_waves:
-                inflight = (x, done, parts, got, wave)
+                inflight = (x, done, parts, got, wave, start)
             else:
-                self._retire(st, results, x, done, parts, got, wave)
+                self._retire(st, results, x, done, parts, got, wave, start)
         if inflight is not None:
             self._retire(st, results, *inflight)
 
@@ -1064,22 +1083,24 @@ class SynthesisEngine:
         while True:
             topo = self.topology
             quotas = topo.wave_quotas(wave_target)
-            self._poll_all(poll, host_polls)
-            self._admit_new(st, results)
-            parts_h = [q.take(quotas[h]) for h, q in enumerate(grp.queues)]
-            got = sum(t for parts in parts_h for _, t, _ in parts)
-            if got == 0:
-                break
-            if got < sum(quotas):
-                # an open wave: late arrivals get one chance to fill the
-                # hosts' windows before they are padded
+            with self.tracer.span("wave.admit", wave=st.wave_i):
                 self._poll_all(poll, host_polls)
                 self._admit_new(st, results)
-                for h, q in enumerate(grp.queues):
-                    have = sum(t for _, t, _ in parts_h[h])
-                    if have < quotas[h]:
-                        parts_h[h] += q.take(quotas[h] - have)
+                parts_h = [q.take(quotas[h])
+                           for h, q in enumerate(grp.queues)]
                 got = sum(t for parts in parts_h for _, t, _ in parts)
+                if 0 < got < sum(quotas):
+                    # an open wave: late arrivals get one chance to fill
+                    # the hosts' windows before they are padded
+                    self._poll_all(poll, host_polls)
+                    self._admit_new(st, results)
+                    for h, q in enumerate(grp.queues):
+                        have = sum(t for _, t, _ in parts_h[h])
+                        if have < quotas[h]:
+                            parts_h[h] += q.take(quotas[h] - have)
+                    got = sum(t for parts in parts_h for _, t, _ in parts)
+            if got == 0:
+                break
             rows_h = [sum(t for _, t, _ in parts) for parts in parts_h]
             placement = WavePlacement.plan(rows_h, topo.granules)
             if tuple((w.host, w.rows) for w in placement.windows) \
@@ -1471,11 +1492,19 @@ class SynthesisEngine:
                     self._finalize(st, p, results)
 
     def _retire(self, st: _DrainState, results, x, done, parts, n_real,
-                wave: int = -1):
+                wave: int = -1, start=None):
         """Wait for the wave's own work, scatter its rows to their
-        requests, finalize each request whose rows are complete."""
+        requests, finalize each request whose rows are complete.  With
+        ``start`` (the timed event before the wave's first launch; ``done``
+        timed too) record the wave's ``wave.device`` instant."""
         with self.tracer.span("device.scan", host=0, rows=int(x.shape[0])):
             self._fence(done, host=0, wave=wave)
+        if start is not None:
+            attrs = {"wave": wave, "device_ms": start.elapsed_time(done)}
+            if st.last_done is not None:
+                attrs["gap_ms"] = st.last_done.elapsed_time(start)
+            st.last_done = done
+            self.tracer.instant("wave.device", **attrs)
         outs = x[:n_real]
         off = 0
         for p, t, _ in parts:

@@ -1199,6 +1199,32 @@ def test_2d_requests_give_their_rows_in_grouped_and_ragged_waves(dev):
     assert float((outs["ragged"][0] - outs["ragged"][1]).abs().max()) > 1e-3
 
 
+def test_a_traced_drain_times_each_wave_on_the_card(dev):
+    """With its tracer on, a grouped drain records one ``wave.device``
+    instant a wave from CUDA timing events: the wave's device time above
+    0 and, from the second wave on, the device's gap after the previous
+    wave, at least 0.  D_syn is the untraced drain's, bit for bit."""
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.synthesis import SynthesisEngine
+    model = _seeded_dit(dev).eval()
+    sched = make_schedule(device=dev)
+    enc = np.random.default_rng(7).standard_normal(512).astype(np.float32)
+    outs = {}
+    for traced in (False, True):
+        tr = Tracer(enabled=traced)
+        eng = SynthesisEngine(model, sched, image_size=16, wave_size=8,
+                              tracer=tr)
+        rid = eng.submit(enc, 0, 24, num_steps=3)
+        outs[traced] = eng.run(prng.PRNGKey(9))[rid]
+    assert torch.equal(outs[False], outs[True])
+    waves = [s for s in tr.spans if s.name == "wave.device"]
+    assert [s.attrs["wave"] for s in waves] == [0, 1, 2]
+    assert sum(s.name == "wave.pack" for s in tr.spans) == 3
+    assert all(s.attrs["device_ms"] > 0 for s in waves)
+    assert "gap_ms" not in waves[0].attrs
+    assert all(s.attrs["gap_ms"] >= 0 for s in waves[1:])
+
+
 def test_inits_from_a_key_on_the_card_equal_the_cpu_draws(dev):
     key = prng.PRNGKey(5)
     dc = DiffusionConfig(d_model=144, num_layers=2, num_heads=4)

@@ -2,7 +2,8 @@
 ``FakeClock`` script through both tracers gives equal spans, lifecycle
 stamps, latencies and chrome-trace JSON; both validators refuse the same
 malformed traces; a drain records the reference's spans (names,
-attributes, nesting) and lifecycle stages; and tracing never changes
+attributes, nesting) and lifecycle stages, and the port's own
+(``PORT_ONLY``) where they belong; and tracing never changes
 D_syn (bit for bit on and off).  The drains run on the 1-layer,
 d_model 32, 16-px DiT of ``test_torch_engine``."""
 import json
@@ -142,6 +143,8 @@ def _enc(seed):
 
 SUBS = [(_enc(30 + i), i, (3, 6, 5)[i], (2.0, 4.0, 2.0)[i])
         for i in range(3)]
+#: spans the port records and the reference does not
+PORT_ONLY = {"wave.admit", "wave.device", "flash_attention"}
 
 
 def _drain(svc):
@@ -166,8 +169,32 @@ def test_a_drain_records_the_references_spans_and_leaves_dsyn_alone(
     off = _drain(SynthesisService(SynthesisEngine(
         model, sched, image_size=16, wave_size=8, ragged=ragged), key=4))
     assert all(torch.equal(a, b) for a, b in zip(on, off))
-    shape = lambda tr: [(s.name, s.attrs, s.depth) for s in tr.spans]
+    shape = lambda tr: [(s.name, s.attrs, s.depth) for s in tr.spans
+                        if s.name not in PORT_ONLY]
     assert shape(traced) == shape(jtraced)
+    assert not PORT_ONLY & {s.name for s in jtraced.spans}
+    # the port's own: a ``wave.admit`` closes just before each wave's
+    # ``wave.pack``, its sibling (one more ends each group's drain), the
+    # DiT's attention calls nest in their wave's dispatch, and no
+    # ``wave.device`` on the CPU
+    spans = traced.spans
+    packs = [i for i, s in enumerate(spans) if s.name == "wave.pack"]
+    groups = 1 if ragged else len({g for *_, g in SUBS})
+    assert sum(s.name == "wave.admit" for s in spans) == len(packs) + groups
+    for i in packs:
+        a, p = spans[i - 1], spans[i]
+        assert (a.name, a.attrs, a.depth) == \
+            ("wave.admit", {"wave": p.attrs["wave"]}, p.depth)
+        assert a.end <= p.start
+    dispatches = [s for s in spans if s.name == "wave.dispatch"]
+    calls = [s for s in spans if s.name == "flash_attention"]
+    dc = model.dc
+    assert len(calls) == len(dispatches) * dc.num_layers * \
+        dc.sample_timesteps
+    for c in calls:
+        assert sum(d.start < c.start and c.end < d.end
+                   and c.depth == d.depth + 1 for d in dispatches) == 1
+    assert "wave.device" not in {s.name for s in spans}
     assert {k: sorted(v) for k, v in traced.lifecycle.items()} == \
         {k: sorted(v) for k, v in jtraced.lifecycle.items()}
     for rid, st in traced.lifecycle.items():
