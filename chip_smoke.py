@@ -6,11 +6,12 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
-  1. card check, build of every kernel (nvcc for the six CUDA sources
+  1. card check, build of every kernel (nvcc for the seven CUDA sources
      and the empty kernel of the launch floors, all started together),
      with the build seconds and ptxas's report (neither the tensor-core
      flash kernel nor any of the CUDA-core flash kernel's 14 instances nor
-     any of cfg_fuse.cu's six may spill), then each kernel's first launch;
+     any of cfg_fuse.cu's six nor moe.cu's three may spill), then each
+     kernel's first launch;
   2. each kernel against its plain PyTorch version at the main path's
      shapes and at edge shapes, with kernel (per call and on the device),
      plain and library times (per call and, where there is a library
@@ -24,7 +25,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      attention also through the CUDA-core kernel it replaced; the
      CUDA-core kernel at the DiT's 224-px length (4, 3137, 4, 32) beside
      SDPA and its launch floor, at its tile edges in every mode, and its
-     instances (registers, shared bytes, blocks an SM);
+     instances (registers, shared bytes, blocks an SM); the MoE's compact
+     expert pass (up, down, combine) at olmoe-prefill-docs's wave beside
+     ``torch._grouped_mm``;
   3. the DiT at the paper preset's full width (d_model 144, 4 layers,
      4 heads, patch 4, 512-d conditioning, 16 px, batch 256) on
      ``init_dit``'s weights from key 1 perturbed 0.05·normal: kernel path
@@ -110,8 +113,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          same tokens both rounds, 16 flash launches a prefill, all on the
          tensor cores, none in decode; the tokens each expert received),
          a traced prefill (the MoE's and the flash kernel's shares of
-         device time) and decode step (its launches); then the same
-         weights in fp32, one 2048-token request kernel route against
+         device time) and decode step (its launches), the compact MoE
+         kernels' launches (one each a MoE layer pass) and one MoE layer
+         compact against padded on 32,768, 8,192 and 16 tokens; then the
+         same weights in fp32, one 2048-token request kernel route against
          plain route (logits gated, tokens and expert sets compared);
      8e. phi3.5-moe at full width and 4 of its 32 layers: 4 × 1024
          prompts, 16 new tokens, served twice;
@@ -123,8 +128,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          layers (7 Mamba, 1 attention, 4 MoE and 4 dense FFNs) and 8 of
          its 16 experts, bf16, ``init_lm`` from key 28 on the card: two
          rounds of 2 × 2048 and 8 × 256 prompts (16 new tokens; one
-         tensor-core flash launch a prefill, 0 expert drops), a traced
-         decode step, and layer 0's Mamba mixer in fp32, card against CPU;
+         tensor-core flash launch a prefill, 0 expert drops), the compact
+         MoE kernels' launches and one MoE layer compact against padded on
+         4,096 and 2 tokens, a traced decode step, and layer 0's Mamba
+         mixer in fp32, card against CPU;
      8h. xlstm-125m at full width and depth (12 blocks of mLSTM and
          sLSTM), bf16, key 29: two rounds of 4 × 1024 and 16 × 256
          prompts (32 new tokens, no flash launch), a traced decode step,
@@ -761,6 +768,56 @@ class RouteLog:
         self.mod.route = self.route
 
 
+def moe_launches() -> dict:
+    """The compact MoE pass's kernel launch counters (``kernels/moe``)."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    return {n: getattr(moe_ops, n).launches
+            for n in ("expert_up", "expert_down", "combine")}
+
+
+def check_moe_launches(tag: str, before: dict, passes: int) -> dict:
+    """Each compact-pass kernel launched once a MoE layer pass since
+    ``before``: ``passes`` (the route calls a ``RouteLog`` saw)."""
+    got = {n: v - before[n] for n, v in moe_launches().items()}
+    say(f"[{tag}] compact MoE kernel launches {got} over {passes} MoE layer "
+        f"passes")
+    check(all(v == passes for v in got.values()) and passes > 0,
+          f"{tag}: compact MoE launches {got}, want {passes} each")
+    return got
+
+
+def compact_vs_padded(tag: str, cfg, moe, tokens: int, dev, smi: str,
+                      seed: int) -> dict:
+    """One MoE layer of ``cfg`` (the served weights ``moe``) in bf16 on
+    ``tokens`` random rows: the compact pass against the padded pass on one
+    routing (within two bf16 ulps of the largest value), and each pass's
+    milliseconds."""
+    from repro_torch.models import moe as moe_mod
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((tokens, cfg.d_model), generator=g,
+                    device=dev).bfloat16()
+    m = cfg.moe
+    cap = moe_mod.capacity(tokens, m)
+    with torch.inference_mode():
+        gates, idx, _ = moe_mod.route(moe.w_router, x, m)
+        args = (moe, cfg, x, 0, m.num_experts, cap, gates, idx)
+        got = moe_mod.compact_pass(*args)
+        want = moe_mod.padded_pass(*args)
+        compact_ms = cuda_ms(lambda: moe_mod.compact_pass(*args), iters=10,
+                             warmup=2)
+        padded_ms = cuda_ms(lambda: moe_mod.padded_pass(*args), iters=10,
+                            warmup=2)
+    err, scale = max_err(got, want), float(want.float().abs().max())
+    res = dict(tokens=tokens, max_abs_err=err, max_abs_y=scale,
+               compact_ms=compact_ms, padded_ms=padded_ms)
+    say(f"[{tag}] MoE layer on {tokens} tokens, compact pass vs padded "
+        f"pass: max|Δ| {err:.3g} at max|y| {scale:.3g}; {compact_ms:.3f} ms "
+        f"against {padded_ms:.3f} ms ({smi})")
+    check(scale > 1e-3 and err <= 2.0 ** -6 * scale,
+          f"{tag}: compact vs padded MoE pass {res}")
+    return res
+
+
 def attention_layers(cfg) -> int:
     """The layers of ``cfg`` whose mixer is attention: one flash launch
     each a prefill (jamba 1 a period, xLSTM none)."""
@@ -1064,7 +1121,8 @@ def phase_8d(dev, fns, smi: str) -> dict:
     one traced wave-A prefill (the MoE's and the flash kernel's shares of
     device time) and decode step (its launches); then the same weights in
     fp32 (kernel route against plain route on one 2048-token request).
-    Returns the tensor-core flash launches of round 1."""
+    Returns the tensor-core flash launches of round 1 and the compact MoE
+    kernels' launches of both rounds."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import BUILD_DIR
     from repro_torch.models.moe import Parallel
@@ -1075,8 +1133,13 @@ def phase_8d(dev, fns, smi: str) -> dict:
     waves = {"A": [rng.integers(0, cfg.vocab_size, 2048) for _ in range(4)],
              "B": [rng.integers(0, cfg.vocab_size, 256) for _ in range(16)]}
     budget = {"A": 32, "B": 32}
+    before = moe_launches()
     with RouteLog() as log:
         rounds, eng = serve_twice("8d", cfg, lm, waves, budget, fns, smi, log)
+    launches = check_moe_launches("8d", before, len(log.calls))
+    # olmoe-prefill-docs's wave (8 × 4096), wave A, a decode step of wave B
+    moe_passes = [compact_vs_padded("8d", cfg, lm.layers[0].moe, n, dev, smi,
+                                    25) for n in (8 * 4096, 4 * 2048, 16)]
     par = Parallel(prefill_last_only=True)
     toks = torch.as_tensor(np.stack(waves["A"]), device=dev)
     with annotated_moe(), torch.inference_mode():
@@ -1100,7 +1163,9 @@ def phase_8d(dev, fns, smi: str) -> dict:
     say(json.dumps({"olmoe_serving": {
         "model": cfg.name, "dtype": "bfloat16", **init,
         "rounds": rounds, "prefill_trace_wave_A": trace_pre,
-        "decode_step_trace_wave_A": trace_dec, "card": smi}}))
+        "decode_step_trace_wave_A": trace_dec,
+        "compact_moe_launches": launches, "moe_layer_passes": moe_passes,
+        "card": smi}}))
     # the same weights in fp32 (bf16 values are exact in fp32)
     cfg32 = cfg.replace(dtype="float32")
     lm32 = LM(cfg32, device=dev)
@@ -1111,7 +1176,7 @@ def phase_8d(dev, fns, smi: str) -> dict:
     del lm32
     torch.cuda.empty_cache()
     return sum(w["prefill_flash_launches_tensor_core"]
-               for w in rounds[0]["waves"])
+               for w in rounds[0]["waves"]), launches
 
 
 def phase_8e(dev, fns, smi: str) -> None:
@@ -1204,8 +1269,14 @@ def phase_8g(dev, fns, smi: str) -> int:
     waves = {"A": [rng.integers(0, cfg.vocab_size, 2048) for _ in range(2)],
              "B": [rng.integers(0, cfg.vocab_size, 256) for _ in range(8)]}
     budget = {"A": 16, "B": 16}
+    before = moe_launches()
     with RouteLog() as log:
         rounds, eng = serve_twice("8g", cfg, lm, waves, budget, fns, smi, log)
+    launches = check_moe_launches("8g", before, len(log.calls))
+    moe_layer = next(layer.moe for layer in lm.layers
+                     if getattr(layer, "moe", None) is not None)
+    moe_passes = [compact_vs_padded("8g", cfg, moe_layer, n, dev, smi, 28)
+                  for n in (2 * 2048, 2)]
     dropped = [w["expert_tokens"]["dropped"] for r in rounds
                for w in r["waves"]]
     check(dropped == [0] * len(dropped), f"8g: expert drops {dropped}")
@@ -1259,6 +1330,7 @@ def phase_8g(dev, fns, smi: str) -> int:
         "model": cfg.name, "layers": cfg.num_layers,
         "experts": cfg.moe.num_experts, "dtype": "bfloat16", **init,
         "rounds": rounds, "decode_step_trace_wave_A": trace_dec,
+        "compact_moe_launches": launches, "moe_layer_passes": moe_passes,
         "mamba_fp32_card_vs_cpu": dict(max_abs_err=mamba_err,
                                        max_abs_y=scale, tol=mamba_tol),
         "card": smi}}))
@@ -2040,6 +2112,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe import kernel as moe_kernel
     from repro_torch.kernels.rmsnorm import kernel as rn_kernel
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm import ref as rn_ref
@@ -2087,7 +2160,7 @@ def main() -> int:
     # one nvcc per CUDA source, all started together
     sources = (fa_kernel.SOURCE, fa_kernel.TC_SOURCE, fa_kernel.SHORT_SOURCE,
                an_kernel.SOURCE, rn_kernel.SOURCE, cfg_kernel.SOURCE,
-               EMPTY_SOURCE)
+               moe_kernel.SOURCE, EMPTY_SOURCE)
     t0 = time.perf_counter()
     nvcc_s = compile_all(sources)
     t_nvcc = time.perf_counter() - t0
@@ -2097,9 +2170,11 @@ def main() -> int:
     an_kernel.build()
     rn_kernel.build()
     cfg_kernel.build()
+    moe_kernel.build()
     for src in sources:
         log = build_log(src)
-        if src in (fa_kernel.TC_SOURCE, cfg_kernel.SOURCE, EMPTY_SOURCE):
+        if src in (fa_kernel.TC_SOURCE, cfg_kernel.SOURCE, moe_kernel.SOURCE,
+                   EMPTY_SOURCE):
             for line in log.splitlines():
                 if any(w in line for w in ("registers", "spill", "Compiling",
                                            "arning", "Performance Loss")):
@@ -2127,6 +2202,14 @@ def main() -> int:
     # the six instances: scalar, rowwise and mixed, z from memory and keyed
     check(len(cfg_spills) == 6 and all(a == b == "0" for a, b in cfg_spills),
           f"cfg_fuse.cu spills: {cfg_spills}")
+    moe_log = build_log(moe_kernel.SOURCE)
+    moe_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", moe_log)
+    # two grouped GEMM epilogues and the combine
+    check(len(moe_spills) == 3 and all(a == b == "0" for a, b in moe_spills),
+          f"moe.cu spills: {moe_spills}")
+    check("Performance Loss" not in moe_log, "ptxas serialised the wgmma "
+          "instructions of moe.cu")
     cc_instances = ptxas_instances(build_log(fa_kernel.SOURCE),
                                    r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E")
     check(len(cc_instances) == 2 * len(fa_kernel.CUDA_CORE_TILES)
@@ -2144,7 +2227,7 @@ def main() -> int:
     rn_ops.rmsnorm(small, randn(8))
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    say(f"[1] build: nvcc {t_nvcc:.2f} s for all seven sources together ("
+    say(f"[1] build: nvcc {t_nvcc:.2f} s for all eight sources together ("
         + ", ".join(f"{src.name} {sec:.2f} s" for src, sec in nvcc_s.items())
         + f"; flash_attention_tc 4 instances, flash_attention "
         f"{len(cc_instances)} and cfg_fuse {len(cfg_spills)}, 0 spill "
@@ -2829,6 +2912,111 @@ def main() -> int:
                               "blocks", "shared_bytes"), geo)),
            instances=cc_instances)
     del q, k, v, long_qkv
+
+    # the MoE's compact expert pass at olmoe-prefill-docs's wave (T 32,768,
+    # 64 experts top-8, d 2048, fe 1024, capacity 16,384) in bf16 on one
+    # random routing, weights and rows from a generator of their own.  The
+    # kernels' rows against the plain versions (two bf16 ulps of the largest
+    # value: the card's bf16 matmuls sum in another order), the combine bit
+    # for bit.  The bounds count the kept rows only (the tile's pad rows are
+    # waste): operations at the bf16 peak for the products, bytes for the
+    # combine.  The library column is torch._grouped_mm over the same rows
+    # (a yardstick only; the port's path never calls it): the down product
+    # as it is, and for the up kernel its two products alone, on rows
+    # gathered beforehand, without the activation
+    from repro_torch.configs import get_config as lm_config
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.kernels.moe import ref as moe_ref
+    from repro_torch.kernels.moe.kernel import BM as MOE_BM
+    from repro_torch.models import moe as moe_mod
+    ocfg = lm_config("olmoe-1b-7b")
+    om = ocfg.moe
+    T_o, d_o, fe_o = 8 * 4096, ocfg.d_model, om.d_ff_expert
+    g31 = torch.Generator(dev).manual_seed(31)
+
+    def draw31(*shape):
+        return (torch.randn(shape, generator=g31, device=dev)
+                / shape[-2] ** 0.5).bfloat16()
+    w_up, w_gate = draw31(om.num_experts, d_o, fe_o), draw31(
+        om.num_experts, d_o, fe_o)
+    w_down, w_rt = draw31(om.num_experts, fe_o, d_o), draw31(
+        d_o, om.num_experts)
+    xo = torch.randn((T_o, d_o), generator=g31, device=dev).bfloat16()
+    with torch.inference_mode():
+        o_gates, o_idx, _ = moe_mod.route(w_rt, xo, om)
+        oc = moe_mod.compact_dispatch(o_gates, o_idx, om.num_experts,
+                                      moe_mod.capacity(T_o, om))
+        up_args = (xo, oc.rows, oc.tile_start, w_up, w_gate, "silu",
+                   oc.group_div, oc.tiles_max)
+        dn_args = (oc.tile_start, w_down, oc.group_div, oc.tiles_max)
+        h_o = moe_ops.expert_up(*up_args)
+        h_ref = moe_ref.expert_up(*up_args)
+        y_o = moe_ops.expert_down(h_o, *dn_args)
+        y_ref = moe_ref.expert_down(h_o, *dn_args)
+        out_o = moe_ops.combine(y_o, oc.pair_rows, oc.pair_gates)
+        out_ref = moe_ref.combine(y_o, oc.pair_rows, oc.pair_gates)
+        kept = int((oc.rows >= 0).sum())
+        live = int(oc.tile_start[-1]) * MOE_BM
+        ends = (oc.tile_start[1:] * MOE_BM).to(torch.int32)
+        x_rows = xo[oc.rows.long().clamp(min=0)]
+    moe_checks = {}
+    for name, got, want in (("up", h_o, h_ref), ("down", y_o, y_ref)):
+        scale = float(want[:live].float().abs().max())
+        check(scale > 1e-3, f"moe {name}: vacuous rows")
+        moe_checks[name] = dict(
+            mode=name, shape=[T_o, om.num_experts, om.top_k, d_o, fe_o],
+            kept_rows=kept, computed_rows=live,
+            max_abs_err=max_err(got[:live], want[:live]), max_abs_y=scale,
+            tol=2.0 ** -6 * scale)
+    check(torch.equal(out_o, out_ref), "moe combine: not bit-equal to the "
+          "plain gather-add")
+    del h_ref, y_ref, out_ref
+    moe_shape = [T_o, om.num_experts, om.top_k, d_o, fe_o]
+
+    def moe_inf(fn):
+        def call():
+            with torch.inference_mode():
+                return fn()
+        return call
+    record("moe_expert_up", "cuda",
+           "src/repro_torch/kernels/moe/csrc/moe.cu", None,
+           moe_checks["up"]["tol"], [moe_checks["up"]],
+           moe_inf(lambda: moe_ops.expert_up(*up_args)),
+           moe_inf(lambda: moe_ref.expert_up(*up_args)), None,
+           2 * (kept * d_o + 2 * om.num_experts * d_o * fe_o + kept * fe_o),
+           2 * 2 * kept * d_o * fe_o, moe_shape, peak=BF16_FLOPS, iters=10,
+           mode="up and gate products, silu, product (olmoe-prefill-docs's "
+                "wave), grouped wgmma kernel, rows gathered on the chip",
+           grouped_mm_two_products_ms=cuda_ms(moe_inf(lambda: (
+               torch._grouped_mm(x_rows, w_up, offs=ends),
+               torch._grouped_mm(x_rows, w_gate, offs=ends))), 10),
+           kept_rows=kept, computed_rows=live)
+    record("moe_expert_down", "cuda",
+           "src/repro_torch/kernels/moe/csrc/moe.cu", None,
+           moe_checks["down"]["tol"], [moe_checks["down"]],
+           moe_inf(lambda: moe_ops.expert_down(h_o, *dn_args)),
+           moe_inf(lambda: moe_ref.expert_down(h_o, *dn_args)),
+           moe_inf(lambda: torch._grouped_mm(h_o, w_down, offs=ends)),
+           2 * (kept * fe_o + om.num_experts * fe_o * d_o + kept * d_o),
+           2 * kept * fe_o * d_o, moe_shape, peak=BF16_FLOPS, iters=10,
+           mode="down product (olmoe-prefill-docs's wave), grouped wgmma "
+                "kernel",
+           library_call="torch._grouped_mm, offs at the groups' tile ends",
+           kept_rows=kept, computed_rows=live)
+    record("moe_combine", "cuda",
+           "src/repro_torch/kernels/moe/csrc/moe.cu", None, 0.0,
+           [dict(mode="combine", shape=moe_shape, max_abs_err=0.0,
+                 bit_equal=True)],
+           moe_inf(lambda: moe_ops.combine(y_o, oc.pair_rows,
+                                           oc.pair_gates)),
+           moe_inf(lambda: moe_ref.combine(y_o, oc.pair_rows,
+                                           oc.pair_gates)), None,
+           2 * kept * d_o + 2 * T_o * d_o + 8 * T_o * om.top_k,
+           2 * kept * d_o, moe_shape, peak=BF16_FLOPS, iters=10,
+           mode="weighted sum of each token's rows in ascending expert order "
+                "(olmoe-prefill-docs's wave), one launch",
+           kept_rows=kept)
+    del xo, h_o, y_o, out_o, x_rows, w_up, w_gate, w_down, oc
 
     # -- 3. the DiT at full width --------------------------------------------
     dc = DiffusionConfig(d_model=144, num_layers=4, num_heads=4, patch=4,
@@ -4262,7 +4450,10 @@ def main() -> int:
 
     # -- 8d-8f. MoE FFNs and the dense decoder configs -----------------------
     t8 = time.perf_counter()
-    kernels["flash_attention_lm_olmoe"]["launches"] = phase_8d(dev, fns, smi)
+    kernels["flash_attention_lm_olmoe"]["launches"], moe_n = phase_8d(
+        dev, fns, smi)
+    for name in moe_n:
+        kernels[f"moe_{name}"]["launches"] = moe_n[name]
     phase_8e(dev, fns, smi)
     phase_8f(dev, fns, smi)
     say(f"[8d-8f] MoE and dense decoder configs: "

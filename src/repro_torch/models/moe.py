@@ -11,15 +11,30 @@ loss E·Σ f·P.  Each expert takes its first ``capacity`` selected tokens in
 token order and drops the rest; ``capacity = max(1, cdiv(T·k, E)·4)`` with
 T = B·S, the reference's dense path.
 
-The expert pass runs every expert on its ``capacity`` rows at once
-(``bmm`` over experts, the weights in the reference's (E, in, out) layout);
-a row past an expert's selected tokens reads a zero row of x and adds 0.
-The index lists are built on the device (a ``cumsum`` rank per expert), so
-a layer makes no host sync.  The combine keeps the reference's arithmetic:
-``out`` in the activation dtype takes each expert's rows in expert order,
-one rounding an add; here each token adds its (at most k) expert rows in
-ascending expert order, which is the same sequence of adds for every
-token, in k launches instead of E.
+Two expert passes, chosen by what the call can observe (``compact_route``):
+
+* **compact** (x on a CUDA card in bf16, autograd not recording: serving):
+  ``compact_dispatch`` lays out only the kept pairs,
+  each (expert, shard) group's rows in token order from a multiple of the
+  128-row tile (a stable counting sort of the T·k pairs: no (T, E) one-hot,
+  no host sync); ``kernels/moe`` runs the up and gate products with the
+  activation (its rows of x gathered on the chip) and the down product over
+  those row tiles only, a persistent wgmma kernel each, then one combine
+  launch;
+* **padded** (CPU tensors, fp32 on the card, training): every expert on its
+  ``capacity`` rows at once (``bmm`` over experts, the weights in the
+  reference's (E, in, out) layout); a row past an expert's selected tokens
+  reads a zero row of x and adds 0.  Its index lists are built on the
+  device too (a ``cumsum`` rank per expert).
+
+Both keep the drop set and round where the reference rounds: each expert
+product, the activation and the gated product in the activation dtype.  The
+combine keeps the reference's arithmetic: ``out`` in the activation dtype
+takes each expert's rows in expert order, one rounding an add; here each
+token adds its (at most k) expert rows in ascending expert order, which is
+the same sequence of adds for every token.  On the compact path a row's
+bits depend only on that row and its expert (no split-K), so ``moe_ep``
+equals ``moe_dense`` on one card wherever both keep the same pairs.
 
 The expert-parallel path ``moe_ep`` is the reference's ``shard_map`` on
 the port's single-controller mesh (``launch/mesh.py``): one process loops
@@ -37,14 +52,15 @@ ascending order, and ``aux`` is the mean over the data shards.
 
 Under an enabled current tracer (``obs/trace.py``) ``moe_dense`` is a
 ``moe`` span, and ``route`` and every local expert pass open ``moe.route``,
-``moe.dispatch`` (the index lists and the gather of the experts' rows),
-``moe.experts`` (the three ``bmm`` and the activation) and
-``moe.combine`` (weighting, sort, gather and sum).  ``moe.dispatch``
-carries ``pairs``, the (token, expert) pairs routed to the pass's experts;
-``expert_rows``, the rows its experts compute (E_loc·D·cap); and
-``dropped``, the pairs past their expert's capacity, a 0-d tensor on the
-device (no host sync), as is ``pairs`` in a pass over some of the
-experts.
+``moe.dispatch`` (the index lists, and on the padded path the gather of the
+experts' rows), ``moe.experts`` (the products and the activation; attribute
+``path``, ``"compact"`` or ``"padded"``) and ``moe.combine`` (weighting and
+sum).  ``moe.dispatch`` carries ``pairs``, the (token, expert) pairs routed
+to the pass's experts; ``expert_rows``, the rows its experts compute (the
+kept rows rounded up to the row tile on the compact path, a 0-d tensor on
+the device; E_loc·D·cap on the padded one); and ``dropped``, the pairs past
+their expert's capacity, a 0-d tensor on the device (no host sync), as is
+``pairs`` in a pass over some of the experts.
 """
 from __future__ import annotations
 
@@ -57,6 +73,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.kernels.moe import ops as moe_ops
+from repro_torch.kernels.moe.kernel import BM
 from repro_torch.obs.trace import current
 
 
@@ -208,6 +226,101 @@ def dispatch(gates, idx, num_experts: int, cap: int, e_start: int = 0,
             slot.reshape(D * T, E_loc))
 
 
+@dataclass(frozen=True)
+class Compact:
+    """The compact layout of one expert pass.
+
+    ``rows`` (tiles_max·BM,) int32: the row of x (token i·T + t of shard i)
+    each compact row computes, -1 past its group's kept rows;
+    ``tile_start`` (G + 1,) int32: group g owns row tiles
+    [tile_start[g], tile_start[g + 1]), groups in (expert, shard) order;
+    ``pair_rows`` (D·T, k) int32: each token's compact rows in ascending
+    expert order, -1 for a pair its expert dropped or that another pass
+    owns; ``pair_gates`` (D·T, k) fp32: their gates, in the same order;
+    ``group_div``: D, the groups of one expert; ``tiles_max``: the row
+    tiles' upper bound, a host number from shapes alone.  ``selected`` (the
+    pairs the pass's experts were chosen for, a bool tensor) and ``kept``
+    (G,) feed ``counts``."""
+    rows: torch.Tensor
+    tile_start: torch.Tensor
+    pair_rows: torch.Tensor
+    pair_gates: torch.Tensor
+    group_div: int
+    tiles_max: int
+    pairs: object
+    selected: torch.Tensor
+    kept: torch.Tensor
+
+    def counts(self) -> dict:
+        """The ``moe.dispatch`` span's counts: ``pairs`` routed to the
+        pass's experts, ``expert_rows`` computed (the kept rows rounded up to
+        the tile) and ``dropped``, device tensors where they need the
+        device (computed only when asked: the span is off by default)."""
+        return {"pairs": self.pairs,
+                "expert_rows": self.tile_start[-1] * BM,
+                "dropped": self.selected.sum() - self.kept.sum()}
+
+
+def tiles_bound(D: int, T: int, k: int, E_loc: int, cap: int) -> int:
+    """The most row tiles D shards of T tokens can fill on E_loc experts
+    of ``cap`` rows: Σ_g cdiv(kept_g, BM) ≤ (Σ_g kept_g + G·(BM − 1)) / BM,
+    Σ_g kept_g ≤ min(D·T·min(k, E_loc), G·cap)."""
+    G = D * E_loc
+    kept = min(D * T * min(k, E_loc), G * cap)
+    return min(G * -(-cap // BM), (kept + G * (BM - 1)) // BM)
+
+
+def compact_dispatch(gates, idx, num_experts: int, cap: int,
+                     e_start: int = 0, E_loc: Optional[int] = None) -> Compact:
+    """``dispatch``'s drop set in a compact layout, for the kernels of
+    ``kernels/moe`` (PyTorch glue over the T·k pairs, no host sync).  Each
+    of the experts ``e_start .. e_start + E_loc - 1`` takes its first
+    ``cap`` selected tokens of each shard in token order, as there;
+    ``gates`` and ``idx`` are (T, k) or (D, T, k).  A stable counting sort
+    over the pairs: a histogram of the G = E_loc·D groups, an exclusive
+    scan of the kept rows rounded up to ``BM``, each pair's rank in token
+    order within its group (a stable sort of the pairs by group)."""
+    k, T = idx.shape[-1], idx.shape[-2]
+    D = idx.numel() // (T * k)
+    E_loc = num_experts if E_loc is None else E_loc
+    G, P, dev = E_loc * D, D * T * k, idx.device
+    loc = idx.reshape(D, T, k)
+    if e_start:
+        loc = loc - e_start
+    sel = gates.reshape(D, T, k) > 0
+    pairs = idx.numel()
+    if e_start != 0 or E_loc != num_experts:
+        here = (loc >= 0) & (loc < E_loc)
+        sel = sel & here
+        pairs = here.sum()
+    if D > 1:
+        loc = loc * D + torch.arange(D, device=dev).view(D, 1, 1)
+    gid = torch.where(sel, loc, G).reshape(-1)
+    sorted_gid, order = torch.sort(gid, stable=True)
+    counts = torch.zeros(G + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, gid, torch.ones_like(gid))
+    first = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(P, device=dev)
+    rank = torch.empty_like(gid).scatter_(0, order, pos - first[sorted_gid])
+    keep = sel.reshape(-1) & (rank < cap)
+    kept = counts[:G].clamp(max=cap)
+    tile_start = F.pad(torch.cumsum((kept + BM - 1) // BM, 0,
+                                    dtype=torch.int32), (1, 0))
+    row = torch.where(keep, tile_start[gid.clamp(max=G - 1)] * BM + rank, -1)
+    tiles_max = tiles_bound(D, T, k, E_loc, cap)
+    R = tiles_max * BM
+    # the dropped pairs all land on the spare entry R, which is cut off
+    rows = torch.full((R + 1,), -1, dtype=torch.int32, device=dev).scatter_(
+        0, torch.where(keep, row, R), (pos // k).to(torch.int32))[:R]
+    ranked = torch.sort(idx.reshape(-1, k), dim=-1, stable=True).indices
+    return Compact(
+        rows=rows, tile_start=tile_start,
+        pair_rows=row.view(-1, k).gather(1, ranked).to(torch.int32),
+        pair_gates=gates.reshape(-1, k).gather(1, ranked).float(),
+        group_div=D, tiles_max=tiles_max, pairs=pairs, selected=sel,
+        kept=kept)
+
+
 def dropped_pairs(gates, idx, num_experts: int, cap: int):
     """(..., T, E) bool: the (token, expert) pairs the router chose that
     their expert drops, being past its first ``cap`` selected tokens (of
@@ -235,13 +348,61 @@ def expert_ffn(xe, up, down, gate, act: str):
     return torch.bmm(h, down.to(dt))
 
 
+def compact_route(params: MoE, x_flat) -> bool:
+    """Whether ``local_expert_pass`` takes the compact path, from what the
+    call can observe: x on a CUDA card in bf16, autograd not recording
+    (no input needs a gradient, or none is taken).  CPU tensors, fp32 on
+    the card and training keep the padded ``bmm`` path; the kernels refuse
+    what else they do not take (``kernels/moe/ops.py``)."""
+    if x_flat.device.type != "cuda" or x_flat.dtype != torch.bfloat16:
+        return False
+    ws = [w for w in (params.experts_up, params.experts_gate,
+                      params.experts_down) if w is not None]
+    return not (torch.is_grad_enabled()
+                and (x_flat.requires_grad
+                     or any(w.requires_grad for w in ws)))
+
+
 def local_expert_pass(params: MoE, cfg: ModelConfig, x_flat, e_start: int,
                       E_loc: int, cap: int, gates, idx):
     """Gather → FFN → combine for the ``E_loc`` experts from global id
     ``e_start``, their slabs taken from ``params`` onto x's device:
     (rows, d) in x's dtype, 0 for a token none of them takes.  ``x_flat``
     is (T, d), or (D·T, d) for ``gates`` and ``idx`` of D shards (D, T, k)
-    (``dispatch``)."""
+    (``dispatch``).  ``compact_pass`` where ``compact_route`` holds, else
+    ``padded_pass``."""
+    fn = compact_pass if compact_route(params, x_flat) else padded_pass
+    return fn(params, cfg, x_flat, e_start, E_loc, cap, gates, idx)
+
+
+def compact_pass(params: MoE, cfg: ModelConfig, x_flat, e_start: int,
+                 E_loc: int, cap: int, gates, idx):
+    """``local_expert_pass`` over the kept rows only (``kernels/moe``): on
+    the card the kernels, on the CPU their plain versions."""
+    m = cfg.moe
+    tr = current()
+    slab = lambda w: (None if w is None else
+                      w[e_start:e_start + E_loc].to(x_flat.device,
+                                                    x_flat.dtype))
+    with tr.span("moe.dispatch") as sp:
+        c = compact_dispatch(gates, idx, m.num_experts, cap, e_start, E_loc)
+        if tr.enabled:
+            sp.set(**c.counts())
+    with tr.span("moe.experts", path="compact"):
+        h = moe_ops.expert_up(x_flat, c.rows, c.tile_start,
+                              slab(params.experts_up),
+                              slab(params.experts_gate), cfg.mlp_act,
+                              c.group_div, c.tiles_max)
+        y = moe_ops.expert_down(h, c.tile_start, slab(params.experts_down),
+                                c.group_div, c.tiles_max)
+    with tr.span("moe.combine"):
+        return moe_ops.combine(y, c.pair_rows, c.pair_gates)
+
+
+def padded_pass(params: MoE, cfg: ModelConfig, x_flat, e_start: int,
+                E_loc: int, cap: int, gates, idx):
+    """``local_expert_pass`` with every expert on its ``cap`` rows of each
+    shard (``dispatch``, ``expert_ffn``, ``padded_combine``)."""
     m = cfg.moe
     d = x_flat.shape[1]
     dev = x_flat.device
@@ -256,28 +417,35 @@ def local_expert_pass(params: MoE, cfg: ModelConfig, x_flat, e_start: int,
         # Pad x with a zero row; the fill index points at it.
         x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))])
         xe = x_pad[tok]
-    with tr.span("moe.experts"):
+    with tr.span("moe.experts", path="padded"):
         slab = lambda w: (None if w is None else
                           w[e_start:e_start + E_loc].to(dev))
         y = expert_ffn(xe, slab(params.experts_up),
                        slab(params.experts_down), slab(params.experts_gate),
                        cfg.mlp_act)
     with tr.span("moe.combine"):
-        y = y * wgt[..., None].to(y.dtype)
-        # each token's rows in ascending expert order; an expert of another
-        # shard, like the spare row, adds 0
-        y_pad = torch.cat([y.reshape(n, d), y.new_zeros((1, d))])
-        ranked = torch.sort(idx.reshape(-1, m.top_k), dim=-1).values
-        if E_loc == m.num_experts:      # every expert here: no mask to build
-            rows = slot.gather(1, ranked)
-        else:
-            loc = ranked - e_start
-            here = (loc >= 0) & (loc < E_loc)
-            rows = torch.where(here, slot.gather(1, loc.clamp(0, E_loc - 1)),
-                               n)
-        out = y_pad[rows[:, 0]]
-        for j in range(1, m.top_k):
-            out = out + y_pad[rows[:, j]]
+        return padded_combine(y, wgt, slot, idx, e_start, m.num_experts)
+
+
+def padded_combine(y, wgt, slot, idx, e_start: int, num_experts: int):
+    """The padded path's combine: each token's (at most k) rows of ``y``
+    (E_loc, D·cap, d) weighted by ``wgt`` in y's dtype, summed in
+    ascending expert order, one rounding a product and an add; an expert of
+    another shard, like a dropped pair, adds 0 (the spare row)."""
+    E_loc, n, d = slot.shape[1], wgt.numel(), y.shape[-1]
+    k = idx.shape[-1]
+    y = y * wgt[..., None].to(y.dtype)
+    y_pad = torch.cat([y.reshape(n, d), y.new_zeros((1, d))])
+    ranked = torch.sort(idx.reshape(-1, k), dim=-1).values
+    if E_loc == num_experts:            # every expert here: no mask to build
+        rows = slot.gather(1, ranked)
+    else:
+        loc = ranked - e_start
+        here = (loc >= 0) & (loc < E_loc)
+        rows = torch.where(here, slot.gather(1, loc.clamp(0, E_loc - 1)), n)
+    out = y_pad[rows[:, 0]]
+    for j in range(1, k):
+        out = out + y_pad[rows[:, j]]
     return out
 
 

@@ -1931,3 +1931,297 @@ def test_launcher_on_the_card_matches_the_cpu(dev, name):
     want = 2 * 2 * cfg.num_layers if cfg.moe else 0
     assert moe_mod.moe_ep.calls - calls == want
     assert fa_ops.flash_attention.launches == before
+
+
+# -- the MoE's compact expert pass (kernels/moe) ---------------------------------
+
+def _moe_layout(dev, T, E, k, cap, seed, skew=0.0):
+    """Random router choices for T tokens over E experts (expert 0 leaning
+    by ``skew``) and their compact layout."""
+    from repro_torch.models import moe as moe_mod
+    g = torch.Generator(dev).manual_seed(seed)
+    logits = torch.randn((T, E), generator=g, device=dev)
+    logits[:, 0] += skew
+    vals, idx = torch.sort(torch.softmax(logits, -1), dim=-1,
+                           descending=True, stable=True)
+    gates = vals[:, :k] / vals[:, :k].sum(-1, keepdim=True)
+    idx = idx[:, :k]
+    return gates, idx, moe_mod.compact_dispatch(gates, idx, E, cap)
+
+
+def _moe_weights(dev, E, d, fe, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    draw = lambda *s: (torch.randn(s, generator=g, device=dev,
+                                   dtype=torch.bfloat16) / s[-2] ** 0.5)
+    return draw(E, d, fe), draw(E, d, fe), draw(E, fe, d)
+
+
+def _live_rows(c):
+    from repro_torch.kernels.moe.kernel import BM
+    return int(c.tile_start[-1]) * BM
+
+
+@pytest.mark.parametrize("T,E,k,d,fe", [
+    (32768, 64, 8, 2048, 1024),    # olmoe's prefill wave
+    (2048, 64, 8, 2048, 1024),     # olmoe, 8d's wave A
+    (256, 8, 2, 8192, 24576),      # jamba-1.5-large's experts
+    (64, 64, 8, 2048, 1024),       # olmoe decode, B 64
+    (8, 64, 8, 2048, 1024),        # olmoe decode, B 8
+    (300, 6, 2, 256, 520),         # N not a tile's multiple
+])
+def test_moe_grouped_kernels_match_plain(dev, T, E, k, d, fe):
+    """The up/gate and down kernels against their plain versions on the
+    compact layout of a random routing (capacity 4× the mean): every live
+    row within two bf16 ulps of the largest value (the card's own bf16
+    matmuls sum in another order), the combine bit for bit against the
+    plain combine on the kernel's rows, and one launch each."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.kernels.moe import ref as moe_ref
+    cap = max(1, -(-T * k // E) * 4)
+    gates, idx, c = _moe_layout(dev, T, E, k, cap, seed=T + E)
+    up, gate, down = _moe_weights(dev, E, d, fe, seed=d + fe)
+    x = torch.randn((T, d), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev).bfloat16()
+    n = _live_rows(c)
+    before = (moe_ops.expert_up.launches, moe_ops.expert_down.launches,
+              moe_ops.combine.launches)
+    with torch.inference_mode():
+        h = moe_ops.expert_up(x, c.rows, c.tile_start, up, gate, "silu",
+                              c.group_div, c.tiles_max)
+        h_ref = moe_ref.expert_up(x, c.rows, c.tile_start, up, gate, "silu",
+                                  c.group_div, c.tiles_max)
+        y = moe_ops.expert_down(h, c.tile_start, down, c.group_div,
+                                c.tiles_max)
+        y_ref = moe_ref.expert_down(h, c.tile_start, down, c.group_div,
+                                    c.tiles_max)
+        out = moe_ops.combine(y, c.pair_rows, c.pair_gates)
+        out_ref = moe_ref.combine(y, c.pair_rows, c.pair_gates)
+        torch.cuda.synchronize()
+    for got, want in ((h, h_ref), (y, y_ref)):
+        scale = float(want[:n].float().abs().max())
+        assert scale > 1e-3
+        assert _err(got[:n].float(), want[:n].float()) <= 2.0 ** -6 * scale
+    assert torch.equal(out, out_ref)
+    assert (moe_ops.expert_up.launches, moe_ops.expert_down.launches,
+            moe_ops.combine.launches) == tuple(b + 1 for b in before)
+
+
+def test_moe_grouped_kernels_take_empty_and_ragged_groups(dev):
+    """Top-1 routing by hand: groups of 0, 1, 127, 128, 129, 300, 57 and 3
+    rows (none a multiple of the tile but one) with capacity 200, so the
+    300-row group drops 100: 9 row tiles; the kernels against their plain
+    versions on every live row, the pad rows zero."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.kernels.moe import ref as moe_ref
+    from repro_torch.models import moe as moe_mod
+    sizes = [0, 1, 127, 128, 129, 300, 0, 57, 3]
+    E, d, fe = len(sizes), 256, 512
+    idx = torch.cat([torch.full((s,), e) for e, s in enumerate(sizes)])
+    idx = idx[torch.randperm(idx.numel(),
+                             generator=torch.Generator().manual_seed(5))]
+    idx = idx.to(dev)[:, None]
+    gates = torch.ones(idx.shape, device=dev)
+    c = moe_mod.compact_dispatch(gates, idx, E, 200)
+    kept = [min(s, 200) for s in sizes]
+    assert int(c.counts()["dropped"]) == 100
+    assert c.tile_start.tolist() == [0] + list(np.cumsum(
+        [-(-s // 128) for s in kept]))
+    up, gate, down = _moe_weights(dev, E, d, fe, seed=6)
+    x = torch.randn((idx.shape[0], d), generator=torch.Generator(dev)
+                    .manual_seed(6), device=dev).bfloat16()
+    with torch.inference_mode():
+        h = moe_ops.expert_up(x, c.rows, c.tile_start, up, gate, "silu",
+                              c.group_div, c.tiles_max)
+        y = moe_ops.expert_down(h, c.tile_start, down, c.group_div,
+                                c.tiles_max)
+        y_ref = moe_ref.expert_down(
+            moe_ref.expert_up(x, c.rows, c.tile_start, up, gate, "silu",
+                              c.group_div, c.tiles_max),
+            c.tile_start, down, c.group_div, c.tiles_max)
+    n = _live_rows(c)
+    scale = float(y_ref[:n].float().abs().max())
+    assert _err(y[:n].float(), y_ref[:n].float()) <= 2.0 ** -6 * scale
+    pad = (c.rows[:n] < 0)
+    assert int(pad.sum()) == n - sum(kept)
+    assert not bool(y[:n][pad].any())
+
+
+def test_moe_grouped_kernel_rows_do_not_depend_on_their_group(dev):
+    """A row's output bits depend only on that row and its expert: the
+    same 300 tokens laid out in two groups of one expert in one order, then
+    shuffled among 200 other tokens' rows in another, give each token the
+    same bits in both layouts."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    d, fe, E = 2048, 1024, 4
+    up, gate, down = _moe_weights(dev, E, d, fe, seed=8)
+    x = torch.randn((500, d), generator=torch.Generator(dev).manual_seed(8),
+                    device=dev).bfloat16()
+
+    def run(groups, expert_of_group):
+        """groups: token lists; group g on expert expert_of_group[g] (one
+        group per expert slot, group_div 1, empty groups between)."""
+        per = [[] for _ in range(E)]
+        for g, toks in zip(expert_of_group, groups):
+            per[g] = toks
+        tiles = [-(-len(t) // 128) for t in per]
+        tile_start = torch.tensor([0] + list(np.cumsum(tiles)),
+                                  dtype=torch.int32, device=dev)
+        tmax = int(sum(tiles)) + 1
+        rows = torch.full((tmax * 128,), -1, dtype=torch.int32)
+        where = {}
+        for e, toks in enumerate(per):
+            base = int(tile_start[e]) * 128
+            rows[base:base + len(toks)] = torch.tensor(toks,
+                                                       dtype=torch.int32)
+            where.update({t: base + i for i, t in enumerate(toks)})
+        with torch.inference_mode():
+            h = moe_ops.expert_up(x, rows.to(dev), tile_start, up, gate,
+                                  "silu", 1, tmax)
+            y = moe_ops.expert_down(h, tile_start, down, 1, tmax)
+        return y, where
+
+    y_a, at_a = run([list(range(300))], [2])
+    mixed = torch.randperm(500, generator=torch.Generator()
+                           .manual_seed(9)).tolist()
+    y_b, at_b = run([mixed[:250], mixed[250:]], [2, 0])
+    both = [t for t in mixed[:250] if t < 300]        # on expert 2 twice
+    assert len(both) > 100
+    assert any(at_a[t] % 128 != at_b[t] % 128 for t in both)
+    for t in both:
+        assert torch.equal(y_a[at_a[t]], y_b[at_b[t]])
+
+
+def test_compact_dispatch_on_the_card_keeps_the_padded_drop_set(dev):
+    """``compact_dispatch`` on the card against ``models/moe.py::dispatch``
+    on the card, olmoe's prefill wave with the router leaning to expert 0
+    (so it drops): the same kept (token, expert) pairs at the same ranks,
+    the same drop count."""
+    from repro_torch.models import moe as moe_mod
+    T, E, k = 32768, 64, 8
+    cap = 4 * -(-T * k // E)
+    gates, idx, c = _moe_layout(dev, T, E, k, cap, seed=11, skew=2.5)
+    tok, wgt, slot = moe_mod.dispatch(gates, idx, E, cap)
+    n = tok.numel()
+    kept = slot < n                                      # (T, E)
+    assert int(c.counts()["dropped"]) == int((gates > 0).sum()
+                                             - kept.sum()) > 0
+    # every kept pair: padded slot e·cap + rank against compact row
+    pair_e = torch.sort(idx, -1).values                  # the combine's order
+    rows = c.pair_rows.long()
+    pslot = slot.gather(1, pair_e)
+    assert torch.equal(rows >= 0, pslot < n)
+    ts = c.tile_start.long()
+    e_of = pair_e[rows >= 0]
+    assert torch.equal(rows[rows >= 0] - ts[e_of] * 128,
+                       pslot[rows >= 0] - e_of * cap)
+
+
+def test_moe_compact_pass_matches_the_padded_pass_and_makes_no_sync(dev):
+    """olmoe's MoE layer at full width in bf16 on a 4 × 512 wave: the
+    compact pass (taken by ``moe_dense`` under inference mode, no host
+    sync: ``set_sync_debug_mode("error")``) against the padded pass on the
+    same routing within two bf16 ulps of the largest value; one launch of
+    each kernel; the tracer's ``moe.experts`` span says ``compact``."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.obs.trace import Tracer, using
+    cfg = get_config("olmoe-1b-7b")
+    layer = moe_mod.MoE(cfg, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(dev).manual_seed(12)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                    / p.shape[-2] ** 0.5)
+    x = torch.randn((4, 512, cfg.d_model), generator=g,
+                    device=dev).bfloat16()
+    before = moe_ops.expert_up.launches
+    tr = Tracer(enabled=True)
+    with torch.inference_mode(), using(tr):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _ = moe_mod.moe_dense(layer, cfg, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        flat = x.reshape(-1, cfg.d_model)
+        gates, idx, _ = moe_mod.route(layer.w_router, flat, cfg.moe)
+        cap = moe_mod.capacity(flat.shape[0], cfg.moe)
+        want = moe_mod.padded_pass(layer, cfg, flat, 0, 64, cap, gates, idx)
+    assert moe_ops.expert_up.launches == before + 1
+    paths = [s.attrs["path"] for s in tr.spans if s.name == "moe.experts"]
+    assert paths == ["compact", "padded"]
+    scale = float(want.float().abs().max())
+    assert _err(out.reshape(want.shape).float(), want.float()) \
+        <= 2.0 ** -6 * scale
+
+
+def test_moe_ep_equals_moe_dense_bit_for_bit_on_the_compact_path(dev):
+    """olmoe-smoke's MoE layer in bf16 under inference mode: ``moe_ep`` on
+    a 1×1 mesh of the card at capacity factor 8 and ``moe_dense`` (neither
+    drops) give the same bits, both on the compact path; the training
+    path (autograd recording) and fp32 stay padded."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_mod
+    cfg = _moe_smoke(dev)
+    wide = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    layer = init_lm(prng.PRNGKey(13), cfg, device="cpu").layers[0].moe
+    layer = copy.deepcopy(layer).to(dev, torch.bfloat16)
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator(dev)
+                    .manual_seed(13), device=dev).bfloat16()
+    par = Parallel(model_axis="model", data_axes=("data",),
+                   mesh=make_host_mesh(1, 1, device=dev))
+    before = moe_ops.expert_up.launches
+    with torch.inference_mode():
+        y_ep, _ = moe_mod.moe_apply(layer, wide, x, par)
+        y_dn, _ = moe_mod.moe_dense(layer, cfg, x)
+    assert moe_ops.expert_up.launches == before + 2
+    assert torch.equal(y_ep, y_dn)
+    flat = x.reshape(-1, cfg.d_model)
+    with torch.no_grad():
+        assert moe_mod.compact_route(layer, flat)
+        assert not moe_mod.compact_route(layer, flat.float())
+        assert not moe_mod.compact_route(layer, flat.cpu())
+    assert not moe_mod.compact_route(layer, flat)   # the weights need grads
+
+
+def test_moe_kernels_refuse_what_they_do_not_take(dev):
+    """The wrappers raise on fp32 rows, weights off the card, a width that
+    is not whole 16-byte chunks, mismatched widths, int64 index vectors,
+    an activation other than silu, experts without a gate and a combine
+    of more than 8 experts a token."""
+    from repro_torch.kernels.moe import ops as moe_ops
+    E, d, fe, T = 4, 256, 512, 64
+    gates, idx, c = _moe_layout(dev, T, E, 2, 64, seed=14)
+    up, gate, down = _moe_weights(dev, E, d, fe, seed=14)
+    x = torch.randn((T, d), device=dev).bfloat16()
+    args = (c.rows, c.tile_start)
+    tail = (c.group_div, c.tiles_max)
+    with pytest.raises(NotImplementedError):
+        moe_ops.expert_up(x.float(), *args, up.float(), gate.float(), "silu",
+                          *tail)
+    with pytest.raises(ValueError):
+        moe_ops.expert_up(x, *args, up.cpu(), gate.cpu(), "silu", *tail)
+    with pytest.raises(ValueError):
+        moe_ops.expert_up(x[:, :250], *args, up[:, :250], gate[:, :250],
+                          "silu", *tail)
+    with pytest.raises(ValueError):
+        moe_ops.expert_up(x[:, :128], *args, up, gate, "silu", *tail)
+    with pytest.raises(ValueError):
+        moe_ops.expert_up(x, c.rows.long(), c.tile_start, up, gate, "silu",
+                          *tail)
+    with pytest.raises(NotImplementedError):
+        moe_ops.expert_up(x, *args, up, gate, "gelu", *tail)
+    with pytest.raises(NotImplementedError):
+        moe_ops.expert_up(x, *args, up, None, "silu", *tail)
+    h = torch.zeros((c.tiles_max * 128, fe), device=dev,
+                    dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        moe_ops.expert_down(h, c.tile_start.long(), down, *tail)
+    y = torch.zeros((128, d), device=dev, dtype=torch.bfloat16)
+    rows = torch.zeros((T, 9), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        moe_ops.combine(y, rows, torch.ones(rows.shape, device=dev))
+    with pytest.raises(NotImplementedError):
+        moe_ops.combine(y.float(), rows[:, :2],
+                        torch.ones((T, 2), device=dev))

@@ -265,3 +265,180 @@ def test_prefill_then_decode_matches_the_reference(pair):
         jlg, jc = step(jp, jnp.asarray(t), jc, jnp.int32(P + i))
         assert _err(lg, jlg) < TOL
         assert _err(lg[:, 0], full[:, P + i]) < 5e-4
+
+
+# --- the compact expert pass (compact_dispatch, kernels/moe/ref.py) -------------
+
+from repro_torch.kernels.moe import ref as moe_ref  # noqa: E402
+
+#: (T, E, k, cap, D, e_start, E_loc, skew): plain; heavy drops; D shards;
+#: shards over a slab of experts; a slab below E; most experts empty
+COMPACT_CASES = {
+    "plain": (64, 8, 2, 16, 1, 0, 8, 0.0),
+    "heavy_drops": (48, 16, 3, 2, 1, 0, 16, 3.0),
+    "shards": (40, 8, 2, 10, 3, 0, 8, 1.0),
+    "shards_slab": (40, 8, 2, 10, 2, 4, 4, 1.0),
+    "slab": (64, 16, 2, 5, 1, 6, 5, 0.0),
+    "empty_experts": (16, 32, 1, 4, 1, 0, 32, 0.0),
+    "tile_edges": (300, 2, 1, 260, 1, 0, 2, 0.3),
+}
+
+
+def routed(T, E, k, D, skew, seed=0):
+    """(gates, idx) of D shards of T tokens, top-k of softmax logits with
+    expert 0 leaning by ``skew``; every 7th token's last gate 0 (a pair
+    the router names but the dispatch does not select)."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn((D, T, E), generator=g)
+    logits[..., 0] += skew
+    vals, idx = tmoe.top_k_lower_first(torch.softmax(logits, -1), k)
+    gates = vals / vals.sum(-1, keepdim=True)
+    gates[:, ::7, -1] = 0.0
+    if D == 1:
+        return gates[0], idx[0]
+    return gates, idx
+
+
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_dispatch_keeps_the_padded_drop_set(case):
+    """``compact_dispatch`` against ``dispatch``: the same kept (token,
+    expert) pairs and drop set, each group's rows in token order at the
+    padded path's ranks, the groups' tile offsets the kept rows rounded up
+    to the 128-row tile (within the host's upper bound), and the span's
+    counts."""
+    T, E, k, cap, D, e0, El, skew = COMPACT_CASES[case]
+    gates, idx = routed(T, E, k, D, skew)
+    c = tmoe.compact_dispatch(gates, idx, E, cap, e0, El)
+    tok, wgt, slot = tmoe.dispatch(gates, idx, E, cap, e0, El)
+    n = tok.numel()
+    BM = tmoe.BM
+    # group (e, i) holds expert e's kept tokens of shard i, in token order
+    kept_tok = tok.view(El, D, cap)
+    ts = c.tile_start.tolist()
+    for e in range(El):
+        for i in range(D):
+            g = e * D + i
+            want = kept_tok[e, i][kept_tok[e, i] < D * T].tolist()
+            lo, hi = ts[g] * BM, ts[g + 1] * BM
+            got = c.rows[lo:hi].tolist()
+            assert got[:len(want)] == want, (e, i)
+            assert all(r == -1 for r in got[len(want):])
+            assert ts[g + 1] - ts[g] == -(-len(want) // BM)
+    assert ts[-1] <= c.tiles_max and c.rows.numel() == c.tiles_max * BM
+    assert all(r == -1 for r in c.rows[ts[-1] * BM:].tolist())
+    # each pair's compact row, in ascending expert order, against its slot
+    ranked = torch.sort(idx.reshape(-1, k), dim=-1).values
+    loc = ranked - e0
+    here = (loc >= 0) & (loc < El)
+    pslot = torch.where(here, slot.gather(1, loc.clamp(0, El - 1)), n)
+    rows = c.pair_rows.long()
+    assert torch.equal(rows >= 0, pslot < n)
+    shard = torch.arange(D * T) // T
+    for t, j in (rows >= 0).nonzero().tolist():
+        e, s = int(loc[t, j]), int(pslot[t, j])
+        g = e * D + int(shard[t])
+        assert rows[t, j] - ts[g] * BM == s - e * D * cap - int(shard[t]) * cap
+    chosen = (gates > 0).reshape(-1, k)
+    here_pairs = ((idx >= e0) & (idx < e0 + El)).reshape(-1, k)
+    assert int(c.counts()["dropped"]) == int((chosen & here_pairs).sum()
+                                 - (slot < n).sum())
+    assert int(c.counts()["pairs"]) == int(here_pairs.sum())
+    assert int(c.counts()["expert_rows"]) == ts[-1] * BM
+    if case == "heavy_drops":
+        assert int(c.counts()["dropped"]) > T
+
+
+@pytest.mark.parametrize("variant", ["gated", "non_gated", "shards_slab"])
+def test_compact_pass_matches_the_padded_pass(variant):
+    """``compact_pass`` (the plain versions on the CPU) against
+    ``padded_pass`` in fp32 on one routing: within 2e-6 of the output's
+    largest value (the same products, summed in another grouping of
+    rows)."""
+    cfg = tshapes.smoke_config(get_config("olmoe-1b-7b"))
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=8,
+                                              top_k=3),
+                      gated_mlp=variant != "non_gated",
+                      mlp_act="gelu" if variant == "non_gated" else "silu")
+    mod = tmoe.MoE(cfg)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) / p.shape[-2] ** 0.5)
+    D, e0, El, cap = ((3, 4, 4, 7) if variant == "shards_slab"
+                      else (1, 0, 8, 20))
+    T = 33
+    x = torch.randn((D * T, cfg.d_model), generator=g)
+    gates, idx, _ = tmoe.route(mod.w_router, x.view(D, T, -1)
+                               if D > 1 else x, cfg.moe)
+    with torch.no_grad():
+        got = tmoe.compact_pass(mod, cfg, x, e0, El, cap, gates, idx)
+        want = tmoe.padded_pass(mod, cfg, x, e0, El, cap, gates, idx)
+    scale = float(want.abs().max())
+    assert scale > 0.1
+    assert _err(got, want) <= 2e-6 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("slab", [False, True])
+def test_compact_combine_is_bit_equal_to_the_gather_add(dtype, slab):
+    """Given the same expert rows, ``ref.combine`` on the compact layout
+    and ``padded_combine`` on the padded one give the same bits: the same
+    products, the same adds in ascending expert order, +0 for a dropped
+    pair or an expert of another slab (rows holding -0 and values that
+    cancel included)."""
+    T, E, k, cap = 60, 8, 3, 12
+    e0, El = (2, 4) if slab else (0, E)
+    gates, idx = routed(T, E, k, 1, 1.5, seed=3)
+    c = tmoe.compact_dispatch(gates, idx, E, cap, e0, El)
+    tok, wgt, slot = tmoe.dispatch(gates, idx, E, cap, e0, El)
+    dt = getattr(torch, dtype)
+    d = 16
+    y = torch.randn((c.tiles_max * tmoe.BM, d),
+                    generator=torch.Generator().manual_seed(4)).to(dt)
+    y[::5, ::3] = -0.0
+    y[7] = -0.0
+    # the padded buffer holds, at each kept pair's slot, the same row
+    y_pad = torch.zeros((El, cap, d), dtype=dt)
+    ts = c.tile_start.long()
+    for t in range(T):
+        for e in range(El):
+            s = int(slot[t, e])
+            if s < tok.numel():
+                rank = s - e * cap
+                y_pad[e, rank] = y[int(ts[e]) * tmoe.BM + rank]
+    want = tmoe.padded_combine(y_pad, wgt, slot, idx, e0, E)
+    got = moe_ref.combine(y, c.pair_rows, c.pair_gates)
+    assert got.dtype == want.dtype == dt
+    assert torch.equal(got.view(torch.int32 if dtype == "float32"
+                                else torch.int16),
+                       want.view(torch.int32 if dtype == "float32"
+                                 else torch.int16))
+
+
+def test_compact_pass_spans_say_what_they_compute():
+    """The compact pass's spans on the CPU: ``moe.experts`` with path
+    ``compact``, ``moe.dispatch`` with the kept rows rounded up to the
+    tile as ``expert_rows`` and the drops; the padded pass's with path
+    ``padded`` and E·cap rows."""
+    from repro_torch.obs.trace import Tracer, resolve, using
+    cfg = tshapes.smoke_config(get_config("olmoe-1b-7b"))
+    mod = tmoe.MoE(cfg)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.normal_(0, 0.05)
+    x = torch.randn((40, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(5))
+    gates, idx, _ = tmoe.route(mod.w_router, x, cfg.moe)
+    tr = Tracer(enabled=True)
+    with torch.no_grad(), using(tr):
+        tmoe.compact_pass(mod, cfg, x, 0, 4, 12, gates, idx)
+        tmoe.padded_pass(mod, cfg, x, 0, 4, 12, gates, idx)
+    spans = [(s.name, resolve(s.attrs)) for s in tr.spans]
+    paths = [a["path"] for n, a in spans if n == "moe.experts"]
+    assert paths == ["compact", "padded"]
+    (_, comp), (_, pad) = [(n, a) for n, a in spans if n == "moe.dispatch"]
+    assert comp["pairs"] == pad["pairs"] == 80
+    assert comp["dropped"] == pad["dropped"] > 0
+    assert pad["expert_rows"] == 4 * 12
+    # cap 12 < 128: one tile for each expert that selected a pair
+    assert comp["expert_rows"] == 128 * len(set(idx[gates > 0].tolist()))
