@@ -94,7 +94,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          ``flex_attention`` (the same function, compiled) and SDPA (a
          different one); the tensor-core kernel also at olmoe-1b-7b's
          prefill layer (4, 2048, 16/16, 128) beside ``flex_attention``
-         and SDPA (there the same function);
+         and SDPA (there the same function), and its (192, 128) class at
+         moonlight-16b-a3b's (4, 8192, 16/16, q·k 192, v 128; every batch
+         row gated) beside SDPA;
      8b. ``ServeEngine`` in bf16, two rounds of a wave of 4 × 4608-token
          prompts (32 new tokens each) and a wave of 16 × 512 (64 each),
          with stats and flash launches checked (26 per prefill, all on
@@ -169,6 +171,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          dry run on the meta device (xlstm-125m × decode_32k and
          olmoe-1b-7b × train_4k ``ok``, hubert-xlarge × decode_32k
          ``skip``);
+     8m. moonlight-16b-a3b whole at its published widths (latent
+         attention, sigmoid routing with a selection bias, shared experts,
+         a dense layer 0) in bf16 on the benchmark's seeded weights: 2
+         prompts of 1024 prefilled (27 flash launches, all on the (192,
+         128) class) and 8 decode steps through the padded latent caches,
+         each layer's decoded tokens against its prefill path and the
+         float32 reference, the logits beside the reference's whole
+         forward;
   9. the OSCAR pipeline at phase 4's preset and random DiT:
      ``run_oscar`` twice from one key (D_syn and the global ResNet-18
      bit-identical, synthesis and training seconds apart, training
@@ -2072,6 +2082,152 @@ def phase_8l(dev, fns, smi: str) -> None:
         "card": smi}}))
 
 
+def phase_8m(dev, fns, smi: str) -> int:
+    """8m. moonlight-16b-a3b whole at its published widths (27 layers, d
+    2048, latent attention of 16 heads at q·k 192 and v 128 with a 512-wide
+    latent, 64 experts top-6 on sigmoid scores with a selection bias, 2
+    shared, a dense layer 0 of 11264, vocab 163840), in bf16 on weights
+    drawn from the benchmark's seed by group (``bench/weights.py``,
+    ``bench/references/mla_moe_lm.py``): 2 prompts of 1024 tokens
+    prefilled, their latent caches padded as ``ServeEngine`` pads them, and
+    8 decode steps through the caches (the absorbed form); each layer's
+    decoded tokens held against its prefill path and the float32
+    reference, and the logits printed beside the reference's whole
+    forward.  Returns the prefill's tensor-core flash launches (the
+    kernels line's ``flash_attention_lm_moonlight`` row; its device time
+    is phase 8's)."""
+    from bench import weights
+    from bench.harness import BENCH, load_json
+    from bench.references import mla_moe_lm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models.moe import Parallel
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine
+
+    # the model: 2 prompts prefilled, then decode through the padded caches
+    cfg = get_config("moonlight-16b-a3b")
+    conf = load_json(BENCH / "configs" / "moonlight-16b-a3b.json")
+    seed, P, K, L = 33, 1024, 8, cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev).eval()
+    groups = mla_moe_lm.weight_groups(conf)
+    weights.fill_module(lm, groups, seed)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    fetch = lambda gi: weights.draw_group(groups[gi], seed, gi, dev)
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, P + K))
+    toks = torch.as_tensor(ids, device=dev)
+    eng = ServeEngine(cfg, lm, max_len=P + K + 1, par=Parallel())
+    # each layer's input and output at every position: the prefill's, then
+    # each decode step's
+    seen = {"in": [[] for _ in range(L)], "out": [[] for _ in range(L)]}
+    apply = lm._apply_layer
+    index = {id(layer): i for i, layer in enumerate(lm.layers)}
+
+    def keep(layer, x, *a, **k):
+        out = apply(layer, x, *a, **k)
+        i = index[id(layer)]
+        seen["in"][i].append(x.clone())
+        seen["out"][i].append(out[0].clone())
+        return out
+
+    lm._apply_layer = keep
+    fa = fa_ops.flash_attention
+    fa.launches_tensor_core, n0 = 0, fa.launches
+    with torch.inference_mode():
+        logits, _, caches = lm(toks[:, :P], Parallel(), mode="prefill")
+        launches = fa.launches_tensor_core
+        check(launches == fa.launches - n0 == L, "prefill did not run each "
+              "layer's attention on the tensor-core kernel")
+        caches = eng._pad_caches(caches, 2, P)
+        got = [logits[:, -1, :cfg.vocab_size].float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for j in range(K):
+            out, caches = lm.decode_step(toks[:, P + j:P + j + 1], caches,
+                                         P + j)
+            got.append(out[:, 0, :cfg.vocab_size].float())
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t1) / K
+        check(fa.launches - n0 == L, "decode launched the flash kernel")
+    lm._apply_layer = apply
+    peak = torch.cuda.max_memory_allocated()
+    del caches, logits
+    pos = torch.arange(P + K, device=dev).expand(2, P + K)
+
+    def rel(a, b, base):
+        return ((a.float() - b.float()).norm(dim=-1)
+                / base.float().norm(dim=-1))
+
+    # per layer, from the program's own inputs at all P + K positions: the
+    # mixer's decode (absorbed, over the latent cache) against its prefill
+    # path (expanded k and v, the flash kernel) and against the float32
+    # reference's latent attention; and the whole layer's decode outputs
+    # against the reference's layer (a token's error over what the layer
+    # adds, as the benchmark's check)
+    mix_pre, mix_ref, lay = [], [], []
+    norms = mla_moe_lm.float_group(fetch, 2)
+    with torch.inference_mode():
+        for i, layer in enumerate(lm.layers):
+            x = torch.cat(seen["in"][i], 1)
+            y = torch.cat(seen["out"][i], 1)[:, P:]
+            h = layer.norm1(x)
+            full, _ = mla_mod.mla_attention(layer.mixer, cfg, h, pos)
+            _, cache = mla_mod.mla_attention(layer.mixer, cfg, h[:, :P],
+                                             pos[:, :P])
+            cache = eng._pad_caches([cache], 2, P)[0]
+            dec = torch.cat([mla_mod.mla_decode(
+                layer.mixer, cfg, h[:, P + j:P + j + 1], cache, P + j)[0]
+                for j in range(K)], 1)
+            w = mla_moe_lm.float_group(fetch, 3 + i)
+            w.update(norms)
+            with mla_moe_lm._fp32_products():
+                ref_attn = mla_moe_lm._attention(
+                    w, f"layers.{i}.", conf, h.float(), lambda a, b: a @ b,
+                    mla_moe_lm._same)[:, P:]
+            mix_pre.append(float(rel(dec, full[:, P:], full[:, P:]).max()))
+            mix_ref.append(float(rel(dec, ref_attn, ref_attn).max()))
+            want = mla_moe_lm.layer(w, conf, i, x.float())[:, P:]
+            lay.append(float(rel(y, want, want - x[:, P:].float()).median()))
+            del w, full, dec, cache, ref_attn, want
+    ref = mla_moe_lm.forward(conf, fetch, ids)[:, P - 1:]
+    res = dict(load_s=t_load, decode_step_s=t_dec, peak_gib=peak / 2**30,
+               decode_mixer_vs_prefill_path=mix_pre,
+               decode_mixer_vs_reference=mix_ref,
+               decode_layer_median_vs_reference=lay,
+               logits_vs_reference_whole_forward=[
+                   float(rel(a, ref[:, j], ref[:, j]).max())
+                   for j, a in enumerate(got)])
+    say(f"[8m] moonlight-16b-a3b: weights loaded in {t_load:.2f} s, peak "
+        f"{peak / 2**30:.2f} GiB; 2 x {P} prefilled, {K} decode steps at "
+        f"{1e3 * t_dec:.1f} ms a step; over the {L} layers, the decoded "
+        f"tokens' latent attention (absorbed, from the latent cache) "
+        f"against the prefill path at most {max(mix_pre):.4f} and against "
+        f"the float32 reference at most {max(mix_ref):.4f} (relative "
+        f"norm); each layer's median decoded-token error against the "
+        f"reference's layer at most {max(lay):.4f} of its update; the "
+        f"whole forward's logits against the reference, ungated (router "
+        f"ties at bf16 compound over 27 layers of random weights): "
+        f"{[round(e, 3) for e in res['logits_vs_reference_whole_forward']]}"
+        f" ({smi})")
+    say(json.dumps({"moonlight_serving": {**res, "prefill_flash_launches":
+                                          launches, "card": smi}}))
+    check(max(mix_pre) <= 0.03, "decode's latent attention left the "
+          "prefill path")
+    check(max(mix_ref) <= 0.03, "decode's latent attention left the "
+          "reference")
+    check(max(lay) <= 0.05, "decoded layers left the reference")
+    del lm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2193,7 +2349,7 @@ def main() -> int:
     tc_log = build_log(fa_kernel.TC_SOURCE)
     tc_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", tc_log)
-    check(len(tc_spills) == 4 and all(a == b == "0" for a, b in tc_spills),
+    check(len(tc_spills) == 5 and all(a == b == "0" for a, b in tc_spills),
           f"flash_attention_tc spills: {tc_spills}")
     check("Performance Loss" not in tc_log, "ptxas serialised the wgmma "
           "instructions of flash_attention_tc")
@@ -2229,7 +2385,7 @@ def main() -> int:
     t_first = time.perf_counter() - t0
     say(f"[1] build: nvcc {t_nvcc:.2f} s for all eight sources together ("
         + ", ".join(f"{src.name} {sec:.2f} s" for src, sec in nvcc_s.items())
-        + f"; flash_attention_tc 4 instances, flash_attention "
+        + f"; flash_attention_tc {len(tc_spills)} instances, flash_attention "
         f"{len(cc_instances)} and cfg_fuse {len(cfg_spills)}, 0 spill "
         f"bytes), first launches of adaln_norm, rmsnorm, cfg_update, "
         f"cfg_update_rowwise and cfg_update_mixed {t_first:.2f} s")
@@ -4069,6 +4225,60 @@ def main() -> int:
            library_max_abs_err=max_err(sdpa_j().transpose(1, 2), j_ref))
     del j_out, j_ref, bhsd_j, qj, kj, vj
 
+    # the tensor-core kernel's (192, 128) class at moonlight-16b-a3b's
+    # prefill layer (the moonlight-prefill-docs cell's wave: B 4, S 8192,
+    # 16/16 heads, q·k 192 against v 128, bf16, causal), drawn from a
+    # generator of its own.  The plain version runs a batch row at a time
+    # (its fp32 scores are 4.3 GB a row); every row of all four is gated.
+    # The library column is SDPA (causal, v at its own head dim: the same
+    # function); the launches are 8m's prefill (set there)
+    g33 = torch.Generator(dev).manual_seed(33)
+    qm, km = (torch.randn((4, 8192, 16, 192), generator=g33,
+                          device=dev).bfloat16() for _ in range(2))
+    vm = torch.randn((4, 8192, 16, 128), generator=g33,
+                     device=dev).bfloat16()
+
+    def plain_m():
+        return torch.cat([plain_lm_attn(qm[b:b + 1], km[b:b + 1],
+                                        vm[b:b + 1], **kw_o)
+                          for b in range(4)])
+    n_tc = fa.launches_tensor_core
+    m_out = fa(qm, km, vm, **kw_o)
+    check(fa.launches_tensor_core == n_tc + 1 and m_out.shape[3] == 128,
+          "moonlight's prefill layer did not take the tensor-core kernel's "
+          "(192, 128) class")
+    m_ref = plain_m()
+    m_err, m_rel = max_err(m_out, m_ref), row_rel_err(m_out, m_ref)
+    check(m_err <= TOL_ATTN_BF16 and m_rel <= TOL_ATTN_BF16_ROW,
+          f"flash_attention at moonlight's layer: max abs error {m_err:.3g}, "
+          f"row-relative {m_rel:.3g}")
+    bhsd_m = [t.transpose(1, 2) for t in (qm, km, vm)]
+
+    def sdpa_m():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *bhsd_m, is_causal=True)
+
+    record("flash_attention_lm_moonlight", "cuda",
+           "src/repro_torch/kernels/flash_attention/csrc/"
+           "flash_attention_tc.cu", None, TOL_ATTN_BF16,
+           [dict(mode="moonlight_causal_split_heads",
+                 shape=[4, 8192, 16, 16, 192, 128], max_abs_err=m_err,
+                 max_row_rel_err=m_rel)],
+           lambda: fa(qm, km, vm, **kw_o), plain_m, sdpa_m,
+           2 * (qm.numel() + km.numel() + vm.numel() + m_out.numel()),
+           2 * (192 + 128) * 4 * 16 * attn_pairs(8192, 8192, True, 0),
+           [4, 8192, 16, 16, 192, 128], peak=BF16_FLOPS, iters=5, phase=8,
+           mode="causal, MHA 16/16, q·k 192 against v 128, bf16 "
+                "(moonlight-16b-a3b, the benchmark cell's prefill wave), "
+                "tensor-core kernel's (192, 128) class, v unpadded",
+           launch_floor_ms=graph_ms(lambda: empty_launch(
+               (fa_kernel.work_list(8192, 8192, True, 0).shape[0] * 4 * 16,
+                1), 384, 1024 + (4 * 3 + 2 * 2) * 64 * 128 + 64,
+               torch.cuda.current_device())),
+           library_call="scaled_dot_product_attention, is_causal",
+           library_max_abs_err=max_err(sdpa_m().transpose(1, 2), m_ref))
+    del m_out, m_ref, bhsd_m, qm, km, vm
+
     # the tensor-core kernel at the frontend models' prefill layers (8i's
     # hubert-xlarge encoder: B 8, 1024 frames, 16/16 heads of 80, non-causal,
     # the 128-column class with columns 80-127 zero; 8j's internvl2-1b: B 8,
@@ -4484,6 +4694,12 @@ def main() -> int:
     t8 = time.perf_counter()
     phase_8l(dev, fns, smi)
     say(f"[8l] launcher, moe_ep and dry run: {time.perf_counter() - t8:.1f} s")
+
+    # -- 8m. moonlight-16b-a3b: latent attention and its cache -------------
+    t8 = time.perf_counter()
+    kernels["flash_attention_lm_moonlight"]["launches"] = phase_8m(dev, fns,
+                                                                   smi)
+    say(f"[8m] moonlight-16b-a3b: {time.perf_counter() - t8:.1f} s")
 
     # -- 9. the paper's methods end to end -----------------------------------
     # benchmarks/common.py's paper preset: phase 4's data and DiT, 30

@@ -6,6 +6,11 @@ port never imports it; ``act_dtype`` is a torch dtype here.  Every config
 of the reference registers: gemma2-2b, granite-20b, qwen2-7b, qwen3-32b,
 olmoe-1b-7b, phi3.5-moe, jamba-1.5-large, xlstm-125m, hubert-xlarge and
 internvl2-1b.
+
+Beside them, and not in the reference: ``MLAConfig`` and
+``DeepSeekV3Config``, a ``ModelConfig`` with the DeepSeek-V3 block's
+settings (latent attention, sigmoid routing with a selection bias, shared
+experts, leading dense layers), for moonlight-16b-a3b.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ ATTN_LOCAL = "attn_local"  # sliding-window self-attention
 MAMBA = "mamba"        # Mamba-1 selective SSM block
 MLSTM = "mlstm"        # xLSTM matrix-memory block
 SLSTM = "slstm"        # xLSTM scalar-memory block
+MLA = "mla"            # latent attention (DeepSeek-V3; not in the reference)
 
 
 @dataclass(frozen=True)
@@ -211,6 +217,65 @@ class ModelConfig:
                 a += (3 if self.gated_mlp else 2) * d * self.d_ff
             active += a
         return active
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Latent attention's widths (DeepSeek-V3's config keys).  q is projected
+    straight from the residual (``q_lora_rank`` null), k and v from one
+    ``kv_lora_rank`` latent a token, with one ``qk_rope_head_dim`` rope key
+    shared by the heads."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class DeepSeekV3Config(ModelConfig):
+    """A ``ModelConfig`` of the DeepSeek-V3 block: ``mla`` layers
+    (``MLA``), whose FFN is dense for the first ``first_k_dense`` layers
+    (width ``d_ff``) and, where ``uses_moe`` holds at the period position,
+    an MoE after them, routed by sigmoid scores (experts selected by top-k
+    of score + a per-expert bias, weighted by the selected scores
+    renormalised over the k, times ``routed_scaling_factor``), beside
+    ``n_shared_experts`` experts every token takes (one gated MLP of
+    ``n_shared_experts · d_ff_expert``).  ``head_dim`` is q·k's."""
+    mla: Optional[MLAConfig] = None
+    routed_scaling_factor: float = 1.0
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+
+    def moe_layer(self, index: int) -> bool:
+        """Whether layer ``index`` (absolute) is an MoE: ``uses_moe`` at
+        its period position, past the leading dense layers."""
+        return (index >= self.first_k_dense
+                and self.uses_moe(index % self.period))
+
+    def param_counts(self) -> dict:
+        """Total and active (per-token) parameter counts; a layer's norms
+        and the router's bias are left out, as ``ModelConfig`` leaves out
+        norms."""
+        d, H, m, e = self.d_model, self.num_heads, self.mla, self.moe
+        attn = (d * H * m.qk_head_dim + d * (m.kv_lora_rank
+                                             + m.qk_rope_head_dim)
+                + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                + H * m.v_head_dim * d)
+        expert = 3 * d * e.d_ff_expert
+        total = active = 2 * self.vocab_size * d
+        for i in range(self.num_layers):
+            if self.moe_layer(i):
+                shared = self.n_shared_experts * expert + d * e.num_experts
+                total += attn + e.num_experts * expert + shared
+                active += attn + e.top_k * expert + shared
+            else:
+                total += attn + 3 * d * self.d_ff
+                active += attn + 3 * d * self.d_ff
+        return {"total": total, "active": active}
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,8 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a), bf16 only:
 // causal, sliding-window, logit-softcap, GQA and non-causal modes, head dim
-// a multiple of 16 up to 256.
+// a multiple of 16 up to 256.  V and O have the head dim of q and k, or, in
+// the (192, 128) class, 128 against q.k's 192: latent attention's split
+// heads (k = [k_nope 128, k_rope 64], v 128), with V never padded.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_bhsd
 // (body _flash_kernel) for bf16 inputs; fp32, and bf16 at shapes this kernel
@@ -53,7 +55,9 @@
 //     the warpgroup's (now free) Q tile in the swizzled layout and stored
 //     with TMA, which clips rows past Sq and columns past hd.
 // Shared memory at hd 256: Q 64 KB + K and V 2 x 2 x 32 KB = 192 KB, one
-// block per SM.
+// block per SM.  In the (192, 128) class V's tiles, the P.V products, the
+// output accumulators (2 x 32 fp32 a thread) and the stored O are 128
+// columns wide: Q 48 KB + K 2 x 24 KB + V 2 x 16 KB = 128 KB.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -240,7 +244,8 @@ __device__ __forceinline__ void scores(float (&s)[32], float (&mx)[2],
   }
 }
 
-template <int HDP>
+// HDP: q's and k's head-dim class; HDV: v's and o's (HDV <= HDP).
+template <int HDP, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -249,15 +254,17 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const int* __restrict__ work, int pairs, int Hq, int rep,
                     int Sq, int Sk, int causal, int window, float softcap,
                     float scale) {
-  constexpr int NC = HDP / 64;                  // 64-column blocks of hd
-  constexpr uint32_t kTile = NC * kSub;         // one K or V tile
+  constexpr int NC = HDP / 64;                  // 64-column blocks of q, k
+  constexpr int NV = HDV / 64;                  // 64-column blocks of v, o
+  constexpr uint32_t kTile = NC * kSub;         // one K tile
+  constexpr uint32_t kTileV = NV * kSub;        // one V tile
   constexpr uint32_t kQ = 2 * kTile;            // the block's 128 Q rows
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sQ = (raw + 1023) & ~1023u;    // swizzle blocks: 1 KB aligned
   uint8_t* const gQ = smem_raw + (sQ - raw);
   const uint32_t sK = sQ + kQ, sV = sK + kStages * kTile;
-  const uint32_t bar = sV + kStages * kTile;    // q_full, then per stage:
+  const uint32_t bar = sV + kStages * kTileV;   // q_full, then per stage:
   const uint32_t q_full = bar;                  // k_full, v_full, empty
 #define K_FULL(s) (bar + 8 + 24 * (s))
 #define V_FULL(s) (bar + 16 + 24 * (s))
@@ -297,9 +304,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int c = 0; c < NC; ++c)
           tma_load(sK + s * kTile + c * kSub, &kmap, K_FULL(s), 64 * c, hk,
                    k0, b);
-        mbar_expect_tx(V_FULL(s), kTile);
-        for (int c = 0; c < NC; ++c)
-          tma_load(sV + s * kTile + c * kSub, &vmap, V_FULL(s), 64 * c, hk,
+        mbar_expect_tx(V_FULL(s), kTileV);
+        for (int c = 0; c < NV; ++c)
+          tma_load(sV + s * kTileV + c * kSub, &vmap, V_FULL(s), 64 * c, hk,
                    k0, b);
       }
     }
@@ -316,9 +323,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const float c_in = capped ? scale * 2.f * kLog2e / softcap : scale * kLog2e;
     const float c_out = softcap * kLog2e;
 
-    float o[NC][32], s[32], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    float o[NV][32], s[32], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NV; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
 #pragma unroll
@@ -380,7 +387,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NV; ++c)
 #pragma unroll
           for (int j = 0; j < 32; ++j) o[c][j] *= alpha[(j >> 1) & 1];
 
@@ -393,19 +400,19 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             a[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
 
         mbar_wait(V_FULL(st), parity);
-        const uint32_t sVt = sV + st * kTile;
+        const uint32_t sVt = sV + st * kTileV;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+        for (int c = 0; c < NV; ++c) fence_regs(o[c]);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int c = 0; c < NC; ++c)
+          for (int c = 0; c < NV; ++c)
             wgmma_rs(o[c], a[kk], mnmajor(sVt + c * kSub + kk * 16 * 128));
         wg_commit();
         wg_wait_all();
 #pragma unroll
-        for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+        for (int c = 0; c < NV; ++c) fence_regs(o[c]);
       } else {
         mbar_wait(V_FULL(st), parity);            // the stage is read out
       }
@@ -420,9 +427,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
-    uint8_t* const out = gQ + wg * kTile;
+    uint8_t* const out = gQ + wg * kTile;       // NV <= NC blocks of it
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NV; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -437,7 +444,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
     if (w == 0 && lane == 0 && row0 < Sq) {
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NV; ++c)
         tma_store(&omap, sQw + c * kSub, 64 * c, h, row0, b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -494,13 +501,14 @@ int encode(CUtensorMap* map, const void* ptr, int hd, int H, int S, int B,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int HDP>
+template <int HDP, int HDV = HDP>
 int launch(const CUtensorMap* maps, const int* work, int n_work, int B,
            int Hq, int Hkv, int Sq, int Sk, int causal, int window,
            float softcap, float scale, cudaStream_t stream) {
-  constexpr int NC = HDP / 64;
-  constexpr size_t smem = 1024 + (2 + 2 * kStages) * NC * kSub + 64;
-  auto kern = flash_fwd_tc_kernel<HDP>;
+  constexpr int NC = HDP / 64, NV = HDV / 64;
+  constexpr size_t smem =
+      1024 + ((2 + kStages) * NC + kStages * NV) * kSub + 64;
+  auto kern = flash_fwd_tc_kernel<HDP, HDV>;
   // setmaxnreg only moves registers within the block's allocation: the
   // consumers' 240 must come out of what the launch gives, or they wait
   // for ever
@@ -523,17 +531,18 @@ int launch(const CUtensorMap* maps, const int* work, int n_work, int B,
 
 }  // namespace
 
-// q/o: (B, Sq, Hq, hd) bf16 views, k/v: (B, Sk, Hkv, hd) bf16 views, given by
-// their (batch, seq, head) strides in elements (each a positive multiple of
-// 8), unit stride over hd, base pointers 16-byte aligned; hd a multiple of 16
-// up to 256; Hq a multiple of Hkv.  causal 0/1, window 0 for none, softcap 0
+// q: (B, Sq, Hq, hd), k: (B, Sk, Hkv, hd), v: (B, Sk, Hkv, hdv) and o: (B,
+// Sq, Hq, hdv) bf16 views, given by their (batch, seq, head) strides in
+// elements (each a positive multiple of 8), unit stride over hd, base
+// pointers 16-byte aligned; hd a multiple of 16 up to 256; hdv equal to hd,
+// or hd 192 against hdv 128 (the (192, 128) class); Hq a multiple of Hkv.  causal 0/1, window 0 for none, softcap 0
 // for none.  `work` (device memory) holds n_work (query tile, first key
 // tile, end key tile) triples in launch order, 128-row query tiles and
 // 64-key tiles.  Launches on `stream` and returns cudaGetLastError() (0 on
 // success), or the error that refused the arguments or a tensor map.
 extern "C" int flash_attention_tc_fwd(
     const void* q, const void* k, const void* v, void* o,
-    int B, int Hq, int Hkv, int Sq, int Sk, int hd,
+    int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hdv,
     int causal, int window, float softcap,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
@@ -544,12 +553,18 @@ extern "C" int flash_attention_tc_fwd(
       Hq < 1 || Hkv < 1 || Hq % Hkv || window < 0 || softcap < 0.f ||
       n_work < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool split = hdv != hd;
+  if (split && (hd != 192 || hdv != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[4];
   int err = encode(&maps[0], q, hd, Hq, Sq, B, qsb, qss, qsh);
   if (!err) err = encode(&maps[1], k, hd, Hkv, Sk, B, ksb, kss, ksh);
-  if (!err) err = encode(&maps[2], v, hd, Hkv, Sk, B, vsb, vss, vsh);
-  if (!err) err = encode(&maps[3], o, hd, Hq, Sq, B, osb, oss, osh);
+  if (!err) err = encode(&maps[2], v, hdv, Hkv, Sk, B, vsb, vss, vsh);
+  if (!err) err = encode(&maps[3], o, hdv, Hq, Sq, B, osb, oss, osh);
   if (err) return err;
+  if (split)
+    return launch<192, 128>(maps, work, n_work, B, Hq, Hkv, Sq, Sk, causal,
+                            window, softcap, scale, stream);
   if (hd <= 64)
     return launch<64>(maps, work, n_work, B, Hq, Hkv, Sq, Sk, causal, window,
                       softcap, scale, stream);

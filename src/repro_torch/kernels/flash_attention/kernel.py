@@ -6,7 +6,8 @@ design notes are in their sources):
   the DiT's attention;
 * ``csrc/flash_attention_tc.cu``: bf16 on the tensor cores (wgmma, TMA, a
   warp-specialised pipeline), for head dims that are multiples of 16 and
-  strides TMA can address (``tensor_core_route``);
+  strides TMA can address (``tensor_core_route``); v and o may have a head
+  dim of their own in its (192, 128) class (``split_head_dims``);
 * ``csrc/flash_attention.cu``: fp32 and bf16 on the CUDA cores, register-
   tiled like an SGEMM, any head dim up to 256 (``cuda_core_geometry``) and
   any strides with a unit stride over hd: every other call.
@@ -43,15 +44,23 @@ SHORT_MAX_S, SHORT_MAX_HEAD_DIM = 32, 64
 SHORT_MAX_WARPS, SHORT_MAX_SMEM = 8, 48 * 1024
 
 
+def split_head_dims(hd: int, hdv: int) -> bool:
+    """Whether the tensor-core kernel's (192, 128) class takes q·k at head
+    dim ``hd`` against v and o at ``hdv``: latent attention's 192 and 128
+    only."""
+    return (hd, hdv) == (192, 128)
+
+
 def tensor_core_route(q, k, v) -> bool:
     """Whether a call goes to the tensor-core kernel: bf16, head dim a
-    multiple of 16 up to 256, a unit stride over hd, every (batch, seq,
-    head) stride a positive multiple of 16 bytes and every base pointer
-    16-byte aligned (what a TMA tensor map takes).  A plain function of
-    dtype, shape and strides."""
-    hd = q.shape[-1]
+    multiple of 16 up to 256, v's head dim the same or ``split_head_dims``,
+    a unit stride over hd, every (batch, seq, head) stride a positive
+    multiple of 16 bytes and every base pointer 16-byte aligned (what a TMA
+    tensor map takes).  A plain function of dtype, shape and strides."""
+    hd, hdv = q.shape[-1], v.shape[-1]
     return (q.dtype == torch.bfloat16 and hd % 16 == 0
             and hd <= MAX_HEAD_DIM
+            and (hdv == hd or split_head_dims(hd, hdv))
             and all(t.stride(3) == 1 for t in (q, k, v))
             and all(t.stride(i) > 0 and t.stride(i) * 2 % 16 == 0
                     for t in (q, k, v) for i in range(3))
@@ -273,7 +282,7 @@ def cuda_core_occupancy(dtype: torch.dtype, hdp: int, device: int) -> int:
 @functools.cache
 def _tc_fn():
     fn = nvcc_library(TC_SOURCE).flash_attention_tc_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float] + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_void_p])
@@ -289,16 +298,17 @@ def build_tc() -> None:
 def flash_attention_tc_bshd(q, k, v, *, causal: bool, window: int,
                             softcap: float) -> torch.Tensor:
     """``flash_attention_bshd`` on the tensor-core kernel, for the bf16 views
-    that ``tensor_core_route`` accepts.  Returns a contiguous (B, Sq, Hq, hd)
-    bf16 tensor."""
+    that ``tensor_core_route`` accepts.  Returns a contiguous (B, Sq, Hq,
+    hdv) bf16 tensor, hdv v's head dim."""
     B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    Sk, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    o = torch.empty((B, Sq, Hq, hdv), dtype=q.dtype, device=q.device)
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
     work = _work_on(q.device, Sq, Sk, bool(causal), int(window))
     with torch.cuda.device(q.device):
         err = _tc_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       B, Hq, Hkv, Sq, Sk, hd, int(causal), int(window),
+                       B, Hq, Hkv, Sq, Sk, hd, hdv, int(causal),
+                       int(window),
                        float(softcap), *strides, hd ** -0.5, work.data_ptr(),
                        work.shape[0],
                        torch.cuda.current_stream(q.device).cuda_stream)

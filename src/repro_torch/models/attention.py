@@ -93,7 +93,8 @@ def _mix_f32(p, v):
 
 
 def _attend(q, k, v, mask, cfg: ModelConfig, window: int):
-    """Reference attention.  q: (B,Sq,Hq,hd); k,v: (B,Sk,Hkv,hd).
+    """Reference attention.  q, k: (B,Sq|Sk,Hq|Hkv,hd); v: (B,Sk,Hkv,hd_v)
+    (latent attention's v is narrower than q·k); returns (B, Sq, Hq·hd_v).
 
     ``mask``: (B, Sq, Sk) or (Sq, Sk) boolean, True = attend.
 
@@ -130,7 +131,7 @@ def _attend(q, k, v, mask, cfg: ModelConfig, window: int):
         out = _mix_f32(probs, v)
     else:
         out = torch.einsum("bhrqk,bkhd->bqhrd", probs.float(), v.float())
-    return out.to(v.dtype).reshape(B, Sq, Hq * hd)
+    return out.to(v.dtype).reshape(B, Sq, -1)
 
 
 def _attend_chunked(q, k, v, cfg: ModelConfig, *, causal: bool, window: int,

@@ -11,6 +11,15 @@ loss E·Σ f·P.  Each expert takes its first ``capacity`` selected tokens in
 token order and drops the rest; ``capacity = max(1, cdiv(T·k, E)·4)`` with
 T = B·S, the reference's dense path.
 
+The DeepSeek-V3 block (``configs/base.py::DeepSeekV3Config``; not in the
+reference) routes otherwise (``scoring="sigmoid"``): fp32 router logits,
+sigmoid scores, experts selected by the top-k of score + ``router_bias``
+(the same lower-index-first order), gated by their scores renormalised
+over the k and scaled by ``routed_scaling_factor``.  Its shared experts,
+one gated MLP every token takes, are added to the routed output inside
+``moe_dense`` (and ``moe_ep``).  The expert passes below take either
+route's gates as they are.
+
 Two expert passes, chosen by what the call can observe (``compact_route``):
 
 * **compact** (x on a CUDA card in bf16, autograd not recording: serving):
@@ -51,16 +60,17 @@ ascending order, and ``aux`` is the mean over the data shards.
 ``Parallel`` names a model axis and a mesh.
 
 Under an enabled current tracer (``obs/trace.py``) ``moe_dense`` is a
-``moe`` span, and ``route`` and every local expert pass open ``moe.route``,
-``moe.dispatch`` (the index lists, and on the padded path the gather of the
-experts' rows), ``moe.experts`` (the products and the activation; attribute
-``path``, ``"compact"`` or ``"padded"``) and ``moe.combine`` (weighting and
-sum).  ``moe.dispatch`` carries ``pairs``, the (token, expert) pairs routed
-to the pass's experts; ``expert_rows``, the rows its experts compute (the
-kept rows rounded up to the row tile on the compact path, a 0-d tensor on
-the device; E_loc·D·cap on the padded one); and ``dropped``, the pairs past
-their expert's capacity, a 0-d tensor on the device (no host sync), as is
-``pairs`` in a pass over some of the experts.
+``moe`` span, and ``route`` and every local expert pass open ``moe.route``
+(attribute ``scoring``), ``moe.dispatch`` (the index lists, and on the
+padded path the gather of the experts' rows), ``moe.experts`` (the products
+and the activation; attribute ``path``, ``"compact"`` or ``"padded"``) and
+``moe.combine`` (weighting and sum); the shared experts are
+``moe.shared``.  ``moe.dispatch`` carries ``pairs``, the (token, expert)
+pairs routed to the pass's experts; ``expert_rows``, the rows its experts
+compute (the kept rows rounded up to the row tile on the compact path, a
+0-d tensor on the device; E_loc·D·cap on the padded one); and ``dropped``,
+the pairs past their expert's capacity, a 0-d tensor on the device (no host
+sync), as is ``pairs`` in a pass over some of the experts.
 """
 from __future__ import annotations
 
@@ -72,9 +82,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import (DeepSeekV3Config, ModelConfig,
+                                      MoEConfig)
 from repro_torch.kernels.moe import ops as moe_ops
 from repro_torch.kernels.moe.kernel import BM
+from repro_torch.models.layers import MLP
 from repro_torch.obs.trace import current
 
 
@@ -137,7 +149,9 @@ class MoE(nn.Module):
     """The reference's ``init_moe`` leaves as parameters, in its layouts:
     ``w_router`` (d, E), ``experts_up`` and ``experts_gate`` (E, d, fe),
     ``experts_down`` (E, fe, d); held in ``dtype``, allocated, not drawn.
-    ``moe_apply(moe, cfg, x, par)`` runs it."""
+    A ``DeepSeekV3Config`` adds ``router_bias`` (E,) in fp32 (sigmoid
+    scoring's selection bias) and ``shared`` (an ``MLP`` of
+    ``n_shared_experts · fe``).  ``moe_apply(moe, cfg, x, par)`` runs it."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype=torch.float32):
@@ -150,6 +164,21 @@ class MoE(nn.Module):
         self.experts_down = nn.Parameter(torch.empty((E, fe, d), **kw))
         self.experts_gate = (nn.Parameter(torch.empty((E, d, fe), **kw))
                              if cfg.gated_mlp else None)
+        self.router_bias = self.shared = None
+        self.scoring, self.scale = "softmax", 1.0
+        if isinstance(cfg, DeepSeekV3Config):
+            self.scoring, self.scale = "sigmoid", cfg.routed_scaling_factor
+            self.router_bias = nn.Parameter(torch.zeros(E, device=device))
+            if cfg.n_shared_experts:
+                self.shared = MLP(d, cfg.n_shared_experts * fe,
+                                  cfg.gated_mlp, cfg.mlp_act, **kw)
+
+    def routing(self, device=None) -> dict:
+        """``route``'s keywords for this layer (the bias on ``device``)."""
+        if self.scoring == "softmax":
+            return {}
+        return {"scoring": self.scoring, "scale": self.scale,
+                "bias": self.router_bias.to(device)}
 
 
 def top_k_lower_first(probs, k: int):
@@ -159,15 +188,28 @@ def top_k_lower_first(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(w_router, x_flat, m: MoEConfig):
+def route(w_router, x_flat, m: MoEConfig, *, scoring: str = "softmax",
+          bias=None, scale: float = 1.0):
     """Returns (gates (T, k) fp32, idx (T, k) int64, aux_loss scalar).
     ``x_flat`` may lead with a shard axis, (D, T, d): each shard routes its
-    own tokens and has its own aux loss, (D,)."""
-    with current().span("moe.route"):
-        logits = (x_flat @ w_router.to(x_flat.dtype)).float()
-        probs = torch.softmax(logits, dim=-1)                  # (T, E)
-        gates, idx = top_k_lower_first(probs, m.top_k)
-        gates = gates / gates.sum(-1, keepdim=True)
+    own tokens and has its own aux loss, (D,).  ``scoring="sigmoid"``
+    (DeepSeek-V3's): logits in fp32 from x and the router cast to fp32,
+    experts chosen by the top-k of sigmoid score + ``bias`` (E,), gates the
+    chosen scores over their sum (+ 1e-20) times ``scale``; the aux loss
+    takes the scores normalised over the experts as its P."""
+    with current().span("moe.route", scoring=scoring):
+        if scoring == "sigmoid":
+            logits = x_flat.float() @ w_router.float()
+            scores = torch.sigmoid(logits)
+            _, idx = top_k_lower_first(scores + bias, m.top_k)
+            gates = scores.gather(-1, idx)
+            gates = gates / (gates.sum(-1, keepdim=True) + 1e-20) * scale
+            probs = scores / scores.sum(-1, keepdim=True)
+        else:
+            logits = (x_flat @ w_router.to(x_flat.dtype)).float()
+            probs = torch.softmax(logits, dim=-1)              # (T, E)
+            gates, idx = top_k_lower_first(probs, m.top_k)
+            gates = gates / gates.sum(-1, keepdim=True)
         # Switch-style load-balance loss: E * sum_e f_e * P_e, f_e the
         # dispatch fraction (an integer count over T, exact as the
         # reference's)
@@ -470,11 +512,16 @@ def _dispatch_counts(gates, idx, slot, n: int, e_start: int, E_loc: int,
 def moe_dense(params: MoE, cfg: ModelConfig, x):
     """Single-device path (all experts local).  Returns (out, aux)."""
     B, S, d = x.shape
-    with current().span("moe"):
+    tr = current()
+    with tr.span("moe"):
         x_flat = x.reshape(B * S, d)
-        gates, idx, aux = route(params.w_router, x_flat, cfg.moe)
+        gates, idx, aux = route(params.w_router, x_flat, cfg.moe,
+                                **params.routing())
         out = local_expert_pass(params, cfg, x_flat, 0, cfg.moe.num_experts,
                                 capacity(B * S, cfg.moe), gates, idx)
+        if params.shared is not None:
+            with tr.span("moe.shared"):
+                out = out + params.shared(x_flat)
     return out.reshape(B, S, d), aux
 
 
@@ -546,7 +593,8 @@ def moe_ep(params: MoE, cfg: ModelConfig, x, par: Parallel,
         for s in range(M):
             dev = grid[g[0], s]
             xs = xd[g[0]:g[-1] + 1].to(dev)
-            gates, idx, aux = route(params.w_router.to(dev), xs, m)
+            gates, idx, aux = route(params.w_router.to(dev), xs, m,
+                                    **params.routing(dev))
             parts.append(local_expert_pass(params, cfg, xs.reshape(-1, d),
                                            s * E_loc, E_loc, cap, gates, idx))
             if s == 0:
@@ -559,7 +607,11 @@ def moe_ep(params: MoE, cfg: ModelConfig, x, par: Parallel,
     if moe_ep.record is not None:
         moe_ep.record.append(sum(drops))
     aux = torch.cat(auxs)
-    return torch.cat(outs).reshape(B, S, d), aux.sum() / aux.numel()
+    out = torch.cat(outs).reshape(B, S, d)
+    if params.shared is not None:
+        with current().span("moe.shared"):
+            out = out + params.shared(x)
+    return out, aux.sum() / aux.numel()
 
 
 moe_ep.calls = 0

@@ -8,8 +8,16 @@ The reference stacks the layers of each period position along a leading
 ``num_groups`` axis and scans over groups; the port keeps one module per
 layer in absolute order (layer ``g · period + p`` is group g's position p;
 ``convert.lm_state_from_jax`` maps the one onto the other).  A layer's
-decode cache is a ``KVCache`` (attention, written in place) or its mixer's
+decode cache is a ``KVCache`` (attention, written in place), a
+``LatentCache`` (latent attention, written in place) or its mixer's
 recurrent state (Mamba, mLSTM, sLSTM; replaced each step).
+
+Beside the reference's layers, the DeepSeek-V3 block
+(``configs/base.py::DeepSeekV3Config``, moonlight-16b-a3b): latent
+attention (``models/mla.py``), a dense FFN in the first ``first_k_dense``
+layers and sigmoid-routed MoE with shared experts after them (a layer
+knows its absolute index).  ``init_lm`` does not draw it (the reference
+has no such initialiser): its weights are loaded by name.
 
 Weights are held in the activation dtype for serving (the reference holds
 fp32 and casts each to it at use, which rounds the same way), or in fp32
@@ -31,10 +39,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MLSTM, SLSTM,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MLA, MLSTM,
+                                      SLSTM, DeepSeekV3Config, ModelConfig)
 from repro_torch.convert import lm_layer_items, lm_state_items
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (MLP, Dense, RMSNorm, embed,
                                        init_embedding, unembed)
@@ -59,16 +68,20 @@ FRONTENDS = ("token", "vision_patches", "audio_frames")
 
 
 class Layer(nn.Module):
-    """One layer at period position p (absolute layer ≡ p mod period)."""
+    """Layer ``index`` of the stack (at period position index mod
+    period)."""
 
-    def __init__(self, cfg: ModelConfig, p: int, **kw):
+    def __init__(self, cfg: ModelConfig, index: int, **kw):
         super().__init__()
+        p = index % cfg.period
         kind = cfg.layer_kind(p)
         dev = kw["device"]
         self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
         if kind in (ATTN, ATTN_LOCAL):
             self.mixer = attn_mod.Attention(cfg, **kw)
+        elif kind == MLA:
+            self.mixer = mla_mod.MLA(cfg, **kw)
         elif kind in RECURRENT:
             self.mixer = RECURRENT[kind][0](cfg, **kw)
         else:
@@ -78,7 +91,8 @@ class Layer(nn.Module):
         has_ffn = _has_ffn(cfg, p)
         if has_ffn:
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
-            if cfg.uses_moe(p):
+            if (cfg.moe_layer(index) if isinstance(cfg, DeepSeekV3Config)
+                    else cfg.uses_moe(p)):
                 self.moe = MoE(cfg, **kw)
             else:
                 self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp,
@@ -134,7 +148,7 @@ class LM(nn.Module):
         elif not cfg.tie_embeddings:
             self.lm_head = head
         self.layers = nn.ModuleList(
-            Layer(cfg, i % cfg.period, device=device, dtype=dt)
+            Layer(cfg, i, device=device, dtype=dt)
             for i in range(cfg.num_layers))
 
     @property
@@ -184,6 +198,14 @@ class LM(nn.Module):
                 h, new_cache = forward(layer.mixer, cfg, h, return_state=True)
             else:
                 h = forward(layer.mixer, cfg, h)
+        elif layer.kind == MLA:
+            if mode == "decode":
+                h, new_cache = mla_mod.mla_decode(layer.mixer, cfg, h, cache,
+                                                  decode_pos)
+            else:
+                h, latent = mla_mod.mla_attention(
+                    layer.mixer, cfg, h, pos, use_kernels=par.use_kernels)
+                new_cache = latent if mode == "prefill" else None
         elif mode == "decode":
             h, new_cache = attn_mod.attention_decode(
                 layer.mixer, cfg, h, cache, decode_pos, kind=layer.kind)
@@ -228,7 +250,8 @@ class LM(nn.Module):
 
         Returns (logits, aux_loss) for mode="train"; (logits, aux_loss,
         caches) for mode="prefill", caches a list with one entry per layer:
-        a ``KVCache`` of (B, S, n_kv, head_dim), or the mixer's recurrent
+        a ``KVCache`` of (B, S, n_kv, head_dim), a ``LatentCache`` of (B, S,
+        kv_lora_rank) and (B, S, qk_rope_head_dim), or the mixer's recurrent
         state after the last position.  ``aux_loss`` sums the MoE
         routers' load-balance losses over the layers (0 for dense
         stacks).  With ``cfg.remat == "full"`` and grad on, each layer's
@@ -269,13 +292,19 @@ class LM(nn.Module):
     # -- decode ---------------------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=None):
         """One cache per layer: a zero ``KVCache`` of (batch, max_len,
-        n_kv, head_dim), or the mixer's initial recurrent state."""
+        n_kv, head_dim), a zero ``LatentCache`` of max_len positions, or the
+        mixer's initial recurrent state."""
         cfg, dtype = self.cfg, dtype or self.cfg.act_dtype
-        return [RECURRENT[layer.kind][3](cfg, batch, dtype, self.device)
-                if layer.kind in RECURRENT else
-                attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
-                                       self.device)
-                for layer in self.layers]
+
+        def one(kind):
+            if kind in RECURRENT:
+                return RECURRENT[kind][3](cfg, batch, dtype, self.device)
+            if kind == MLA:
+                return mla_mod.init_latent_cache(cfg, batch, max_len, dtype,
+                                                 self.device)
+            return attn_mod.init_kv_cache(cfg, batch, max_len, dtype,
+                                          self.device)
+        return [one(layer.kind) for layer in self.layers]
 
     def decode_step(self, tokens, caches, pos: int,
                     par: Parallel = Parallel()):
@@ -547,6 +576,10 @@ def _lazy_tree(key, cfg: ModelConfig, device):
     into its layers' keys.  Returns (the tree without
     ``groups``, the layer keys (num_groups, period, 2))."""
     LM(cfg, device="meta")                # refuses what the LM refuses
+    if MLA in cfg.layer_pattern:
+        raise NotImplementedError(f"{cfg.name}: the reference has no initial "
+                                  "weights of latent attention; load them "
+                                  "by name")
     key, gkey = prng.split(np.asarray(key, np.uint32))
     ks = prng.split(key, 5)
     d = cfg.d_model

@@ -12,8 +12,8 @@ kernel unless ``par.use_kernels`` is off, and decode attention is plain.
 ``tracer`` (``obs/trace.py``; the process default when not given) is
 current while ``run`` drains, so the LM's layers open their spans on it.
 Each wave is a ``serve.wave`` span (``B``, ``L``) holding
-``serve.prefill`` (the LM forward), ``serve.pad_caches``,
-``serve.first_token`` (the argmax and its read to the host, the wave's
+``serve.prefill`` (the LM forward), ``serve.pad_caches`` (``cache_bytes``:
+the padded caches' bytes), ``serve.first_token`` (the argmax and its read to the host, the wave's
 sync) and one ``serve.decode_step`` a decode step.
 """
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mla import LatentCache
 from repro_torch.models.moe import Parallel
 from repro_torch.models.transformer import LM
 from repro_torch.obs.metrics import MetricsRegistry
@@ -86,16 +87,16 @@ class ServeEngine:
 
     # -- internals --------------------------------------------------------
     def _pad_caches(self, caches, B: int, L: int):
-        """The prefill's (B, L, ...) KV caches copied into zero caches of
-        max_len positions, as the reference pads them; recurrent states
-        (Mamba, mLSTM, sLSTM) pass through."""
+        """The prefill's (B, L, ...) KV and latent caches copied into zero
+        caches of max_len positions, as the reference pads them; recurrent
+        states (Mamba, mLSTM, sLSTM) pass through."""
         def pad(c):
-            if not isinstance(c, KVCache):
+            if not isinstance(c, (KVCache, LatentCache)):
                 return c
-            full = KVCache(*(t.new_zeros((B, self.max_len, *t.shape[2:]))
+            full = type(c)(*(t.new_zeros((B, self.max_len, *t.shape[2:]))
                              for t in c))
-            full.k[:, :L] = c.k
-            full.v[:, :L] = c.v
+            for f, t in zip(full, c):
+                f[:, :L] = t
             return full
         return [pad(c) for c in caches]
 
@@ -110,8 +111,12 @@ class ServeEngine:
                                    device=self.lm.device)
             with tr.span("serve.prefill"):
                 logits, _, caches = self.lm(toks, self.par, mode="prefill")
-            with tr.span("serve.pad_caches"):
+            with tr.span("serve.pad_caches") as sp:
                 caches = self._pad_caches(caches, len(wave), L)
+                if tr.enabled:
+                    sp.set(cache_bytes=sum(
+                        t.numel() * t.element_size() for c in caches
+                        if isinstance(c, (KVCache, LatentCache)) for t in c))
             self.metrics.inc("waves")
             self.metrics.inc("prefilled", len(wave))
             with tr.span("serve.first_token"):

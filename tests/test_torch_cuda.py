@@ -485,6 +485,48 @@ def test_attention_tensor_core_kernel_with_more_keys_or_queries(
     assert _bf16_gates(out, _plain_attention(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("mode", ["causal", "causal_window65_cap",
+                                  "causal_sharp", "noncausal"])
+@pytest.mark.parametrize("S", [1, 65, 129, 4608])
+@pytest.mark.parametrize("hd,hdv", [(192, 128)])
+def test_attention_tensor_core_kernel_split_head_dims(dev, mode, S, hd,
+                                                       hdv):
+    """The tensor-core kernel's (192, 128) class against the plain version:
+    q and k at 192 against v and o at 128 (latent attention's heads, 16 of
+    them); V is read as it is, not padded, and o has v's head dim."""
+    causal, window, softcap, q_scale = TC_MODES[mode]
+    q, k, v = _tc_inputs(dev, 26, 1 if S > 1000 else 2, S, S, 16, 16, hd,
+                         q_scale)
+    v = v[..., :hdv].contiguous()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    fa = fa_ops.flash_attention
+    before = (fa.launches_tensor_core, fa.launches_cuda_core)
+    out = fa(q, k, v, **kw)
+    assert (fa.launches_tensor_core, fa.launches_cuda_core) == (
+        before[0] + 1, before[1])
+    assert out.shape == (*q.shape[:3], hdv) and out.is_contiguous()
+    assert _bf16_gates(out, _plain_attention(q, k, v, **kw))
+
+
+def test_split_head_dims_the_tensor_cores_do_not_take_raise(dev):
+    """v's head dim below q's outside the (192, 128) class raises on the
+    card, with nothing launched: fp32 at (192, 128), bf16 at (256, 128) and
+    at (144, 80), and bf16 (192, 128) at strides TMA cannot address."""
+    q, k, v = _randn(dev, 27, (2, 100, 4, 192), (2, 100, 4, 192),
+                     (2, 100, 4, 128))
+    wide = _randn(dev, 28, (2, 100, 4, 256), (2, 100, 4, 256))
+    odd = torch.zeros(2, 100, 4, 129, device=dev, dtype=torch.bfloat16)
+    cases = [(q, k, v), tuple(t.bfloat16() for t in (*wide, v)),
+             tuple(t[..., :n].bfloat16().contiguous()
+                   for t, n in ((q, 144), (k, 144), (v, 80))),
+             (q.bfloat16(), k.bfloat16(), odd[..., :128])]
+    for args in cases:
+        before = fa_ops.flash_attention.launches
+        with pytest.raises(ValueError, match="head dim"):
+            fa_ops.flash_attention(*args, causal=True)
+        assert fa_ops.flash_attention.launches == before
+
+
 def test_attention_tensor_core_kernel_is_deterministic(dev):
     """Two calls on the same inputs give the same bits (gemma2's local
     layer at one batch row): no block's result depends on the schedule."""

@@ -36,6 +36,26 @@ def test_other_dtypes_take_the_cuda_cores(dtype):
     assert not K.tensor_core_route(*_qkv(256, dtype))
 
 
+@pytest.mark.parametrize("hd,hdv,takes", [
+    (192, 128, True), (144, 80, False), (192, 112, False), (256, 128, False),
+    (128, 64, False), (192, 64, False), (192, 136, False), (192, 120, False)])
+def test_v_of_its_own_head_dim_takes_the_tensor_cores_in_the_192_128_class(
+        hd, hdv, takes):
+    """q·k at 192 against v at 128 alone (the (192, 128) class); latent
+    attention's v as it comes out of the up projection, a view 256 elements
+    a head apart, 128 elements in."""
+    q, k, _ = _qkv(hd)
+    v = torch.zeros(2, 70, 4, hdv, dtype=torch.bfloat16)
+    assert K.split_head_dims(hd, hdv) == takes
+    assert K.tensor_core_route(q, k, v) == takes
+    kv = torch.zeros(2, 70, 16, 256, dtype=torch.bfloat16)
+    assert K.tensor_core_route(torch.zeros(2, 70, 16, 192,
+                                           dtype=torch.bfloat16),
+                               torch.zeros(2, 70, 16, 192,
+                                           dtype=torch.bfloat16),
+                               kv[..., 128:])
+
+
 def test_views_whose_strides_tma_can_address_take_the_tensor_cores():
     # the DiT's (B, S, 3, H, hd) QKV buffer, a (B, H, S, hd) transpose and
     # gemma2's reshaped projections

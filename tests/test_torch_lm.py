@@ -198,8 +198,9 @@ def test_config_fields_and_derived_values_match_reference(name):
             jshapes.resolve_decode_config(jc, shape).name
     assert tshapes.smoke_shape("decode", 16, 3) == \
         tbase.InputShape("smoke_decode", 16, 3, "decode")
+    # the reference's configs, and moonlight-16b-a3b, which it lacks
     assert set(list_configs()) == {"gemma2-2b", "gemma2-2b-swa",
-                                   *NEW_CONFIGS}
+                                   *NEW_CONFIGS, "moonlight-16b-a3b"}
 
 
 def test_sub_config_defaults_match_reference():
